@@ -1,29 +1,44 @@
 """Chip smoke for the PyTorch/CUDA port (dragonboat_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
+    python3 chip_smoke.py --only colo_kernels,colocated   # some phases, no result
 
 Phases, each printing one JSON line:
 
-1. device   — the card's name and power limit (nvidia-smi), and the time
-              to build every CUDA kernel from the sources in this checkout.
-2. kernels  — each kernel held bit-exact against its plain PyTorch
-              version on the card at G = 30,000 rows (10k groups x 3
-              replicas; P=5, W=32, M=8, E=4, O=32), on states advanced
-              through a seeded routed sequence of steps plus seeded fuzz
-              inboxes over every hot message type; then each kernel's
-              median time per launch at that size.
-3. nodehost — the main path: three NodeHosts in one process on the
-              in-proc transport, each stepping its shards through
-              ``torch_step_engine_factory(device="cuda")``; 1,000 shards x
-              3 replicas elect leaders, take >= 4 writes each through
-              ``sync_propose``, and every acknowledged write is read back
-              linearizably through its shard's leader and from each of
-              the three replicas' state machines.  Kernel launch counts
-              are reset just before and read just after; every kernel
-              must have run.  The engines re-run every 50th launch and
-              every row move through the plain versions: every such
-              check begun must have passed, and the engines' workers
-              must have logged no error.
+1. device    — the card's name and power limit (nvidia-smi), and the time
+               to build every CUDA kernel from the sources in this checkout
+               (with the ptxas register and spill report).
+2. kernels   — raft_step, summarize_flags, gather_pack and place_rows held
+               bit-exact against their plain PyTorch versions on the card
+               at G = 30,000 rows (10k groups x 3 replicas; P=5, W=32, M=8,
+               E=4, O=32), on states advanced through a seeded routed
+               sequence of steps plus seeded fuzz inboxes over every hot
+               message type; then each kernel's time per launch at that
+               size (CUDA events per call, and the profiler's device time).
+3. colo_kernels — route, the three inbox entry points (assemble,
+               from_ticks, zero_rows) and select_and_blob, bit-exact
+               against their plain versions at G = 30,000 rows (P=5, W=32,
+               E=4, O=32, budget 4, assembled M = P*4 + 8, the fixed
+               capacity tiers) on states advanced by the port's own
+               fused_rounds over build_route_tables of the 10k x 3 layout;
+               then timed the same way.
+4. nodehost  — the base engine's path: three NodeHosts in one process on
+               the in-proc transport, each stepping its shards through
+               ``torch_step_engine_factory(device="cuda")``; 300 shards x
+               3 replicas elect leaders, take 4 writes each through
+               ``sync_propose``, and every acknowledged write is read back
+               linearizably and from each replica's state machine.
+5. colocated — the product path, the reference bench's phase C shape:
+               1,000 shards x 3 replicas on three NodeHosts sharing ONE
+               ``ColocatedEngineGroup(device="cuda")`` with the tan WAL;
+               8 workers keep 8 proposals in flight per shard through the
+               asynchronous ``propose`` future for 30 s; every
+               acknowledged write is read back from all three replicas.
+Each path's kernel launch counts are reset just before it and read just
+after; every kernel of the path must have run.  The engines re-run some
+launches (and every row move) through the plain versions: every such
+check begun must have passed, and the engines' workers must have logged
+no error.
 
 Then a line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -202,9 +217,43 @@ KERNEL_INFO = {
         replaces="dragonboat_tpu/ops/engine.py:163",
         also_replaces=["dragonboat_tpu/ops/engine.py:180",
                        "dragonboat_tpu/ops/engine.py:189",
-                       "dragonboat_tpu/ops/engine.py:400"],
+                       "dragonboat_tpu/ops/engine.py:400",
+                       "dragonboat_tpu/ops/colocated.py:441"],
     ),
 }
+
+# the colocated path's kernels (csrc/inbox.cu has three entry points;
+# its row in the result line is the per-round work of the main path,
+# from_ticks + assemble, with each entry's numbers beside it)
+COLO_KERNEL_INFO = {
+    "route": dict(
+        entries=("route",),
+        source="dragonboat_tpu_torch/csrc/route.cu",
+        replaces="dragonboat_tpu/ops/route.py:131",
+        also_replaces=["dragonboat_tpu/ops/route.py:395",
+                       "dragonboat_tpu/ops/route.py:431",
+                       "dragonboat_tpu/ops/route.py:475",
+                       "dragonboat_tpu/ops/route.py:500",
+                       "dragonboat_tpu/ops/colocated.py:215"],
+    ),
+    "inbox": dict(
+        entries=("host_inbox_from_ticks", "assemble_inbox"),
+        source="dragonboat_tpu_torch/csrc/inbox.cu",
+        replaces="dragonboat_tpu/ops/colocated.py:175",
+        also_replaces=["dragonboat_tpu/ops/colocated.py:199",
+                       "dragonboat_tpu/ops/colocated.py:411",
+                       "dragonboat_tpu/ops/colocated.py:399"],
+    ),
+    "select_and_blob": dict(
+        entries=("select_and_blob",),
+        source="dragonboat_tpu_torch/csrc/select_blob.cu",
+        replaces="dragonboat_tpu/ops/colocated.py:285",
+        also_replaces=[],
+    ),
+}
+# the entry points the colocated kernels phase holds and times
+COLO_ENTRIES = ("route", "assemble_inbox", "host_inbox_from_ticks",
+                "zero_inbox_rows", "select_and_blob")
 
 
 def nvidia_smi_line() -> str:
@@ -236,12 +285,34 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn`` in ms: the sum of the CUDA kernel,
+    memset and copy durations that ``torch.profiler`` records over
+    ``reps`` calls, divided by ``reps`` — the kernels alone, without the
+    host's enqueue gaps that CUDA events around one short launch also
+    see.  None when the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
 def ptxas_report(log: str) -> dict:
     """Register and spill lines of each kernel from the build's ptxas
     report."""
     names = ("raft_step_kernel", "summarize_flags_kernel",
              "gather_pack_kernel", "place_rows_kernel",
-             "place_snapshot_kernel")
+             "place_snapshot_kernel", "route_send_kernel",
+             "route_recv_kernel", "inbox_kernel", "select_rows_kernel",
+             "blob_kernel")
     rep, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -425,15 +496,228 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
     n = gidx.numel()
     lib_ms["place_rows"] = time_ms(
         lambda: [d.index_copy(0, gidx, s[:n]) for d, s in zip(st0, sub)], 20)
-    result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms,
-                  gather_rows=[b, b2], scatter_rows=n)
+    dev_ms = {
+        "raft_step": device_ms(lambda: K.step(st0, ib, O)),
+        "summarize_flags": device_ms(
+            lambda: plumbing.summarize_flags(st0, new, out)),
+        "gather_pack": device_ms(
+            lambda: plumbing.gather_pack(new, out, i4, isum)),
+        "place_rows": device_ms(
+            lambda: plumbing.place_rows(list(st0), sub, pos)),
+    }
+    result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                  library_ms=lib_ms, gather_rows=[b, b2], scatter_rows=n)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the colocated path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+BUDGET_K = 4   # route budget of the kernel phase
+M_HOST_K = 8   # host slots of the assembled inbox (M = P*B + 8)
+
+
+def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
+    """``route``, the three ``inbox`` entry points and ``select_and_blob``
+    at G = 30,000 rows (P=5, W=32, E=4, O=32, budget 4, assembled inbox
+    M = P*B + 8, the fixed capacity tiers), each bit-exact against its
+    plain version on states advanced by the port's own ``fused_rounds``
+    over ``build_route_tables`` of the 10k x 3 layout; then each timed
+    per launch with CUDA events."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import colocated as C
+    from dragonboat_tpu_torch.ops import colocated_ref as CR
+    from dragonboat_tpu_torch.ops import convert
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+
+    B, MH = BUDGET_K, M_HOST_K
+    PB = P * B
+    rng = np.random.default_rng(SEED + 2)
+    names = list(COLO_ENTRIES) + ["fused_rounds", "route_step"]
+    errs = {k: 0 for k in names}
+    checks = {k: 0 for k in names}
+
+    def check(name, got, want):
+        errs[name] = max(errs[name], _max_err(got, want))
+        checks[name] += 1
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    st_np = cluster_state_np(G, P, W, SEED + 1)
+    shard = np.arange(G) // 3 + 1
+    rid = np.arange(G) % 3 + 1
+    dest_np, rank_np = R.build_route_tables(shard, rid, st_np["peer_id"])
+    dest, rank = put(dest_np), put(rank_np)
+    st = convert.state_from_numpy(st_np, dev)
+    inbox = route_ref.make_prefill(st, MH + PB, E)
+    delivered = 0
+    for w in range(waves):
+        kw = dict(rounds=3, out_capacity=O, budget=B, base=MH,
+                  propose_leaders=w >= waves // 2)
+        new_st, new_ib, stats, n_esc = R.fused_rounds(
+            st, inbox, dest, rank, **kw)
+        if w in (0, waves - 1):
+            r = route_ref.fused_rounds(st, inbox, dest, rank, **kw)
+            check("fused_rounds", list(new_st) + list(new_ib) + [stats, n_esc],
+                  list(r[0]) + list(r[1]) + [r[2], r[3]])
+        delivered += int(stats[:, 0].sum())
+        st, inbox = new_st, new_ib
+    st_fin = convert.to_numpy(st)
+    cluster = dict(
+        groups=G // 3, waves=waves, rounds=3 * waves,
+        routed_delivered=delivered,
+        leaders=int((st_fin["role"] == T.ROLE_LEADER).sum()),
+        rows_committed=int((st_fin["committed"] >= 1).sum()),
+        max_committed=int(st_fin["committed"].max()),
+    )
+
+    # one colocated launch on those states: combo, host region, assemble,
+    # step, the route tail, the readback blobs, an eviction's zeroing
+    combo_np = np.zeros((G, 4), np.int32)
+    combo_np[:, C._C_ALIVE] = rng.random(G) < 0.97
+    combo_np[:, C._C_BATCH] = rng.random(G) < 0.5
+    combo_np[:, C._C_PROP] = rng.random(G) < 0.1
+    combo_np[:, C._C_TICKS] = rng.integers(0, 4, G)
+    combo = put(combo_np)
+    pending = T.Inbox(*(f[:, MH:].contiguous() for f in inbox))
+    host = C._host_inbox_from_ticks(combo, M=MH, E=E)
+    check("host_inbox_from_ticks", list(host),
+          list(CR.host_inbox_from_ticks(combo, M=MH, E=E)))
+    full = C._assemble_inbox(host, pending, combo)
+    check("assemble_inbox", list(full),
+          list(CR.assemble_inbox(host, pending, combo)))
+    new, out = K.step(st, full, O)
+    tail = C._route_step(st, new, out, dest, rank, combo, PB=PB, E=E,
+                         budget=B)
+    want = CR.route_step(st, new, out, dest, rank, combo, PB=PB, E=E,
+                         budget=B)
+    check("route_step", C._tensors(tail), C._tensors(want))
+    merged, regions, stats6, packed, flags = tail
+    esc = out.escalate != 0
+    alive = combo[:, C._C_ALIVE] != 0
+    got = R.route(merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
+                  suppress=esc, dest_alive=alive)
+    ref = route_ref.route(merged, out, dest, rank, M=PB, E=E, budget=B,
+                          base=0, suppress=esc, dest_alive=alive)
+    check("route", list(got[0]) + [torch.stack(list(got[1])), got[2]],
+          list(ref[0]) + [ref[1], ref[2]])
+    route_deliv = got[2]
+    sel_counts = {}
+    for t in range(len(C._SEL_TIERS)):
+        caps = {k: min(G, v) for k, v in C._SEL_TIERS[t].items()}
+        kw = dict(CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
+                  CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=PB)
+        got = C._select_and_blob(merged, out, stats6, packed, flags, combo,
+                                 **kw)
+        check("select_and_blob", list(got),
+              list(CR.select_and_blob(merged, out, stats6, packed, flags,
+                                      combo, **kw)))
+        if t == 0:
+            nw = (O + 31) // 32
+            sel_counts = dict(zip(
+                ("buf", "slot", "need", "append", "sum"),
+                got[0][G + G * nw + 6:G + G * nw + 11].tolist()))
+    mask = put(rng.random(G) < 0.05)
+    check("zero_inbox_rows", list(C._zero_inbox_rows(regions, mask)),
+          list(CR.zero_inbox_rows(regions, mask)))
+    result = dict(rows=G, budget=B, assembled_M=PB + MH, cluster=cluster,
+                  selected=sel_counts, checks=checks, max_abs_err=errs)
+    bad = {k: v for k, v in errs.items() if v != 0}
+    if bad:
+        raise AssertionError(
+            f"colocated kernels disagree with their plain versions: {bad}")
+    if cluster["leaders"] < 0.95 * (G // 3) or cluster["routed_delivered"] < 1:
+        raise AssertionError(f"routed cluster did not converge: {cluster}")
+
+    # ---- time each kernel at these inputs -----------------------------
+    ms, plain_ms, bound, lib_ms = {}, {}, {}, {}
+    row_w = 10 + 2 * E  # int32 words of one inbox slot
+    count = out.count.clamp(0, O)
+    n_msgs = int(count.sum())
+    und = torch.empty((G,), dtype=torch.int32, device=dev)
+    pk = torch.empty_like(packed)
+    ms["route"] = time_ms(lambda: R.route_cuda(
+        merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
+        suppress=out.escalate, alive=combo, alive_stride=4, packed=pk,
+        undeliv=und), 50)
+    plain_ms["route"] = time_ms(lambda: route_ref.route(
+        merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
+        suppress=esc, dest_alive=alive), 5)
+    # ring words of the REPLICATE entries this run delivers
+    repl_ents = int(torch.where(
+        route_deliv & (out.buf[:, :, T.F_MTYPE] == T.MT_REPLICATE),
+        out.buf[:, :, T.F_N_ENTRIES].clamp(0, E), 0).sum())
+    # sent messages (11 words) and their rows' state and tables in; the
+    # inbox, the bits and the undelivered word out
+    bound["route"] = bound_ms(4 * (
+        n_msgs * T.N_FIELDS + G * (1 + 4 + 2) + G * P * 3 + 2 * repl_ents
+        + G * PB * row_w + G * ((O + 31) // 32) + G))
+    lib_ms["route"] = None
+    ms["assemble_inbox"] = time_ms(
+        lambda: C._assemble_inbox(host, pending, combo), 50)
+    plain_ms["assemble_inbox"] = time_ms(
+        lambda: CR.assemble_inbox(host, pending, combo), 5)
+    bound["assemble_inbox"] = bound_ms(4 * (2 * G * (PB + MH) * row_w + G))
+    lib_ms["assemble_inbox"] = None
+    ms["host_inbox_from_ticks"] = time_ms(
+        lambda: C._host_inbox_from_ticks(combo, M=MH, E=E), 50)
+    plain_ms["host_inbox_from_ticks"] = time_ms(
+        lambda: CR.host_inbox_from_ticks(combo, M=MH, E=E), 5)
+    bound["host_inbox_from_ticks"] = bound_ms(4 * (G + G * MH * row_w))
+    lib_ms["host_inbox_from_ticks"] = None
+    ms["zero_inbox_rows"] = time_ms(
+        lambda: C._zero_inbox_rows(regions, mask), 50)
+    plain_ms["zero_inbox_rows"] = time_ms(
+        lambda: CR.zero_inbox_rows(regions, mask), 5)
+    bound["zero_inbox_rows"] = bound_ms(4 * (2 * G * PB * row_w + G))
+    lib_ms["zero_inbox_rows"] = None
+    caps = {k: min(G, v) for k, v in C._SEL_TIERS[0].items()}
+    kw = dict(CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
+              CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=PB)
+    ms["select_and_blob"] = time_ms(lambda: C._select_and_blob(
+        merged, out, stats6, packed, flags, combo, **kw), 50)
+    plain_ms["select_and_blob"] = time_ms(lambda: CR.select_and_blob(
+        merged, out, stats6, packed, flags, combo, **kw), 5)
+    n_head, n_detail = C._blob_sizes(
+        G, O, out.slot_base.shape[1], E, P, W,
+        (caps["b"], caps["sl"], caps["n"], caps["a"], caps["s"]), PB)
+    # flags, combo lanes, bits and stats in; the head and detail out (the
+    # detail's gathered rows are read once and written once)
+    bound["select_and_blob"] = bound_ms(4 * (
+        G * (1 + 3 + (O + 31) // 32) + 6 + n_head + 2 * n_detail
+        + caps["s"] * T.N_VALS))
+    lib_ms["select_and_blob"] = None
+    dev_ms = {
+        "route": device_ms(lambda: R.route_cuda(
+            merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
+            suppress=out.escalate, alive=combo, alive_stride=4, packed=pk,
+            undeliv=und)),
+        "assemble_inbox": device_ms(
+            lambda: C._assemble_inbox(host, pending, combo)),
+        "host_inbox_from_ticks": device_ms(
+            lambda: C._host_inbox_from_ticks(combo, M=MH, E=E)),
+        "zero_inbox_rows": device_ms(
+            lambda: C._zero_inbox_rows(regions, mask)),
+        "select_and_blob": device_ms(lambda: C._select_and_blob(
+            merged, out, stats6, packed, flags, combo, **kw)),
+    }
+    result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                  library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0)
     return result
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path — a NodeHost cluster on the card
 # ---------------------------------------------------------------------------
-SHARDS = 1000
+# 300 shards (1,000 before the colocated phase joined the script): the
+# base engine's host plane steps ~2.5 launches/s, and the script's
+# time limit is shared with the colocated phase
+SHARDS = 300
 WRITES_PER_SHARD = 4
 VALUE_BYTES = 16
 # dragonboat's helloworld timing (RTTMillisecond 200, ElectionRTT 10,
@@ -514,7 +798,8 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
     res = dict(shards=shards, replicas=3, writes_per_shard=writes,
                value_bytes=VALUE_BYTES, capacity=cap, rtt_ms=RTT_MS,
                election_rtt=ELECTION_RTT, heartbeat_rtt=HEARTBEAT_RTT,
-               parity_every=PARITY_EVERY, reduced=[])
+               parity_every=PARITY_EVERY,
+               reduced=[f"shards 1000 -> {shards}"] if shards < 1000 else [])
     try:
         for rid, addr in addrs.items():
             nhs[rid] = NodeHost(NodeHostConfig(
@@ -690,7 +975,7 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
         if res[passed] < 1 or res[passed] != res[begun]:
             raise AssertionError(
                 f"parity: {res[passed]} of {res[begun]} {begun} passed")
-    idle = [k for k, v in launches.items() if v < 1]
+    idle = [k for k in KERNEL_INFO if launches[k] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     if len(acked) != shards * writes:
@@ -699,11 +984,487 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the colocated product path — the reference bench's phase C shape
+# ---------------------------------------------------------------------------
+COLO_SHARDS = 1000
+COLO_WINDOW_S = 30.0   # phase C's timed window is 60 s
+COLO_WORKERS = 8
+COLO_INFLIGHT = 8
+# phase C's timing (bench.py:374-395): rtt 20 ms, election_rtt 20,
+# heartbeat_rtt 2
+COLO_RTT_MS, COLO_ELECTION_RTT, COLO_HEARTBEAT_RTT = 20, 20, 2
+COLO_PARITY_EVERY = 20
+COLO_PARITY_KERNELS = ("raft_step", "summarize_flags", "gather_pack",
+                       "place_rows", "route", "inbox", "select_and_blob")
+
+
+class UtilizationSampler:
+    """Samples the card's ``utilization.gpu`` (the share of the last
+    sample period in which a kernel was running, as nvidia-smi reports
+    it) every ``period`` seconds on a thread, until stopped."""
+
+    def __init__(self, period: float = 0.5):
+        import threading
+
+        self.samples = []
+        self._period = period
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            res = subprocess.run(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30,
+            )
+            if res.returncode == 0 and res.stdout.strip():
+                self.samples.append(float(res.stdout.split()[0]))
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        s = self.samples
+        return dict(n=len(s), mean_pct=float(np.mean(s)) if s else None,
+                    max_pct=float(np.max(s)) if s else None)
+
+
+class StackSampler:
+    """Every ``period`` seconds, records for each other thread of the
+    process the innermost frame that lies in the port's package (or
+    its own innermost frame), marked "(waiting)" when that thread is
+    blocked in ``threading``/``queue`` — where the host's threads spend
+    the window.  Threads are grouped by name with digits replaced by
+    N."""
+
+    def __init__(self, period: float = 0.05):
+        import threading
+
+        self.counts = {}
+        self.ticks = 0
+        self._period = period
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import threading
+
+        me = threading.get_ident()
+        while not self._stop.wait(self._period):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            self.ticks += 1
+            for tid, fr in sys._current_frames().items():
+                if tid == me:
+                    continue
+                role = re.sub(r"\d+", "N", names.get(tid, "?"))
+                where, f = None, fr
+                while f is not None:
+                    fn = f.f_code.co_filename
+                    if "dragonboat_tpu_torch" in fn:
+                        where = (f"{os.path.basename(fn)}:"
+                                 f"{f.f_code.co_name}")
+                        break
+                    f = f.f_back
+                if where is None:
+                    where = (f"{os.path.basename(fr.f_code.co_filename)}:"
+                             f"{fr.f_code.co_name}")
+                if os.path.basename(fr.f_code.co_filename) in (
+                        "threading.py", "queue.py", "selectors.py"):
+                    where += " (waiting)"
+                key = (role, where)
+                self.counts[key] = self.counts.get(key, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self, top: int = 12, group: str = "tpu-raft-step-N") -> dict:
+        """The ``top`` (thread group, frame) pairs, each with the mean
+        number of the group's threads found there; then the same for
+        the frames of ``group`` (the engines' step workers) alone."""
+        rows = sorted(self.counts.items(), key=lambda kv: -kv[1])
+
+        def fmt(rs):
+            return [dict(thread=r, frame=w, threads=n / max(1, self.ticks))
+                    for (r, w), n in rs]
+
+        return dict(samples=self.ticks, period_s=self._period,
+                    top=fmt(rows[:top]),
+                    top_of_group=fmt([kv for kv in rows
+                                      if kv[0][0] == group][:top]))
+
+
+def device_busy_share(seconds: float) -> dict:
+    """Device activity over ``seconds`` of wall time: the summed duration
+    of every CUDA kernel, memset and copy ``torch.profiler`` records
+    (from every thread of the process), its share of the wall time, and
+    the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(seconds)
+    wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    busy_s = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_s=wall, busy_s=busy_s,
+                busy_share=busy_s / wall if wall > 0 else None,
+                idle_share=1 - busy_s / wall if wall > 0 else None,
+                top_ms={k[:60]: v / 1e3 for k, v in top})
+
+
+def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
+                    window_s: float = COLO_WINDOW_S,
+                    profile_s: float = 0.0) -> dict:
+    """1,000 shards x 3 replicas on three NodeHosts in one process (the
+    in-proc transport), all stepped by ONE ``ColocatedEngineGroup`` on
+    the card with the tan WAL; phase C's drive: ``COLO_WORKERS`` workers
+    keep ``COLO_INFLIGHT`` proposals in flight per shard through the
+    asynchronous ``propose`` future for ``window_s`` seconds, and a
+    prober issues serial ``sync_propose`` calls.  Every acknowledged
+    write is then read back from all three replicas' state machines.
+    The card's utilization is sampled through the window, and so are
+    the host threads' stacks; ``profile_s`` > 0 also records the
+    device's activity with torch.profiler for that many seconds."""
+    import pickle
+    import shutil
+    import threading
+
+    from dragonboat_tpu_torch import (
+        Config, EngineConfig, ExpertConfig, IStateMachine, NodeHost,
+        NodeHostConfig, Result,
+    )
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.native import load_walwriter
+    from dragonboat_tpu_torch.ops import _native
+    from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
+    from dragonboat_tpu_torch.storage.tan import tan_logdb_factory
+    from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
+
+    class KV(IStateMachine):
+        def __init__(self, shard_id, replica_id):
+            self.data = {}
+
+        def update(self, entry):
+            k, v = pickle.loads(entry.cmd)
+            self.data[k] = v
+            return Result(value=len(self.data))
+
+        def lookup(self, query):
+            return dict(self.data) if query == "__all__" else self.data.get(query)
+
+        def save_snapshot(self, w, files, done):
+            w.write(pickle.dumps(self.data))
+
+        def recover_from_snapshot(self, r, files, done):
+            self.data = pickle.loads(r.read())
+
+    replicas = 3
+    cap = 1
+    while cap < shards * replicas:
+        cap <<= 1
+    addrs = {r: f"colo-nh-{r}" for r in range(1, replicas + 1)}
+    reset_inproc_network()
+    shutil.rmtree(workdir, ignore_errors=True)
+    geom = dict(capacity=cap, P=3, W=16, M=8, E=4, O=32, budget=4)
+    group = ColocatedEngineGroup(**geom, device=dev,
+                                 parity_every=COLO_PARITY_EVERY)
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    res = dict(shards=shards, replicas=replicas, wal="tan",
+               geometry=geom, rtt_ms=COLO_RTT_MS,
+               election_rtt=COLO_ELECTION_RTT,
+               heartbeat_rtt=COLO_HEARTBEAT_RTT, workers=COLO_WORKERS,
+               inflight_per_shard=COLO_INFLIGHT, window_s=window_s,
+               parity_every=COLO_PARITY_EVERY,
+               reduced=["timed window 60 s -> 30 s"])
+    nhs = {}
+    try:
+        t0 = time.perf_counter()
+        for rid, addr in addrs.items():
+            nhs[rid] = NodeHost(NodeHostConfig(
+                nodehost_dir=os.path.join(workdir, f"nh-{rid}"),
+                rtt_millisecond=COLO_RTT_MS,
+                raft_address=addr,
+                expert=ExpertConfig(
+                    engine=EngineConfig(exec_shards=1, apply_shards=4),
+                    step_engine_factory=group.factory,
+                    logdb_factory=tan_logdb_factory,
+                ),
+            ))
+        res["wal_writer"] = (
+            "native" if load_walwriter() is not None else "python")
+        # the colocated path's kernel launches are counted from here on
+        _native.reset_launch_counts()
+        for nh in nhs.values():
+            nh.pause_ticks()
+        for s in range(1, shards + 1):
+            for rid, nh in nhs.items():
+                nh.start_replica(addrs, False, KV, Config(
+                    replica_id=rid, shard_id=s,
+                    election_rtt=COLO_ELECTION_RTT,
+                    heartbeat_rtt=COLO_HEARTBEAT_RTT, pre_vote=True,
+                    check_quorum=True, snapshot_entries=0,
+                ))
+        for nh in nhs.values():
+            nh.resume_ticks()
+        res["boot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        deadline = t0 + 240.0
+        while True:
+            covered = sum(
+                1 for s in range(1, shards + 1)
+                if nhs[1]._nodes[s].peer.raft.log.committed >= 1
+                and nhs[1].get_leader_id(s)[1]
+            )
+            if covered == shards:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"leaders on {covered}/{shards} shards")
+            time.sleep(0.25)
+        res["election_s"] = time.perf_counter() - t0
+
+        def terms():
+            return [nhs[1]._nodes[s].peer.raft.term
+                    for s in range(1, shards + 1)]
+
+        term0 = terms()
+        stats0 = group.core.stats_snapshot()
+        stop = time.perf_counter() + window_s
+        acked = [dict() for _ in range(COLO_WORKERS)]
+        lat_ms = [[] for _ in range(COLO_WORKERS)]
+        errors = [0] * COLO_WORKERS
+        probe_ms = []
+        probe_acked = {}
+
+        def worker(w):
+            my = list(range(1 + w, shards + 1, COLO_WORKERS))
+            nh = nhs[1 + (w % replicas)]
+            sessions = {s: nh.get_noop_session(s) for s in my}
+            pending = []  # (request, t_submit, shard, key, value)
+            seq = 0
+
+            def reap():
+                nonlocal pending
+                still = []
+                for rs, t_sub, s, k, v in pending:
+                    if rs._event.is_set():
+                        if rs.code == 1:  # COMPLETED
+                            acked[w][(s, k)] = v
+                            lat_ms[w].append(
+                                (time.perf_counter() - t_sub) * 1e3)
+                        else:
+                            errors[w] += 1
+                    else:
+                        still.append((rs, t_sub, s, k, v))
+                pending = still
+
+            while time.perf_counter() < stop:
+                reap()
+                by_shard = {}
+                for p_ in pending:
+                    by_shard[p_[2]] = by_shard.get(p_[2], 0) + 1
+                for s in my:
+                    while by_shard.get(s, 0) < COLO_INFLIGHT:
+                        seq += 1
+                        k = f"w{w}-{seq}"
+                        v = seq.to_bytes(8, "little") * 2
+                        try:
+                            rs = nh.propose(sessions[s], pickle.dumps((k, v)),
+                                            30.0)
+                        except Exception:  # noqa: BLE001 — counted
+                            errors[w] += 1
+                            break
+                        pending.append((rs, time.perf_counter(), s, k, v))
+                        by_shard[s] = by_shard.get(s, 0) + 1
+                time.sleep(0.001)
+            # the in-flight tail: late commits count, the rest are errors
+            drain_end = time.perf_counter() + 20.0
+            while pending and time.perf_counter() < drain_end:
+                reap()
+                time.sleep(0.01)
+            errors[w] += len(pending)
+
+        def prober():
+            nh = nhs[1]
+            targets = [1, max(1, shards // 2), shards]
+            sess = {s: nh.get_noop_session(s) for s in targets}
+            i = 0
+            while time.perf_counter() < stop:
+                s = targets[i % len(targets)]
+                i += 1
+                k = f"probe-{i}"
+                t1 = time.perf_counter()
+                try:
+                    nh.sync_propose(sess[s], pickle.dumps((k, b"p")),
+                                    timeout=30.0)
+                except Exception:  # noqa: BLE001 — a lost probe sample
+                    continue
+                probe_ms.append((time.perf_counter() - t1) * 1e3)
+                probe_acked[(s, k)] = b"p"
+
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(COLO_WORKERS)]
+        threads.append(threading.Thread(target=prober, daemon=True))
+        t0 = time.perf_counter()
+        with UtilizationSampler() as util, StackSampler() as stacks:
+            for t in threads:
+                t.start()
+            if profile_s:
+                # the device's busy share over a slice of the window, from
+                # torch.profiler (its CPU tracing slows the process: the
+                # window's own numbers are then not comparable)
+                time.sleep(window_s / 3)
+                res["device_busy"] = device_busy_share(profile_s)
+            for t in threads:
+                t.join(timeout=window_s + 90.0)
+        dt = time.perf_counter() - t0
+        res["gpu_utilization"] = util.summary()
+        res["host_stacks"] = stacks.summary()
+        stats1 = group.core.stats_snapshot()
+        term1 = terms()
+        all_acked = dict(probe_acked)
+        for a in acked:
+            all_acked.update(a)
+        lat = sorted(x for ls in lat_ms for x in ls)
+
+        def pct(arr, p):
+            return float(arr[min(len(arr) - 1, int(len(arr) * p))]) if arr else None
+
+        probe_ms.sort()
+        res.update(
+            timed_s=dt,
+            committed=len(all_acked),
+            committed_proposals_per_s=len(all_acked) / dt,
+            errors=sum(errors),
+            latency_ms=dict(p50=pct(lat, 0.50), p99=pct(lat, 0.99),
+                            n=len(lat)),
+            probe_latency_ms=dict(p50=pct(probe_ms, 0.50),
+                                  p99=pct(probe_ms, 0.99), n=len(probe_ms)),
+            shards_with_new_term=sum(a != b for a, b in zip(term0, term1)),
+            window_launches=stats1["launches"] - stats0["launches"],
+        )
+
+        # every acknowledged write, read back from all three replicas'
+        # state machines (polled until each replica has applied it)
+        by_shard = {}
+        for (s, k), v in all_acked.items():
+            by_shard.setdefault(s, {})[k] = v
+        t0 = time.perf_counter()
+        missing = 0
+        for s, want in by_shard.items():
+            for rid in nhs:
+                end = time.perf_counter() + 60.0
+                while True:
+                    got = nhs[rid].stale_read(s, "__all__")
+                    miss = [k for k, v in want.items() if got.get(k) != v]
+                    if not miss or time.perf_counter() > end:
+                        break
+                    time.sleep(0.05)
+                missing += len(miss)
+        res["readback_s"] = time.perf_counter() - t0
+        res["readback_missing"] = missing
+        res["readback_replica_reads"] = len(by_shard) * replicas
+        launches = dict(_native.LAUNCHES)
+        entry_launches = dict(_native.ENTRY_LAUNCHES)
+        st = group.core.stats_snapshot()
+        parity_failure = group.core.parity_failure
+        engine_errors = list(errors_logged.lines)
+    finally:
+        engine_log.removeHandler(errors_logged)
+        for nh in nhs.values():
+            nh.pause_ticks()
+        for nh in nhs.values():
+            nh.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    keys = ("launches", "device_steps", "device_rows_stepped",
+            "host_rows_stepped", "escalations", "divergence_halts",
+            "fused_waves", "fused_rounds_stepped", "fused_fences",
+            "routed_delivered", "routed_host_carried", "routed_dropped",
+            "routed_dropped_off_device", "routed_dropped_budget",
+            "routed_dropped_ring", "sel_fallbacks", "pipeline_overlap_s",
+            "pipeline_fences", "early_completions", "readback_windows",
+            "parity_failures", "parity_row_attempts",
+            "parity_checked_row_moves")
+    res["engine"] = {k: st.get(k, 0) for k in keys}
+    # the engine's cumulative wall-time breakdown of the launch path (ms)
+    res["engine_ms"] = {k: v for k, v in sorted(st.items())
+                        if k.startswith("t_")}
+    res["parity"] = {
+        k: [st[f"parity_attempts_{k}"], st[f"parity_checks_{k}"]]
+        for k in COLO_PARITY_KERNELS
+    }
+    res["kernel_launches"] = launches
+    res["entry_launches"] = entry_launches
+    res["engine_errors"] = len(engine_errors)
+    if res["readback_missing"]:
+        raise AssertionError(
+            f"{res['readback_missing']} acknowledged writes missing on "
+            "read-back")
+    if res["committed"] < 1:
+        raise AssertionError("no proposal was acknowledged")
+    if parity_failure is not None or st["parity_failures"]:
+        raise AssertionError(
+            f"{st['parity_failures']} parity failures; first: "
+            f"{parity_failure}")
+    if engine_errors:
+        raise AssertionError(
+            f"the engine's workers logged {len(engine_errors)} errors; "
+            f"first: {engine_errors[0]}")
+    if st["divergence_halts"] != 0:
+        raise AssertionError(f"divergence halts: {st['divergence_halts']}")
+    for k, (begun, passed) in res["parity"].items():
+        if passed < 1 or passed != begun:
+            raise AssertionError(
+                f"parity of {k}: {passed} of {begun} checks passed")
+    idle = [k for k, v in launches.items() if v < 1]
+    if idle:
+        raise AssertionError(
+            f"kernels never launched on the colocated path: {idle}")
+    if st["routed_delivered"] < 1:
+        raise AssertionError("no message was routed on the card")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--profile-colocated", type=float, default=0.0, metavar="S",
+        help="record the device's activity with torch.profiler for S "
+             "seconds of the colocated window (slows the host)",
+    )
+    ap.add_argument(
+        "--only", default="",
+        help="comma-separated phases to run (kernels, colo_kernels, "
+             "nodehost, colocated) without the result lines; default: all",
+    )
+    args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -714,10 +1475,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(here, "dragonboat_tpu_torch", "_build")
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
 
+    def want(phase):
+        return not only or phase in only
+
+    t_all = time.perf_counter()
     t0 = time.perf_counter()
     _native.module()
     build_s = time.perf_counter() - t0
@@ -725,14 +1491,24 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda,
               build_s=build_s, ptxas=ptxas_report(_native.build_log())))
 
-    kern = kernels_phase(dev)
-    emit(dict(phase="kernels", card=smi, **kern))
-
-    nh = nodehost_phase(
-        dev, os.path.join(here, "dragonboat_tpu_torch", "_build",
-                          f"smoke-{os.getpid()}"),
-    )
-    emit(dict(phase="nodehost", card=smi, **nh))
+    if want("kernels"):
+        kern = kernels_phase(dev)
+        emit(dict(phase="kernels", card=smi, **kern))
+    if want("colo_kernels"):
+        ckern = colocated_kernels_phase(dev)
+        emit(dict(phase="colocated_kernels", card=smi, **ckern))
+    if want("nodehost"):
+        nh = nodehost_phase(dev, os.path.join(scratch, f"smoke-{os.getpid()}"))
+        emit(dict(phase="nodehost", card=smi, **nh))
+    if want("colocated"):
+        colo = colocated_phase(
+            dev, os.path.join(scratch, f"colo-{os.getpid()}"),
+            profile_s=args.profile_colocated)
+        emit(dict(phase="colocated", card=smi, **colo))
+    if only:
+        print(f"chip_smoke: ran {sorted(only)} in "
+              f"{time.perf_counter() - t_all:.1f} s", file=sys.stderr)
+        return 0
 
     rows = []
     for k, info in KERNEL_INFO.items():
@@ -740,11 +1516,42 @@ def main() -> int:
             name=k, route="cuda", source=info["source"],
             replaces=info["replaces"], also_replaces=info["also_replaces"],
             launches=nh["launches"][k],
+            launches_colocated=colo["kernel_launches"][k],
             max_abs_err=kern["max_abs_err"][k],
-            ms=kern["ms"][k], plain_ms=kern["plain_ms"][k],
+            ms=kern["ms"][k], device_ms=kern["device_ms"][k],
+            plain_ms=kern["plain_ms"][k],
             bound_ms=kern["bound_ms"][k], bound_by="bytes",
             library_ms=kern["library_ms"][k],
         ))
+    for k, info in COLO_KERNEL_INFO.items():
+        ents = info["entries"]
+
+        def total(key, ents=ents):
+            vals = [ckern[key][e] for e in ents]
+            return None if any(v is None for v in vals) else sum(vals)
+
+        row = dict(
+            name=k, route="cuda", source=info["source"],
+            replaces=info["replaces"], also_replaces=info["also_replaces"],
+            launches=colo["kernel_launches"][k],
+            max_abs_err=max(ckern["max_abs_err"][e] for e in ents),
+            ms=total("ms"), device_ms=total("device_ms"),
+            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes", library_ms=total("library_ms"),
+        )
+        if k == "inbox":
+            row["entries"] = {
+                e: dict(launches=colo["entry_launches"].get(e, 0),
+                        max_abs_err=ckern["max_abs_err"][e],
+                        ms=ckern["ms"][e], device_ms=ckern["device_ms"][e],
+                        plain_ms=ckern["plain_ms"][e],
+                        bound_ms=ckern["bound_ms"][e])
+                for e in ("host_inbox_from_ticks", "assemble_inbox",
+                          "zero_inbox_rows")
+            }
+            row["max_abs_err"] = max(ckern["max_abs_err"][e]
+                                     for e in row["entries"])
+        rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -753,4 +1560,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

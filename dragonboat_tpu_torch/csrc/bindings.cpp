@@ -87,15 +87,21 @@ void raft_step(const Tensors& state, const Tensors& new_state,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void summarize_flags(const Tensors& srcs, const at::Tensor& flags,
-                     int64_t G, int64_t P) {
+void summarize_flags(const Tensors& srcs,
+                     const std::optional<at::Tensor>& undeliv,
+                     const at::Tensor& flags, int64_t G, int64_t P) {
   const char* name = "summarize_flags";
   const at::Device dev = flags.device();
   auto s = ins(srcs, dbt::N_FLAG_SRCS, dev, name);
+  const int* u = nullptr;
+  if (undeliv) {
+    TORCH_CHECK(undeliv->numel() == G, name, ": undeliv must be [G]");
+    u = in(*undeliv, dev, name);
+  }
   int* f = out(flags, dev, name);
   if (G == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
-  dbt::summarize_flags_launch(s.data(), f, dim(G, name), dim(P, name),
+  dbt::summarize_flags_launch(s.data(), u, f, dim(G, name), dim(P, name),
                               stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -158,6 +164,34 @@ void place_rows(const at::Tensor& pos, const Tensors& dst,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void select_escalated(const at::Tensor& escalate, const Tensors& old_,
+                      const Tensors& new_, const Tensors& outs_) {
+  const char* name = "select_escalated";
+  const at::Device dev = escalate.device();
+  const size_t n = new_.size();
+  TORCH_CHECK(n >= 1 && n <= (size_t)dbt::MAX_FIELDS, name,
+              ": 1..", dbt::MAX_FIELDS, " fields");
+  const int64_t G = escalate.numel();
+  const int* e = in(escalate, dev, name);
+  auto o_ = ins(old_, n, dev, name);
+  auto n_ = ins(new_, n, dev, name);
+  auto o = outs(outs_, n, dev, name);
+  std::vector<int> width(n);
+  for (size_t f = 0; f < n; ++f) {
+    TORCH_CHECK(new_[f].dim() >= 1 && new_[f].size(0) == G, name,
+                ": field ", f, " row count differs from escalate");
+    TORCH_CHECK(old_[f].sizes() == new_[f].sizes() &&
+                    outs_[f].sizes() == new_[f].sizes(),
+                name, ": field ", f, " shapes differ");
+    width[f] = dim(G ? new_[f].numel() / G : 0, name);
+  }
+  if (G == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::select_escalated_launch(e, o_.data(), n_.data(), o.data(), width.data(),
+                               (int)n, dim(G, name), stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void set_remote_snapshot(const at::Tensor& rstate,
                          const at::Tensor& snap_index,
                          const at::Tensor& g_idx, const at::Tensor& p_idx,
@@ -188,11 +222,229 @@ void set_remote_snapshot(const at::Tensor& rstate,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
+           const at::Tensor& dest_row, const at::Tensor& rank,
+           const std::optional<at::Tensor>& suppress,
+           const std::optional<at::Tensor>& alive, int64_t alive_stride,
+           const Tensors& base_inbox, const Tensors& inbox,
+           const at::Tensor& stats, const std::optional<at::Tensor>& packed,
+           const std::optional<at::Tensor>& undeliv,
+           const std::optional<at::Tensor>& delivered,
+           const at::Tensor& scratch, int64_t B, int64_t base, int64_t tick,
+           int64_t propose_leaders, int64_t propose_n) {
+  const char* name = "route";
+  const at::Device dev = buf.device();
+  auto s = ins(st, dbt::N_ROUTE_STATE, dev, name);
+  TORCH_CHECK(buf.dim() == 3 && st[0].dim() == 2 && st[5].dim() == 2 &&
+                  inbox.size() == (size_t)dbt::N_INBOX &&
+                  inbox[0].dim() == 2 && inbox[10].dim() == 3,
+              name, ": bad shapes");
+  const int64_t G = buf.size(0), O = buf.size(1), P = st[0].size(1);
+  const int64_t W = st[5].size(1), M = inbox[0].size(1);
+  const int64_t E = inbox[10].size(2);
+  TORCH_CHECK(buf.size(2) == 11, name, ": buf must be [G, O, 11]");
+  TORCH_CHECK(P >= 1 && P <= 16, name, ": P must be in [1, 16]");
+  TORCH_CHECK(W >= 1 && (W & (W - 1)) == 0, name, ": W must be a power of two");
+  TORCH_CHECK(B >= 1 && base >= 0 && base + P * B == M, name,
+              ": base + P * budget must equal M");
+  TORCH_CHECK(count.numel() == G && dest_row.numel() == G * P &&
+                  rank.numel() == G * P && stats.numel() == dbt::N_ROUTE_STATS,
+              name, ": bad table shapes");
+  for (int i = 0; i < dbt::N_ROUTE_STATE; ++i)
+    TORCH_CHECK(st[i].size(0) == G, name, ": state row counts differ");
+  TORCH_CHECK(scratch.numel() == G * P * B * (11 + 2 * E), name,
+              ": scratch must be [G, P, B, 11 + 2E]");
+  const int* sup = nullptr;
+  if (suppress) {
+    TORCH_CHECK(suppress->numel() == G, name, ": suppress must be [G]");
+    sup = in(*suppress, dev, name);
+  }
+  const int* alv = nullptr;
+  if (alive) {
+    TORCH_CHECK(alive_stride >= 1 && alive->numel() == G * alive_stride, name,
+                ": alive must be [G * alive_stride]");
+    alv = in(*alive, dev, name);
+  }
+  std::vector<const int*> bi;
+  int64_t M_base = 0;
+  if (!base_inbox.empty()) {
+    bi = ins(base_inbox, dbt::N_INBOX, dev, name);
+    M_base = base_inbox[0].size(1);
+    TORCH_CHECK(M_base >= base && base_inbox[10].size(2) == E, name,
+                ": base_inbox narrower than the prefix");
+  }
+  auto ib = outs(inbox, dbt::N_INBOX, dev, name);
+  int* pk = nullptr;
+  if (packed) {
+    TORCH_CHECK(packed->numel() == G * ((O + 31) / 32), name,
+                ": packed must be [G, ceil(O / 32)]");
+    pk = out(*packed, dev, name);
+  }
+  int* ud = nullptr;
+  if (undeliv) {
+    TORCH_CHECK(undeliv->numel() == G, name, ": undeliv must be [G]");
+    ud = out(*undeliv, dev, name);
+  }
+  unsigned char* dl = nullptr;
+  if (delivered) {
+    TORCH_CHECK(delivered->is_cuda() && delivered->device() == dev &&
+                    delivered->scalar_type() == at::kBool &&
+                    delivered->is_contiguous() && delivered->numel() == G * O,
+                name, ": delivered must be a contiguous [G, O] bool tensor");
+    dl = static_cast<unsigned char*>(delivered->data_ptr());
+  }
+  int* stt = out(stats, dev, name);
+  int* scr = out(scratch, dev, name);
+  if (G == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::route_launch(s.data(), in(buf, dev, name), in(count, dev, name),
+                    in(dest_row, dev, name), in(rank, dev, name), sup, alv,
+                    dim(alive_stride, name), bi.empty() ? nullptr : bi.data(),
+                    dim(M_base, name), ib.data(), stt, pk, ud, dl, scr,
+                    dim(G, name), dim(P, name), dim(W, name), dim(O, name),
+                    dim(M, name), dim(E, name), dim(B, name), dim(base, name),
+                    dim(tick, name), dim(propose_leaders, name),
+                    dim(propose_n, name), stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+namespace {
+
+void inbox(int64_t mode, const Tensors& a, const Tensors& b,
+           const std::optional<at::Tensor>& combo,
+           const std::optional<at::Tensor>& mask, const Tensors& outs_,
+           int64_t PB) {
+  const char* name = "inbox";
+  TORCH_CHECK(mode >= 0 && mode <= 2, name, ": unknown mode");
+  TORCH_CHECK(outs_.size() == (size_t)dbt::N_INBOX && outs_[0].dim() == 2 &&
+                  outs_[10].dim() == 3,
+              name, ": bad output shapes");
+  const at::Device dev = outs_[0].device();
+  const int64_t G = outs_[0].size(0), M = outs_[0].size(1);
+  const int64_t E = outs_[10].size(2);
+  auto o = outs(outs_, dbt::N_INBOX, dev, name);
+  for (int f = 0; f < dbt::N_INBOX; ++f)
+    TORCH_CHECK(outs_[f].numel() == G * M * (f >= 10 ? E : 1), name,
+                ": output field ", f, " has the wrong size");
+  std::vector<const int*> pa, pb;
+  if (!a.empty()) pa = ins(a, dbt::N_INBOX, dev, name);
+  if (!b.empty()) pb = ins(b, dbt::N_INBOX, dev, name);
+  const int* c = nullptr;
+  const int* mk = nullptr;
+  if (mode == 0) {
+    TORCH_CHECK(!a.empty() && !b.empty() && combo, name,
+                ": assemble needs host, pending and combo");
+    TORCH_CHECK(PB >= 0 && PB <= M, name, ": bad pending width");
+    for (int f = 0; f < dbt::N_INBOX; ++f) {
+      const int64_t w = f >= 10 ? E : 1;
+      TORCH_CHECK(b[f].numel() == G * PB * w &&
+                      a[f].numel() == G * (M - PB) * w,
+                  name, ": assemble field ", f, " has the wrong size");
+    }
+  } else if (mode == 1) {
+    TORCH_CHECK(combo.has_value(), name, ": from_ticks needs combo");
+  } else {
+    TORCH_CHECK(!a.empty() && mask && mask->numel() == G, name,
+                ": zero_rows needs the inbox and a [G] mask");
+    for (int f = 0; f < dbt::N_INBOX; ++f)
+      TORCH_CHECK(a[f].numel() == outs_[f].numel(), name,
+                  ": zero_rows field ", f, " has the wrong size");
+    mk = in(*mask, dev, name);
+  }
+  if (combo) {
+    TORCH_CHECK(combo->numel() == G * 4, name, ": combo must be [G, 4]");
+    c = in(*combo, dev, name);
+  }
+  if (G * M == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::inbox_launch((int)mode, pa.empty() ? nullptr : pa.data(),
+                    pb.empty() ? nullptr : pb.data(), c, mk, o.data(),
+                    dim(G, name), dim(M, name), dim(E, name), dim(PB, name),
+                    stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+void assemble_inbox(const Tensors& host, const Tensors& pending,
+                    const at::Tensor& combo, const Tensors& outs_,
+                    int64_t PB) {
+  inbox(0, host, pending, combo, std::nullopt, outs_, PB);
+}
+
+void host_inbox_from_ticks(const at::Tensor& combo, const Tensors& outs_) {
+  inbox(1, {}, {}, combo, std::nullopt, outs_, 0);
+}
+
+void zero_inbox_rows(const Tensors& src, const at::Tensor& mask,
+                     const Tensors& outs_) {
+  inbox(2, src, {}, std::nullopt, mask, outs_, 0);
+}
+
+void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
+                     const at::Tensor& packed, const at::Tensor& stats,
+                     const Tensors& detail_srcs, const at::Tensor& head,
+                     const at::Tensor& detail, const std::vector<int64_t>& caps,
+                     int64_t host_off) {
+  const char* name = "select_and_blob";
+  const at::Device dev = flags.device();
+  auto d = ins(detail_srcs, dbt::N_DETAIL_SRCS, dev, name);
+  TORCH_CHECK(caps.size() == 5, name, ": five capacities");
+  const int64_t G = flags.numel();
+  TORCH_CHECK(detail_srcs[0].dim() == 3 && detail_srcs[3].dim() == 3 &&
+                  detail_srcs[4].dim() == 2 && detail_srcs[5].dim() == 2,
+              name, ": bad detail source shapes");
+  const int64_t O = detail_srcs[0].size(1), Mo = detail_srcs[1].size(1);
+  const int64_t E = detail_srcs[3].size(2), P = detail_srcs[4].size(1);
+  const int64_t W = detail_srcs[5].size(1), nw = (O + 31) / 32;
+  for (const auto& t : detail_srcs)
+    TORCH_CHECK(t.size(0) == G, name, ": detail source row counts differ");
+  TORCH_CHECK(combo.numel() == G * 4 && packed.numel() == G * nw &&
+                  stats.numel() == 6,
+              name, ": bad combo / packed / stats sizes");
+  TORCH_CHECK(host_off >= 0 && host_off <= Mo, name, ": bad host offset");
+  int cap[5];
+  int64_t rows = 0;
+  for (int k = 0; k < 5; ++k) {
+    TORCH_CHECK(caps[k] >= 0 && caps[k] <= G, name, ": capacity above G");
+    cap[k] = (int)caps[k];
+    rows += caps[k];
+  }
+  const int64_t Mh = Mo - host_off;
+  TORCH_CHECK(head.numel() == G + G * nw + 6 + 5 + rows + caps[4] * 10, name,
+              ": head has the wrong size");
+  TORCH_CHECK(detail.numel() == caps[0] * O * 11 + 2 * caps[1] * Mh +
+                                    caps[1] * Mh * E + caps[2] * P +
+                                    2 * caps[3] * W,
+              name, ": detail has the wrong size");
+  const int* f = in(flags, dev, name);
+  const int* c = in(combo, dev, name);
+  const int* pk = in(packed, dev, name);
+  const int* st = in(stats, dev, name);
+  int* h = out(head, dev, name);
+  int* dt = out(detail, dev, name);
+  if (G == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::select_blob_launch(f, c, pk, st, d.data(), h, dt, cap, dim(G, name),
+                          dim(nw, name), dim(O, name), dim(Mo, name),
+                          dim(E, name), dim(P, name), dim(W, name),
+                          dim(host_off, name), stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("raft_step", &raft_step, "csrc/raft_step.cu");
   m.def("summarize_flags", &summarize_flags, "csrc/flags.cu");
   m.def("gather_pack", &gather_pack, "csrc/gather_pack.cu");
   m.def("place_rows", &place_rows, "csrc/place_rows.cu, rows mode");
+  m.def("select_escalated", &select_escalated,
+        "csrc/place_rows.cu, escalation-select mode");
   m.def("set_remote_snapshot", &set_remote_snapshot,
         "csrc/place_rows.cu, snapshot mode");
+  m.def("route", &route, "csrc/route.cu");
+  m.def("assemble_inbox", &assemble_inbox, "csrc/inbox.cu, assemble mode");
+  m.def("host_inbox_from_ticks", &host_inbox_from_ticks,
+        "csrc/inbox.cu, from_ticks mode");
+  m.def("zero_inbox_rows", &zero_inbox_rows, "csrc/inbox.cu, zero_rows mode");
+  m.def("select_and_blob", &select_and_blob, "csrc/select_blob.cu");
 }

@@ -98,6 +98,7 @@ constexpr int F_NEED_SS = 8;
 constexpr int F_ESC = 16;
 constexpr int F_PEERS_BEHIND = 32;
 constexpr int F_QUORUM_ACTIVE = 64;
+constexpr int F_ANY_LIVE = 15;  // F_CHANGED | F_COUNT | F_APPEND | F_NEED_SS
 
 // values block width (engine._gather_vals)
 constexpr int N_VALS = 10;

@@ -3,6 +3,9 @@
 // Replaces dragonboat_tpu/ops/engine.py `_summarize_flags`
 // (engine.py:194-245): one int32 per row with F_CHANGED / F_COUNT /
 // F_APPEND / F_NEED_SS / F_ESC / F_PEERS_BEHIND / F_QUORUM_ACTIVE.
+// With an `undeliv` row vector it also applies the colocated override of
+// F_COUNT (dragonboat_tpu/ops/colocated.py:241-246): the bit is set where
+// the row has an outbox message the router did not deliver.
 //
 // One thread per row.  Bound: bytes — a row reads 12 + 4P words of old
 // state, new state and step outputs and writes one word; the logic is
@@ -27,6 +30,7 @@ struct FlagsArgs {
   const int* append_lo;   // out.append_lo
   const int* escalate;    // out.escalate
   const int* need_snapshot;  // [G, P]
+  const int* undeliv;     // [G] or null: F_COUNT := undeliv[g] != 0
   int* flags;             // [G]
   int G, P;
 };
@@ -36,7 +40,7 @@ DBT_HD int flags_row(const FlagsArgs& a, int g) {
   bool changed = false;
   for (int f = 0; f < 6; ++f) changed |= a.old_[f][g] != a.new_[f][g];
   int fl = changed ? F_CHANGED : 0;
-  if (a.count[g] > 0) fl |= F_COUNT;
+  if (a.undeliv ? a.undeliv[g] != 0 : a.count[g] > 0) fl |= F_COUNT;
   if (a.append_lo[g] != APPEND_LO_NONE) fl |= F_APPEND;
   if (a.escalate[g] != 0) fl |= F_ESC;
   const long long base = (long long)g * P;
@@ -72,8 +76,8 @@ __global__ void summarize_flags_kernel(const dbt::FlagsArgs a) {
   if (g < a.G) a.flags[g] = dbt::flags_row(a, g);
 }
 
-void dbt::summarize_flags_launch(const int* const* srcs, int* flags, int G,
-                                 int P, void* stream) {
+void dbt::summarize_flags_launch(const int* const* srcs, const int* undeliv,
+                                 int* flags, int G, int P, void* stream) {
   dbt::FlagsArgs a;
   int k = 0;
   for (int f = 0; f < 6; ++f) a.old_[f] = srcs[k++];
@@ -88,6 +92,7 @@ void dbt::summarize_flags_launch(const int* const* srcs, int* flags, int G,
   a.append_lo = srcs[k++];
   a.escalate = srcs[k++];
   a.need_snapshot = srcs[k++];
+  a.undeliv = undeliv;
   a.flags = flags;
   a.G = G;
   a.P = P;

@@ -21,6 +21,11 @@ constexpr int N_DETAIL_SRCS = 7;
 constexpr int N_PACK_VALS = 10;
 // place_rows: fields moved by one launch
 constexpr int MAX_FIELDS = 32;
+// route: the state sources (peer_id, replica_id, first_index,
+// last_index, role, ring_term, ring_cc) and the stats vector (the six
+// RouteStats, then the suppressed-row count)
+constexpr int N_ROUTE_STATE = 7;
+constexpr int N_ROUTE_STATS = 7;
 
 // raft_step.cu — every array in the field order of ops/types.py
 void raft_step_launch(const int* const* st_in, int* const* st_out,
@@ -31,9 +36,9 @@ void raft_step_launch(const int* const* st_in, int* const* st_out,
 // flags.cu — srcs: old term, vote, committed, leader_id, role,
 // last_index; the same six of new; new peer_id, peer_kind, match,
 // active, self_slot, check_quorum; out count, append_lo, escalate,
-// need_snapshot
-void summarize_flags_launch(const int* const* srcs, int* flags, int G,
-                            int P, void* stream);
+// need_snapshot.  undeliv (may be null): the colocated F_COUNT override
+void summarize_flags_launch(const int* const* srcs, const int* undeliv,
+                            int* flags, int G, int P, void* stream);
 
 // gather_pack.cu — detail: buf, slot_base, slot_term, ent_drop,
 // need_snapshot, ring_term, ring_cc; vals: the values block's sources in
@@ -50,11 +55,44 @@ void place_rows_launch(const int* pos, const int* const* dst,
                        const int* width, int n_fields, int G_out, int G_src,
                        void* stream);
 
+// place_rows.cu, escalation-select mode: out_f[g] = old_f[g] where
+// escalate[g] != 0, else new_f[g]
+void select_escalated_launch(const int* escalate, const int* const* old_,
+                             const int* const* new_, int* const* out,
+                             const int* width, int n_fields, int G,
+                             void* stream);
+
 // place_rows.cu, snapshot mode
 void set_remote_snapshot_launch(const int* rstate, const int* snap_index,
                                 const int* g_idx, const int* p_idx,
                                 const int* snap, int* out_rstate,
                                 int* out_snap, int G, int P, int n,
                                 void* stream);
+
+// route.cu — st: N_ROUTE_STATE sources; suppress, alive, base_inbox,
+// packed, undeliv and delivered may be null; stats is zeroed and filled
+void route_launch(const int* const* st, const int* buf, const int* count,
+                  const int* dest_row, const int* rank, const int* suppress,
+                  const int* alive, int alive_stride,
+                  const int* const* base_inbox, int M_base,
+                  int* const* inbox, int* stats, int* packed, int* undeliv,
+                  unsigned char* delivered, int* scratch, int G, int P,
+                  int W, int O, int M, int E, int B, int base, int tick,
+                  int propose_leaders, int propose_n, void* stream);
+
+// inbox.cu — mode 0 assemble (a = host, b = pending, combo), 1 from_ticks
+// (combo), 2 zero_rows (a = inbox, mask); out is [G, M(, E)]
+void inbox_launch(int mode, const int* const* a, const int* const* b,
+                  const int* combo, const int* mask, int* const* out, int G,
+                  int M, int E, int PB, void* stream);
+
+// select_blob.cu — detail_srcs: buf, slot_base, slot_term, ent_drop,
+// need_snapshot, ring_term, ring_cc; caps: buf, slot, need, append, sum
+void select_blob_launch(const int* flags, const int* combo,
+                        const int* packed, const int* stats,
+                        const int* const* detail_srcs, int* head,
+                        int* detail, const int* caps, int G, int nw, int O,
+                        int Mo, int E, int P, int W, int host_off,
+                        void* stream);
 
 }  // namespace dbt

@@ -12,6 +12,11 @@
 // the new row is kept, else -1, with src = new) and gather (pos = the
 // index set, no dst).
 //
+// Mode 0 also takes the escalation merge of the colocated and routed
+// rounds (route.py:454-462, colocated.py:223-229): pos is then the
+// step's escalate word, and a row keeps dst (the pre-step state) where
+// it is nonzero, else takes src (the post-step state).
+//
 // Mode 1, snapshot: out_rstate / out_snap are copies of rstate /
 // snap_index with rstate = RS_SNAPSHOT and snap_index = snap[k] at every
 // pair (g_idx[k], p_idx[k]); one thread per (g, p) word scans the pair
@@ -30,6 +35,7 @@ struct PlaceArgs {
   int* out[MAX_FIELDS];
   int width[MAX_FIELDS];
   int n_fields, G_out, G_src;
+  int esc_mode;     // pos is an escalate word: pos[g] != 0 -> dst, else src[g]
   long long total;  // G_out * sum(width)
 };
 
@@ -56,6 +62,7 @@ DBT_HD int place_word(const PlaceArgs& a, long long t, int** out_at) {
   const int j = (int)(off % w);
   *out_at = a.out[f] + off;
   int p = a.pos[g];
+  if (a.esc_mode) p = p != 0 ? -1 : g;
   if (p >= 0) {
     if (p >= a.G_src) p = a.G_src - 1;
     return a.src[f][(long long)p * w + j];
@@ -97,10 +104,11 @@ __global__ void place_snapshot_kernel(const dbt::SnapArgs a) {
   a.out_snap[t] = sn;
 }
 
-void dbt::place_rows_launch(const int* pos, const int* const* dst,
-                            const int* const* src, int* const* out,
-                            const int* width, int n_fields, int G_out,
-                            int G_src, void* stream) {
+namespace {
+
+void place_launch(const int* pos, const int* const* dst, const int* const* src,
+                  int* const* out, const int* width, int n_fields, int G_out,
+                  int G_src, int esc_mode, void* stream) {
   dbt::PlaceArgs a;
   a.pos = pos;
   long long per_row = 0;
@@ -114,11 +122,28 @@ void dbt::place_rows_launch(const int* pos, const int* const* dst,
   a.n_fields = n_fields;
   a.G_out = G_out;
   a.G_src = G_src;
+  a.esc_mode = esc_mode;
   a.total = (long long)G_out * per_row;
   if (a.total == 0) return;
   const int threads = 256;
   long long blocks = (a.total + threads - 1) / threads;
   place_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+}
+
+}  // namespace
+
+void dbt::place_rows_launch(const int* pos, const int* const* dst,
+                            const int* const* src, int* const* out,
+                            const int* width, int n_fields, int G_out,
+                            int G_src, void* stream) {
+  place_launch(pos, dst, src, out, width, n_fields, G_out, G_src, 0, stream);
+}
+
+void dbt::select_escalated_launch(const int* escalate, const int* const* old_,
+                                  const int* const* new_, int* const* out,
+                                  const int* width, int n_fields, int G,
+                                  void* stream) {
+  place_launch(escalate, old_, new_, out, width, n_fields, G, G, 1, stream);
 }
 
 void dbt::set_remote_snapshot_launch(const int* rstate, const int* snap_index,

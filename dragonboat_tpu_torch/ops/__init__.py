@@ -1,4 +1,4 @@
-"""The port's device plane: the raft step kernel and its host glue.
+"""The port's device plane: the kernels and their host glue.
 
   types.py      — DeviceState / Inbox / DeviceOut as int32 torch tensors
   convert.py    — numpy <-> tensor carry-over of those layouts
@@ -9,6 +9,11 @@
   sync.py       — oracle <-> row conversion and message staging
   hostplane.py  — array-at-once host-plane machinery (numpy only)
   engine.py     — TorchStepEngine: the device-backed IStepEngine
+  route.py      — the device router (CUDA ``route``; route_ref.py) and
+                  the routed rounds built on it
+  colocated.py  — ColocatedEngineGroup: one device state for every
+                  NodeHost of a colocated cluster, its programs (CUDA
+                  ``inbox``, ``select_and_blob``; colocated_ref.py)
 """
 from .types import DeviceOut, DeviceState, Inbox, make_inbox, make_out, make_state
 from .kernel import step

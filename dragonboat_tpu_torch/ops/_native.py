@@ -7,8 +7,10 @@ extension module under ``dragonboat_tpu_torch/_build/``.  ``load``
 rebuilds whatever source or header changed and reuses the rest.
 Building happens at first use — never at import.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
-resets it to show which kernels its path went through.
+``LAUNCHES`` counts, per kernel, the launches its wrappers made, and
+``ENTRY_LAUNCHES`` the same per bound entry point (a kernel source such
+as ``inbox.cu`` has several); a run resets both to show which kernels
+its path went through.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ KERNELS = {
     "summarize_flags": "flags.cu",
     "gather_pack": "gather_pack.cu",
     "place_rows": "place_rows.cu",
+    "route": "route.cu",
+    "inbox": "inbox.cu",
+    "select_and_blob": "select_blob.cu",
 }
 
 CUDA_FLAGS = (
@@ -36,6 +41,7 @@ CUDA_FLAGS = (
 )
 
 LAUNCHES = {k: 0 for k in KERNELS}
+ENTRY_LAUNCHES: dict = {}
 
 _module = None
 _lock = threading.Lock()
@@ -44,6 +50,7 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def build_log() -> str:
@@ -97,3 +104,5 @@ def launch(kernel: str, *args, entry: str = "") -> None:
     tensors and the launch and raises on either."""
     getattr(module(), entry or kernel)(*args)
     LAUNCHES[kernel] += 1
+    name = entry or kernel
+    ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1

@@ -48,9 +48,11 @@ def _bit(cond: torch.Tensor, bit: int) -> torch.Tensor:
 
 
 def summarize_flags(
-    old: DeviceState, new: DeviceState, out: DeviceOut
+    old: DeviceState, new: DeviceState, out: DeviceOut,
+    undeliv: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-row flag word (F_* bits)."""
+    """Per-row flag word (F_* bits); with ``undeliv`` the F_COUNT bit is
+    ``undeliv != 0`` (the colocated override, colocated.py:241-246)."""
     changed = (
         (new.term != old.term)
         | (new.vote != old.vote)
@@ -62,7 +64,8 @@ def summarize_flags(
     P = new.peer_id.shape[1]
     lane = torch.arange(P, device=new.term.device)[None, :]
     f = _bit(changed, F_CHANGED)
-    f = f | _bit(out.count > 0, F_COUNT)
+    f = f | _bit(out.count > 0 if undeliv is None else undeliv != 0,
+                 F_COUNT)
     f = f | _bit(out.append_lo != APPEND_LO_NONE, F_APPEND)
     f = f | _bit((out.need_snapshot == 1).any(dim=1), F_NEED_SS)
     f = f | _bit(out.escalate != 0, F_ESC)
@@ -182,3 +185,16 @@ def set_remote_snapshot(
             rs[g, p] = RS_SNAPSHOT
             sn[g, p] = s
     return rs, sn
+
+
+def select_escalated(
+    escalate: torch.Tensor,
+    old: Sequence[torch.Tensor],
+    new: Sequence[torch.Tensor],
+) -> List[torch.Tensor]:
+    """Per field: old's row where ``escalate`` is nonzero, else new's."""
+    keep = escalate == 0
+    return [
+        torch.where(keep.reshape((-1,) + (1,) * (b.dim() - 1)), b, a)
+        for a, b in zip(old, new)
+    ]

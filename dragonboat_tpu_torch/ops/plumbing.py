@@ -9,7 +9,8 @@ stream and checks the launch.
 
 * ``summarize_flags`` — csrc/flags.cu
 * ``gather_pack``     — csrc/gather_pack.cu
-* ``place_rows`` / ``set_remote_snapshot`` — csrc/place_rows.cu
+* ``place_rows`` / ``select_escalated`` / ``set_remote_snapshot`` —
+  csrc/place_rows.cu
 """
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ def _device(t: torch.Tensor) -> str:
 
 
 def summarize_flags(
-    old: DeviceState, new: DeviceState, out: DeviceOut
+    old: DeviceState, new: DeviceState, out: DeviceOut,
+    undeliv: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """[G] int32 flag word per row."""
+    """[G] int32 flag word per row.  With ``undeliv`` ([G] int32) the
+    F_COUNT bit is set where ``undeliv`` is nonzero instead of where the
+    row emitted messages (the colocated override)."""
     if _device(new.term) == "cpu":
-        return engine_ref.summarize_flags(old, new, out)
+        return engine_ref.summarize_flags(old, new, out, undeliv)
     G, P = new.peer_id.shape
     srcs = (
         [getattr(old, f) for f in VALS_STATE]
@@ -49,9 +53,11 @@ def summarize_flags(
     for t in (new.peer_kind, new.match, new.active, out.need_snapshot):
         if tuple(t.shape) != (G, P):
             raise ValueError("summarize_flags: peer arrays must be [G, P]")
+    if undeliv is not None and tuple(undeliv.shape) != (G,):
+        raise ValueError("summarize_flags: undeliv must be [G]")
     flags = torch.empty((G,), dtype=torch.int32, device=new.term.device)
     if G:
-        _native.launch("summarize_flags", srcs, flags, G, P)
+        _native.launch("summarize_flags", srcs, undeliv, flags, G, P)
     return flags
 
 
@@ -60,11 +66,19 @@ def gather_pack(
     out: DeviceOut,
     idx4: Optional[torch.Tensor],
     idx_sum: Optional[torch.Tensor],
+    dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flat int32 readback of ``b`` detail rows (``idx4``: [4, b] row
-    sets) followed by ``b2`` values rows (``idx_sum``: [b2])."""
+    sets) followed by ``b2`` values rows (``idx_sum``: [b2]).  ``dst``: a
+    contiguous int32 vector of the packed size to write into instead of
+    a fresh one (the colocated readback writes its values block into the
+    head blob)."""
     if _device(state.term) == "cpu":
-        return engine_ref.gather_pack(state, out, idx4, idx_sum)
+        flat = engine_ref.gather_pack(state, out, idx4, idx_sum)
+        if dst is None:
+            return flat
+        dst.copy_(flat)
+        return dst
     G, O = out.buf.shape[:2]
     M, E = out.ent_drop.shape[1:]
     P = state.peer_id.shape[1]
@@ -80,8 +94,13 @@ def gather_pack(
     vals = [getattr(state, f) for f in VALS_STATE]
     vals += [getattr(out, f) for f in VALS_OUT]
     K = detail_width(O, M, E, P, W)
-    flat = torch.empty((b * K + b2 * len(vals),), dtype=torch.int32,
-                       device=state.term.device)
+    n = b * K + b2 * len(vals)
+    if dst is not None and (tuple(dst.shape) != (n,) or dst.dtype != torch.int32
+                            or not dst.is_contiguous()):
+        raise ValueError("gather_pack: dst must be a contiguous int32 [n]")
+    flat = dst if dst is not None else torch.empty(
+        (n,), dtype=torch.int32, device=state.term.device
+    )
     if b + b2:
         _native.launch("gather_pack", srcs, vals, idx4, idx_sum, flat,
                        G, O, M, E, P, W, b, b2)
@@ -116,6 +135,28 @@ def place_rows(
         outs.append(torch.empty(shape, dtype=torch.int32, device=pos.device))
     if G_out:
         _native.launch("place_rows", pos, list(dst or ()), list(src), outs)
+    return outs
+
+
+def select_escalated(
+    escalate: torch.Tensor,
+    old: Sequence[torch.Tensor],
+    new: Sequence[torch.Tensor],
+) -> List[torch.Tensor]:
+    """Per field: old's row where ``escalate`` ([G] int32) is nonzero,
+    else new's — the escalation merge of a routed round."""
+    if _device(escalate) == "cpu":
+        return engine_ref.select_escalated(escalate, old, new)
+    G = escalate.shape[0]
+    if escalate.dim() != 1 or not 1 <= len(new) <= 32 or len(old) != len(new):
+        raise ValueError("select_escalated: escalate [G], 1..32 fields")
+    for a, b in zip(old, new):
+        if a.shape != b.shape or b.shape[0] != G:
+            raise ValueError("select_escalated: field shapes differ")
+    outs = [torch.empty_like(b) for b in new]
+    if G:
+        _native.launch("place_rows", escalate, list(old), list(new), outs,
+                       entry="select_escalated")
     return outs
 
 

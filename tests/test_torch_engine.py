@@ -87,7 +87,10 @@ def shard_config(rid, shard_id=1, **kw):
     return Config(replica_id=rid, shard_id=shard_id, **kw)
 
 
-def make_nodehost(rid, tmp_path, rtt_ms=20, parity_every=0):
+def make_nodehost(rid, tmp_path, rtt_ms=20, parity_every=0,
+                  logdb_factory=in_mem_logdb_factory):
+    """A port NodeHost on ``torch_step_engine_factory(device="cpu")``;
+    ``logdb_factory=None`` takes the port's default logdb (tan)."""
     from dragonboat_tpu_torch.config import NodeHostConfig
 
     return NodeHost(NodeHostConfig(
@@ -96,7 +99,7 @@ def make_nodehost(rid, tmp_path, rtt_ms=20, parity_every=0):
         raft_address=ADDRS[rid],
         expert=ExpertConfig(
             engine=EngineConfig(exec_shards=1, apply_shards=2),
-            logdb_factory=in_mem_logdb_factory,
+            logdb_factory=logdb_factory,
             step_engine_factory=torch_step_engine_factory(
                 **GEOM, device="cpu", parity_every=parity_every
             ),
@@ -146,6 +149,21 @@ def read_r(nh, shard_id, query, deadline=20.0):
 def stats(nhs):
     return {rid: nh.engine.step_engine.stats_snapshot()
             for rid, nh in nhs.items()}
+
+
+@pytest.fixture
+def tancluster(tmp_path):
+    """The cluster on the port's default logdb: tan, the durable WAL."""
+    reset_inproc_network()
+    nhs = {rid: make_nodehost(rid, tmp_path, parity_every=4,
+                              logdb_factory=None)
+           for rid in ADDRS}
+    for rid, nh in nhs.items():
+        nh.start_replica(ADDRS, False, PortKV, shard_config(rid))
+    yield nhs
+    for nh in nhs.values():
+        nh.close()
+    assert all(s["divergence_halts"] == 0 for s in stats(nhs).values())
 
 
 @pytest.fixture
@@ -227,6 +245,54 @@ class TestTorchCluster:
             assert read_r(tcluster[2], shard, f"s{shard}") == bytes([shard])
         st = stats(tcluster)
         assert all(s["divergence_halts"] == 0 for s in st.values()), st
+
+
+class TestTanCluster:
+    """The cases of ``test_vector_engine.py`` that need the durable WAL,
+    on the port's default logdb (tan)."""
+
+    def test_default_logdb_is_tan(self, tancluster):
+        from dragonboat_tpu_torch.storage.tan import TanLogDB
+
+        assert all(isinstance(nh.logdb, TanLogDB)
+                   for nh in tancluster.values())
+
+    def test_membership_change_cold_path(self, tancluster):
+        from test_nodehost import add_non_voting_poll
+
+        wait_for_leader(tancluster)
+        nh = tancluster[1]
+        s = nh.get_noop_session(1)
+        propose_r(nh, s, set_cmd("pre", b"1"))
+        m2 = add_non_voting_poll(nh, 1, 9, "nh-9")
+        assert 9 in m2.non_votings
+        # the shard keeps working after the cold excursion
+        propose_r(nh, s, set_cmd("post", b"2"))
+        assert read_r(nh, 1, "post") == b"2"
+
+    def test_restart_replays(self, tancluster):
+        wait_for_leader(tancluster)
+        nh = tancluster[1]
+        s = nh.get_noop_session(1)
+        for i in range(10):
+            propose_r(nh, s, set_cmd(f"r-{i}", str(i).encode()))
+        assert read_r(tancluster[2], 1, "r-9") == b"9"
+        # stop replica 3 and bring it back: WAL replay + catch-up
+        tancluster[3].stop_replica(1, 3)
+        propose_r(nh, s, set_cmd("while-down", b"x"))
+        tancluster[3].start_replica(ADDRS, False, PortKV, shard_config(3))
+        deadline = time.time() + 30.0
+        while time.time() < deadline:
+            try:
+                if tancluster[3].stale_read(1, "while-down") == b"x":
+                    break
+            except Exception:  # noqa: BLE001 — not applied yet
+                pass
+            time.sleep(0.05)
+        else:
+            raise AssertionError("restarted replica never caught up")
+        # the replayed replica holds every write from before the stop
+        assert tancluster[3].stale_read(1, "r-9") == b"9"
 
 
 class TestDivergenceFailStop:

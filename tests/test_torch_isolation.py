@@ -1,14 +1,15 @@
 """Import rule and drift guard of the PyTorch port.
 
-* ``import dragonboat_tpu_torch`` plus its ``nodehost`` and ``ops.engine``
-  loads no ``jax*`` and no ``dragonboat_tpu`` module (in a fresh
+* ``import dragonboat_tpu_torch`` plus its ``nodehost``, ``ops.engine``,
+  ``ops.route``, ``ops.colocated`` and ``storage.tan`` loads no ``jax*`` and no ``dragonboat_tpu`` module (in a fresh
   interpreter);
 * no file under ``dragonboat_tpu_torch/`` imports ``jax`` or anything of
   ``dragonboat_tpu``;
 * every host-plane module the port carries is byte-identical to its
   ``dragonboat_tpu/`` original, apart from the per-file allow-list of
-  edited lines below (empty): a later fix to the reference host plane
-  then shows up here instead of drifting silently.
+  edited lines below (empty), and so is every carried non-Python file
+  (the tan WAL's native writer source): a later fix to the reference
+  host plane then shows up here instead of drifting silently.
 """
 from __future__ import annotations
 
@@ -36,12 +37,16 @@ CARRIED = (
     "rsm/managed", "rsm/membership", "rsm/session", "rsm/statemachine",
     "rsm/__init__",
     "storage/logdb", "storage/snapshotio", "storage/snapshotter",
-    "storage/__init__",
+    "storage/tan", "storage/journal", "storage/vfs", "storage/__init__",
     "transport/inproc", "transport/registry", "transport/transport",
     "transport/chunk", "transport/wire", "transport/__init__",
-    "bigstate/pacing", "bigstate/__init__",
+    "bigstate/pacing", "bigstate/dr", "bigstate/__init__", "tools",
     "ops/hostplane",
+    "native/__init__",
 )
+
+# carried files that are not Python modules (byte for byte)
+CARRIED_FILES = ("native/walwriter.cpp",)
 
 # file -> line numbers (1-based, in the port's copy) allowed to differ
 ALLOWED_EDITS: dict = {}
@@ -52,6 +57,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import sys\n"
         "import dragonboat_tpu_torch, dragonboat_tpu_torch.nodehost\n"
         "import dragonboat_tpu_torch.ops.engine\n"
+        "import dragonboat_tpu_torch.ops.route\n"
+        "import dragonboat_tpu_torch.ops.colocated\n"
+        "import dragonboat_tpu_torch.storage.tan\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'dragonboat_tpu' or m.startswith('dragonboat_tpu.'))\n"
@@ -98,3 +106,10 @@ def test_carried_module_is_byte_identical(mod):
     for i, (a, b) in enumerate(zip(ref, got), start=1):
         if i not in allowed:
             assert a == b, f"{mod}.py:{i} drifted from the reference"
+
+
+@pytest.mark.parametrize("path", CARRIED_FILES)
+def test_carried_file_is_byte_identical(path):
+    assert (PORT / path).read_bytes() == (REF / path).read_bytes(), (
+        f"{path} drifted from the reference"
+    )
