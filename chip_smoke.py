@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
     python3 chip_smoke.py --only colo_kernels,colocated   # some phases, no result
+    python3 chip_smoke.py --only mesh_kernels,phase_a,multichip
 
 Phases, each printing one JSON line:
 
@@ -22,13 +23,39 @@ Phases, each printing one JSON line:
                capacity tiers) on states advanced by the port's own
                fused_rounds over build_route_tables of the 10k x 3 layout;
                then timed the same way.
-4. nodehost  — the base engine's path: three NodeHosts in one process on
+4. mesh_kernels — raft_step_internal (raft_step.cu's row logic in the
+               G-last layout) bit-exact against its plain version at bench
+               phase A's geometry, G = 300,000 rows (100k groups x 3;
+               P=3, W=8, M=12, E=1, O=8) on states advanced by the tick
+               loop and under seeded fuzz inboxes; xlane_pack and
+               xlane_scatter bit-exact against theirs at multichip leg
+               2's geometry (150,000 rows on a mesh of 4 blocks); each
+               timed, with the external raft_step at the same 300,000
+               rows beside raft_step_internal.
+5. phase_a   — the reference bench's phase A loop on step_internal: the
+               300,000 rows stay on the card in the G-last layout, 12
+               slots of 32 fused ticks per launch; group ticks per second
+               with escalated rows subtracted, every window closed by
+               torch.cuda.synchronize(), one launch per window re-checked
+               against the plain version.
+6. multichip — the reference's phase_multichip legs 1 and 2 on
+               GroupsMesh([cuda:0] * 4) (and on 4 distinct cards when 4
+               are visible): leg 1 make_step_sharded(internal=True) against
+               step_internal at 300,000 rows; leg 2 make_sharded_round at
+               50k groups x 3 replicas, replica-major, 40 rounds against
+               routed_round and 8 waves of 3 against fused_rounds, state
+               and inbox bit-exact; the reference's gates (cross traffic
+               delivered, no lane drop, every group committing, per-device
+               balance <= 1.1).  On one card the lane's copies never
+               leave the card: it measures the mechanism, not a
+               multi-chip number.
+7. nodehost  — the base engine's path: three NodeHosts in one process on
                the in-proc transport, each stepping its shards through
                ``torch_step_engine_factory(device="cuda")``; 300 shards x
                3 replicas elect leaders, take 4 writes each through
                ``sync_propose``, and every acknowledged write is read back
                linearizably and from each replica's state machine.
-5. colocated — the product path, the reference bench's phase C shape:
+8. colocated — the product path, the reference bench's phase C shape:
                1,000 shards x 3 replicas on three NodeHosts sharing ONE
                ``ColocatedEngineGroup(device="cuda")`` with the tan WAL;
                8 workers keep 8 proposals in flight per shard through the
@@ -308,11 +335,13 @@ def device_ms(fn, reps: int = 20):
 def ptxas_report(log: str) -> dict:
     """Register and spill lines of each kernel from the build's ptxas
     report."""
-    names = ("raft_step_kernel", "summarize_flags_kernel",
-             "gather_pack_kernel", "place_rows_kernel",
-             "place_snapshot_kernel", "route_send_kernel",
-             "route_recv_kernel", "inbox_kernel", "select_rows_kernel",
-             "blob_kernel")
+    names = ("raft_step_internal_kernel", "raft_step_kernel",
+             "summarize_flags_kernel", "gather_pack_kernel",
+             "place_rows_kernel", "place_snapshot_kernel",
+             "route_send_kernel", "route_recv_kernel", "inbox_kernel",
+             "select_rows_kernel", "blob_kernel", "xlane_count_kernel",
+             "xlane_scan_kernel", "xlane_write_kernel", "xlane_zero_kernel",
+             "xlane_scatter_kernel")
     rep, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -709,6 +738,551 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                   library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0)
     return result
+
+
+# ---------------------------------------------------------------------------
+# the G-last step and the sharded device plane
+# ---------------------------------------------------------------------------
+# bench phase A's geometry (bench.py:48-140): 100k groups x 3 replicas
+A_GROUPS = 100_000
+A_P, A_W, A_M, A_E, A_O = 3, 8, 12, 1, 8
+A_TPL = 32  # ticks per slot; election_timeout 2 * A_TPL
+# multichip leg 2 (bench.py:2780-2880): BASELINE config 5's group count
+X_GROUPS = 50_000
+X_P, X_W, X_E, X_O, X_BUD, X_BASE = 3, 16, 2, 16, 4, 2
+X_M = X_BASE + X_P * X_BUD
+X_DEVICES = 4
+# 40 single rounds and 8 waves of 3: the reference bench's 64 rounds
+# (BENCH_MULTICHIP_ROUNDS).  The reference's election jitter hashes
+# shard_id << 24, so shards equal mod 256 share their timeouts; the
+# slowest of those classes elects only by round ~54 (195 of 50k groups
+# had no leader after 48 rounds)
+X_ROUNDS, X_WAVES, X_WAVE_ROUNDS = 40, 8, 3
+
+MESH_KERNEL_INFO = {
+    "raft_step_internal": dict(
+        source="dragonboat_tpu_torch/csrc/raft_step_internal.cu",
+        replaces="dragonboat_tpu/ops/kernel.py:1674",
+        also_replaces=["dragonboat_tpu/ops/kernel.py:1707"],
+    ),
+    "xlane_pack": dict(
+        source="dragonboat_tpu_torch/csrc/xlane.cu",
+        replaces="dragonboat_tpu/ops/route.py:652",
+        also_replaces=["dragonboat_tpu/ops/route.py:850"],
+    ),
+    "xlane_scatter": dict(
+        source="dragonboat_tpu_torch/csrc/xlane.cu",
+        replaces="dragonboat_tpu/ops/route.py:652",
+        also_replaces=["dragonboat_tpu/ops/route.py:850"],
+    ),
+}
+
+
+def phase_a_inputs(dev, groups: int = A_GROUPS):
+    """Bench phase A's state and fused-tick inbox, internal (G-last)
+    layout, on ``dev``: group i's replicas at rows 3i, 3i+1, 3i+2."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import convert
+    from dragonboat_tpu_torch.ops import types as T
+
+    G = groups * 3
+    cols = T.make_state_np(
+        G, A_P, A_W,
+        shard_ids=np.repeat(np.arange(1, groups + 1, dtype=np.int32), 3),
+        replica_ids=np.tile(np.arange(1, 4, dtype=np.int32), groups),
+        peer_ids=np.broadcast_to(np.arange(1, 4, dtype=np.int32),
+                                 (G, A_P)).copy(),
+        election_timeout=2 * A_TPL, heartbeat_timeout=2,
+    )
+    st = convert.state_to_internal(convert.state_from_numpy(cols, dev))
+
+    def full(v, *shape):
+        return torch.full(shape, v, dtype=torch.int32, device=dev)
+
+    ib = T.Inbox(
+        mtype=full(T.MT_TICK, A_M, G), from_id=full(0, A_M, G),
+        term=full(0, A_M, G), log_term=full(0, A_M, G),
+        log_index=full(A_TPL, A_M, G), commit=full(0, A_M, G),
+        reject=full(0, A_M, G), hint=full(0, A_M, G),
+        hint_high=full(0, A_M, G), n_entries=full(0, A_M, G),
+        ent_term=full(0, A_M, A_E, G), ent_cc=full(0, A_M, A_E, G),
+    )
+    return st, ib
+
+
+def leg2_inputs(dev, groups: int = X_GROUPS, n_dev: int = X_DEVICES):
+    """Multichip leg 2's replica-major layout (group i's replicas at rows
+    {i, groups+i, 2*groups+i}: every group straddles device blocks), its
+    mesh and single-device tables, the lane budget, state and prefill."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+
+    G = groups * 3
+    sh = np.tile(np.arange(1, groups + 1, dtype=np.int32), 3)
+    rp = np.repeat(np.arange(1, 4, dtype=np.int32), groups)
+    pe = np.broadcast_to(np.arange(1, 4, dtype=np.int32), (G, X_P)).copy()
+    tabs = R.build_route_tables_mesh(sh, rp, pe, n_dev)
+    xb = R.xbudget_for(tabs, X_BUD, n_dev)
+    dest, rank = R.build_route_tables(sh, rp, pe)
+    st = T.make_state(G, X_P, X_W, shard_ids=sh, replica_ids=rp,
+                      peer_ids=pe, election_timeout=10, heartbeat_timeout=2,
+                      device=dev)
+    ib = route_ref.make_prefill(st, X_M, X_E)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return dict(G=G, tabs=[put(t) for t in tabs], xbudget=xb,
+                dest=put(dest), rank=put(rank), state=st, inbox=ib)
+
+
+def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
+                       warm_rounds: int = 20) -> dict:
+    """``raft_step_internal`` bit-exact against its plain version at bench
+    phase A's geometry (300,000 rows) on states advanced by the tick loop
+    and under seeded fuzz inboxes over every hot message type;
+    ``xlane_pack`` / ``xlane_scatter`` bit-exact against theirs at leg
+    2's geometry (150,000 rows on a mesh of 4 blocks) on a routed
+    cluster mid-election and mid-commit; then each timed (CUDA events,
+    the profiler's device time) beside its bound, with the external
+    ``raft_step`` at the same 300,000 rows."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import convert, kernel_ref, plumbing
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    rng = np.random.default_rng(SEED + 3)
+    errs = {k: 0 for k in MESH_KERNEL_INFO}
+    checks = {k: 0 for k in MESH_KERNEL_INFO}
+
+    def check(name, got, want):
+        errs[name] = max(errs[name], _max_err(got, want))
+        checks[name] += 1
+
+    # ---- raft_step_internal at 300,000 rows -----------------------------
+    st, tick_ib = phase_a_inputs(dev)
+    G = st.term.shape[0]
+    esc = 0
+    for k in range(n_ticks + n_fuzz):
+        if k < n_ticks:
+            ib = tick_ib
+        else:
+            ext = convert.to_numpy(convert.state_from_internal(st))
+            ib = convert.inbox_to_internal(convert.inbox_from_numpy(
+                fuzz_inbox_np(ext, rng, A_M, A_E), dev))
+        new, step_out = K.step_internal(st, ib, A_O)
+        rnew, rout = kernel_ref.step_internal(st, ib, A_O)
+        check("raft_step_internal", list(new) + list(step_out),
+              list(rnew) + list(rout))
+        esc += int((step_out.escalate != 0).sum())
+        if k < n_ticks:
+            st = new
+    fuzz_ib = ib
+    step_rows = dict(rows=G, tick_launches=n_ticks, fuzz_launches=n_fuzz,
+                     escalations=esc)
+
+    # ---- the lane at leg 2's geometry ------------------------------------
+    x = leg2_inputs(dev)
+    Gx, xb = x["G"], x["xbudget"]
+    xs, xi = x["state"], x["inbox"]
+    for _ in range(warm_rounds):
+        xs, xi, _s, _n = R.routed_round(
+            xs, xi, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
+            base=X_BASE, propose_leaders=True)
+    new, out = K.step(xs, xi, X_O)
+    merged = T.DeviceState(*plumbing.select_escalated(
+        out.escalate, list(xs), list(new)))
+    mesh = GroupsMesh([dev] * X_DEVICES)
+    st_b = mesh.shard(merged).parts
+    out_b = mesh.shard(out).parts
+    tab_b = list(zip(*(mesh.shard(t).parts for t in x["tabs"])))
+    ib_b = mesh.shard(route_ref.make_prefill(merged, X_M, X_E)).parts
+    xbufs, lane = [], []
+    for d in range(X_DEVICES):
+        kw = dict(me=d, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
+                  suppress=out_b[d].escalate)
+        got = R.xlane_pack(st_b[d], out_b[d], *tab_b[d], **kw)
+        want = route_ref.lane_pack(st_b[d], out_b[d], *tab_b[d], **kw)
+        check("xlane_pack", list(got), list(want))
+        xbufs.append(got[0])
+        lane.append(got[1])
+    recv = R.ring_shift(mesh, xbufs)
+    for d in range(X_DEVICES):
+        got_ib = T.Inbox(*(t.clone() for t in ib_b[d]))
+        want_ib = T.Inbox(*(t.clone() for t in ib_b[d]))
+        stats = lane[d].clone()
+        R.xlane_scatter(got_ib, recv[d], budget=X_BUD, base=X_BASE,
+                        stats=stats)
+        _w, n = route_ref.lane_scatter(want_ib, recv[d], budget=X_BUD,
+                                       base=X_BASE)
+        check("xlane_scatter", list(got_ib) + [stats[1:2]],
+              list(want_ib) + [n.view(1)])
+        lane[d] = stats
+    lane_np = torch.stack(lane).cpu().numpy()
+    lane_rows = dict(rows=Gx, devices=X_DEVICES, xbudget=xb,
+                     warm_rounds=warm_rounds,
+                     per_device_lane=lane_np.tolist())
+    result = dict(step=step_rows, lane=lane_rows, checks=checks,
+                  max_abs_err=errs)
+    bad = {k: v for k, v in errs.items() if v != 0}
+    if bad:
+        raise AssertionError(f"mesh kernels disagree with their plain "
+                             f"versions: {bad}")
+    if lane_np[:, 1].sum() < 1:
+        raise AssertionError("no message crossed the lane")
+
+    # ---- timing ------------------------------------------------------------
+    ms, dev_ms, plain_ms, bound, lib_ms = {}, {}, {}, {}, {}
+    occ = int((fuzz_ib.mtype != 0).sum())
+    # the state in and out, the slot types, the occupied slots' other
+    # words and every output, once each
+    words = (sum(t.numel() for t in st) * 2 + fuzz_ib.mtype.numel()
+             + occ * (9 + 2 * A_E) + sum(t.numel() for t in step_out))
+    ms["raft_step_internal"] = time_ms(
+        lambda: K.step_internal(st, fuzz_ib, A_O), 20)
+    dev_ms["raft_step_internal"] = device_ms(
+        lambda: K.step_internal(st, fuzz_ib, A_O))
+    plain_ms["raft_step_internal"] = time_ms(
+        lambda: kernel_ref.step_internal(st, fuzz_ib, A_O), 2, 1)
+    bound["raft_step_internal"] = bound_ms(4 * words)
+    lib_ms["raft_step_internal"] = None
+    # the external kernel on the same rows, for the two layouts side by side
+    st_ext = convert.state_from_internal(st)
+    ib_ext = convert.inbox_from_internal(fuzz_ib)
+    external = dict(
+        ms=time_ms(lambda: K.step(st_ext, ib_ext, A_O), 20),
+        device_ms=device_ms(lambda: K.step(st_ext, ib_ext, A_O)),
+        bound_ms=bound["raft_step_internal"],
+    )
+    d0 = 0
+    kw = dict(me=d0, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
+              suppress=out_b[d0].escalate)
+    ms["xlane_pack"] = time_ms(
+        lambda: R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw), 50)
+    dev_ms["xlane_pack"] = device_ms(
+        lambda: R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw))
+    plain_ms["xlane_pack"] = time_ms(
+        lambda: route_ref.lane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw),
+        5)
+    kt = route_ref.X_KF + 2 * X_E
+    sent = int(lane_np[d0, 0])
+    # The least the pack must move, from this run's data: the valid
+    # outbox slots of the unsuppressed rows; every row's count and
+    # suppress words; the peer ids, the three tables and the three row
+    # scalars of each row with a valid slot; the ring words (term, cc)
+    # of the entries the sent REPLICATEs carry, read from the packed
+    # rows; and the D-1 blocks that the ring shifts send (the own block
+    # is never sent).
+    ob = out_b[d0]
+    n_valid = torch.where(ob.escalate == 0, ob.count.clamp(0, X_O),
+                          torch.zeros_like(ob.count))
+    live_rows = int((n_valid > 0).sum())
+    packed = xbufs[d0].reshape(-1, kt)
+    carried = ((packed[:, route_ref.XI_FOUND] != 0)
+               & (packed[:, 0] == T.MT_REPLICATE))
+    ring_words = 2 * int(packed[carried, 8].clamp(0, X_E).sum())
+    bound["xlane_pack"] = bound_ms(4 * (
+        int(n_valid.sum()) * T.N_FIELDS + 2 * ob.count.numel()
+        + live_rows * (4 * X_P + 3) + ring_words
+        + (X_DEVICES - 1) * xb * kt))
+    lib_ms["xlane_pack"] = None
+    scratch_ib = T.Inbox(*(t.clone() for t in ib_b[d0]))
+    ms["xlane_scatter"] = time_ms(lambda: R.xlane_scatter(
+        scratch_ib, recv[d0], budget=X_BUD, base=X_BASE), 50)
+    dev_ms["xlane_scatter"] = device_ms(lambda: R.xlane_scatter(
+        scratch_ib, recv[d0], budget=X_BUD, base=X_BASE))
+    plain_ms["xlane_scatter"] = time_ms(lambda: route_ref.lane_scatter(
+        scratch_ib, recv[d0], budget=X_BUD, base=X_BASE), 5)
+    delivered = int(lane_np[d0, 1])
+    # The least the scatter must move: one 32-byte sector (its found
+    # word) for each empty received row, every word of each row that
+    # carries a message, and each in-range delivered slot's inbox words
+    # read and written once.
+    rv, gl = recv[d0], ib_b[d0].mtype.shape[0]
+    found = rv[:, route_ref.XI_FOUND] != 0
+    slot = X_BASE + rv[:, route_ref.XI_RANK] * X_BUD + rv[:, route_ref.XI_B]
+    in_range = (found & (rv[:, route_ref.XI_LOC] >= 0)
+                & (rv[:, route_ref.XI_LOC] < gl) & (slot >= 0) & (slot < X_M))
+    n_found = int(found.sum())
+    bound["xlane_scatter"] = bound_ms(
+        32 * (rv.shape[0] - n_found) + 4 * (
+            n_found * kt + 2 * int(in_range.sum()) * (10 + 2 * X_E)))
+    lib_ms["xlane_scatter"] = None
+    result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                  bound_ms=bound, library_ms=lib_ms,
+                  raft_step_external_300k=external,
+                  timed=dict(step_occupied_slots=occ, lane_device=d0,
+                             sent=sent, delivered=delivered,
+                             pack_valid_slots=int(n_valid.sum()),
+                             pack_live_rows=live_rows,
+                             pack_ring_words=ring_words,
+                             scatter_rows=int(rv.shape[0]),
+                             scatter_found=n_found))
+    return result
+
+
+def phase_a_phase(dev, iters: int = 100, windows: int = 3) -> dict:
+    """Bench phase A on ``step_internal``: 100k groups x 3 replicas stay
+    on the card in the G-last layout; every launch advances 12 slots of
+    32 fused ticks.  Best of ``windows`` timed windows of ``iters``
+    launches, each closed by ``torch.cuda.synchronize()``; escalated rows
+    are subtracted from the group ticks (the reference's honesty guard);
+    after each window one launch is re-checked against the plain
+    version."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import _native, kernel_ref
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import types as T
+
+    st, ib = phase_a_inputs(dev)
+    G = st.term.shape[0]
+    for _ in range(10):  # warm-up: settle into election churn
+        st, _out = K.step_internal(st, ib, A_O)
+    torch.cuda.synchronize()
+    ticks = A_TPL * A_M
+    best_dt, best_esc, err, checks = float("inf"), 0, 0, 0
+    _native.reset_launch_counts()
+    for _ in range(windows):
+        # escalated rows accumulate on the card, as the reference's
+        # jitted loop does (keeping every launch's escalate word alive
+        # instead would pin a fresh allocation per launch)
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            st, out = K.step_internal(st, ib, A_O)
+            acc += torch.count_nonzero(out.escalate)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_esc = int(acc)
+        if dt < best_dt:
+            best_dt, best_esc = dt, n_esc
+        new, out = K.step_internal(st, ib, A_O)
+        want = kernel_ref.step_internal(st, ib, A_O)
+        err = max(err, _max_err(list(new) + list(out),
+                                list(want[0]) + list(want[1])))
+        checks += 1
+        st = new
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    # the device's share of a launch: the profiler's kernel time
+    dev_launch = device_ms(lambda: K.step_internal(st, ib, A_O))
+    groups = G // 3
+    group_ticks = max(0.0, (groups * iters - best_esc / 3) * ticks)
+    res = dict(groups=groups, rows=G, launches_per_window=iters,
+               windows=windows, ticks_per_launch=ticks, window_s=best_dt,
+               ms_per_launch=best_dt / iters * 1e3,
+               device_ms_per_launch=dev_launch,
+               escalated_rows=best_esc,
+               group_ticks_per_s=group_ticks / best_dt,
+               checked_launches=checks, max_abs_err=err,
+               kernel_launches=launches,
+               leaders=int((st.role == T.ROLE_LEADER).sum()),
+               terms_max=int(st.term.max()))
+    if err:
+        raise AssertionError(f"raft_step_internal disagrees with its plain "
+                             f"version in phase A: {err}")
+    if launches["raft_step_internal"] < 1:
+        raise AssertionError("phase A never launched raft_step_internal")
+    return res
+
+
+def _equal(a, b) -> bool:
+    """Every tensor of ``a`` equals its partner in ``b`` (shape and
+    values)."""
+    return all(x.shape == y.shape and bool((x == y).all())
+               for x, y in zip(a, b, strict=True))
+
+
+def multichip_phase(dev, devices, launches: int = 12) -> dict:
+    """The reference's phase_multichip legs 1 and 2 (bench.py:2735-2880)
+    on ``GroupsMesh(devices)``.  Leg 1: ``make_step_sharded(internal=True)``
+    over phase A's state at 300,000 rows against ``step_internal``, bit-
+    exact after the same launches.  Leg 2: ``make_sharded_round`` at
+    50k groups x 3 replicas, replica-major, 40 single rounds against the
+    single-device ``routed_round`` and 8 waves of 3 rounds against
+    ``fused_rounds``, state and inbox bit-exact.  The sharded runs come
+    first, with the launch counts reset before them and read after; the
+    single-device runs are timed the same way beside them."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import _native
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import types as T
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    mesh = GroupsMesh(devices)
+    D = mesh.size
+    res = dict(devices=[str(d) for d in mesh.devices],
+               one_card=len(set(mesh.devices)) == 1)
+
+    # ---- leg 1: the sharded G-last step ---------------------------------
+    st0, ib0 = phase_a_inputs(dev)
+    G = st0.term.shape[0]
+    step_shard = K.make_step_sharded(mesh, st0, ib0, out_capacity=A_O,
+                                     internal=True)
+    _native.reset_launch_counts()
+    ibs = mesh.shard(ib0, internal=True)
+    # the escalations per device, launch by launch (untimed)
+    sb = mesh.shard(st0, internal=True)
+    esc_dev = np.zeros((D,), np.int64)
+    for _ in range(launches):
+        sb, ob = step_shard(sb, ibs)
+        esc_dev += np.array([int((o.escalate != 0).sum()) for o in ob.parts])
+    # the same launches timed (the first one outside the window)
+    sb, _ob = step_shard(mesh.shard(st0, internal=True), ibs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches - 1):
+        sb, _ob = step_shard(sb, ibs)
+    torch.cuda.synchronize()
+    dt1 = time.perf_counter() - t0
+    launches_leg1 = dict(_native.LAUNCHES)
+    sa, _oa = K.step_internal(st0, ib0, A_O)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches - 1):
+        sa, _oa = K.step_internal(sa, ib0, A_O)
+    torch.cuda.synchronize()
+    dt1_single = time.perf_counter() - t0
+    a_ok = _equal(list(sa), list(mesh.join(sb)))
+    gl = G // D
+    ticks_dev = ((gl // 3) * launches * A_M * A_TPL
+                 - esc_dev // 3 * A_M * A_TPL)
+    res["leg1"] = dict(
+        rows=G, launches=launches, parity_ok=a_ok,
+        group_ticks_per_s=(G // 3) * (launches - 1) * A_M * A_TPL / dt1,
+        single_device_group_ticks_per_s=(
+            (G // 3) * (launches - 1) * A_M * A_TPL / dt1_single),
+        per_device_group_ticks=[int(v) for v in ticks_dev],
+        balance_ratio=float(ticks_dev.max() / max(1, ticks_dev.min())),
+        kernel_launches=launches_leg1,
+    )
+
+    # ---- leg 2: the sharded round with the cross-device lane ------------
+    x = leg2_inputs(dev, n_dev=D)
+    groups = x["G"] // 3
+    kw = dict(M=X_M, E=X_E, out_capacity=X_O, budget=X_BUD,
+              xbudget=x["xbudget"], base=X_BASE, propose_leaders=True)
+    round_shard = R.make_sharded_round(mesh, **kw)
+    wave_shard = R.make_sharded_round(mesh, rounds=X_WAVE_ROUNDS, **kw)
+    tabs = [mesh.shard(t) for t in x["tabs"]]
+    _native.reset_launch_counts()
+    ss, si = mesh.shard(x["state"]), mesh.shard(x["inbox"])
+    lane_dev = np.zeros((D, 7), np.int64)
+    route_tot = np.zeros((6,), np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = []
+    for _ in range(X_ROUNDS):
+        ss, si, rstats, lane = round_shard(ss, si, *tabs)
+        lanes.append((rstats, lane))
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t0
+    after_rounds = (mesh.join(ss), mesh.join(si))
+    t0 = time.perf_counter()
+    for _ in range(X_WAVES):
+        ss, si, rstats, lane = wave_shard(ss, si, *tabs)
+        lanes.append((rstats, lane))
+    torch.cuda.synchronize()
+    dt_w = time.perf_counter() - t0
+    launches_leg2 = dict(_native.LAUNCHES)
+    # the device's share of a round (the profiler's kernel, memset and
+    # copy time), sharded and single-device, on the state reached
+    dev_round = device_ms(lambda: round_shard(ss, si, *tabs), reps=5)
+    for rstats, lane in lanes:
+        ln = lane.cpu().numpy().astype(np.int64)
+        lane_dev += ln.reshape(D, -1, 7).sum(1)
+        route_tot += rstats.cpu().numpy().astype(np.int64).sum(0)
+    after_waves = (mesh.join(ss), mesh.join(si))
+    # the single-device kernels on the same global rows
+    sr, ir = x["state"], x["inbox"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(X_ROUNDS):
+        sr, ir, _s, _n = R.routed_round(
+            sr, ir, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
+            base=X_BASE, propose_leaders=True)
+    torch.cuda.synchronize()
+    dt2_single = time.perf_counter() - t0
+    r_ok = _equal(list(sr) + list(ir),
+                  list(after_rounds[0]) + list(after_rounds[1]))
+    for _ in range(X_WAVES):
+        sr, ir, _s, _n = R.fused_rounds(
+            sr, ir, x["dest"], x["rank"], rounds=X_WAVE_ROUNDS,
+            out_capacity=X_O, budget=X_BUD, base=X_BASE,
+            propose_leaders=True)
+    w_ok = _equal(list(sr) + list(ir),
+                  list(after_waves[0]) + list(after_waves[1]))
+    dev_round_single = device_ms(lambda: R.routed_round(
+        sr, ir, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
+        base=X_BASE, propose_leaders=True), reps=5)
+    st_fin = after_waves[0]
+    committed = st_fin.committed.cpu().numpy()
+    commits = committed.reshape(3, groups).max(0)
+    rows_live = lane_dev[:, 6]
+    res["leg2"] = dict(
+        groups=groups, rows=x["G"], xbudget=x["xbudget"],
+        rounds=X_ROUNDS, waves=X_WAVES, wave_rounds=X_WAVE_ROUNDS,
+        parity_rounds_ok=r_ok, parity_waves_ok=w_ok,
+        rounds_per_s=X_ROUNDS / dt2,
+        single_device_rounds_per_s=X_ROUNDS / dt2_single,
+        device_ms_per_round=dev_round,
+        single_device_device_ms_per_round=dev_round_single,
+        wave_rounds_per_s=X_WAVES * X_WAVE_ROUNDS / dt_w,
+        leaders=int((st_fin.role == T.ROLE_LEADER).sum()),
+        groups_committing=int((commits > 0).sum()),
+        cross_sent=int(lane_dev[:, 0].sum()),
+        cross_delivered=int(lane_dev[:, 1].sum()),
+        cross_dropped_budget=int(lane_dev[:, 2].sum()),
+        cross_dropped_xlane=int(lane_dev[:, 3].sum()),
+        cross_dropped_ring=int(lane_dev[:, 4].sum()),
+        escalations=int(lane_dev[:, 5].sum()),
+        local_route=dict(zip(("delivered", "dropped_off_device",
+                              "dropped_budget", "dropped_ring",
+                              "suppressed", "host_carried"),
+                             route_tot.tolist())),
+        per_device_lane=lane_dev.tolist(),
+        per_device_commit_sum=[int(v) for v in
+                               committed.reshape(D, -1).sum(1)],
+        per_device_rows_live=[int(v) for v in rows_live],
+        balance_ratio=float(rows_live.max() / max(1, rows_live.min())),
+        kernel_launches=launches_leg2,
+    )
+    leg1, leg2 = res["leg1"], res["leg2"]
+    fails = []
+    if not leg1["parity_ok"]:
+        fails.append("leg 1: the sharded step differs from step_internal")
+    if not (leg2["parity_rounds_ok"] and leg2["parity_waves_ok"]):
+        fails.append("leg 2: the sharded round differs from the "
+                     "single-device round")
+    if leg1["balance_ratio"] > 1.1 or leg2["balance_ratio"] > 1.1:
+        fails.append("per-device balance above 1.1")
+    if leg2["cross_dropped_xlane"] != 0:
+        fails.append("lane drops at the sized xbudget")
+    if D > 1 and leg2["cross_delivered"] < 1:
+        fails.append("no message crossed the lane")
+    if leg2["groups_committing"] != groups:
+        fails.append(f"{groups - leg2['groups_committing']} groups never "
+                     "committed")
+    idle = [k for k in ("raft_step_internal",) if launches_leg1[k] < 1]
+    idle += [k for k in ("raft_step", "place_rows", "route", "xlane_pack",
+                         "xlane_scatter") if launches_leg2[k] < 1]
+    if idle:
+        fails.append(f"kernels never launched on the sharded path: {idle}")
+    if fails:
+        raise AssertionError(f"multichip ({res['devices']}): {fails}; "
+                             f"{json.dumps(res)[:3000]}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1435,7 +2009,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
         if passed < 1 or passed != begun:
             raise AssertionError(
                 f"parity of {k}: {passed} of {begun} checks passed")
-    idle = [k for k, v in launches.items() if v < 1]
+    idle = [k for k in COLO_PARITY_KERNELS if launches[k] < 1]
     if idle:
         raise AssertionError(
             f"kernels never launched on the colocated path: {idle}")
@@ -1461,7 +2035,8 @@ def main(argv) -> int:
     ap.add_argument(
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
-             "nodehost, colocated) without the result lines; default: all",
+             "mesh_kernels, phase_a, multichip, nodehost, colocated) "
+             "without the result lines; default: all",
     )
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
@@ -1491,23 +2066,39 @@ def main(argv) -> int:
               torch=torch.__version__, cuda=torch.version.cuda,
               build_s=build_s, ptxas=ptxas_report(_native.build_log())))
 
+    phase_s = {}
+
+    def run(name, fn, *a, **kw):
+        t = time.perf_counter()
+        res = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        emit(dict(phase=name, card=smi, phase_s=phase_s[name], **res))
+        return res
+
     if want("kernels"):
-        kern = kernels_phase(dev)
-        emit(dict(phase="kernels", card=smi, **kern))
+        kern = run("kernels", kernels_phase, dev)
     if want("colo_kernels"):
-        ckern = colocated_kernels_phase(dev)
-        emit(dict(phase="colocated_kernels", card=smi, **ckern))
+        ckern = run("colocated_kernels", colocated_kernels_phase, dev)
+    if want("mesh_kernels"):
+        mkern = run("mesh_kernels", mesh_kernels_phase, dev)
+    if want("phase_a"):
+        pa = run("phase_a", phase_a_phase, dev)
+    if want("multichip"):
+        mc = run("multichip", multichip_phase, dev, [dev] * X_DEVICES)
+        if torch.cuda.device_count() >= X_DEVICES:
+            run("multichip_cards", multichip_phase, dev,
+                [torch.device("cuda", i) for i in range(X_DEVICES)])
     if want("nodehost"):
-        nh = nodehost_phase(dev, os.path.join(scratch, f"smoke-{os.getpid()}"))
-        emit(dict(phase="nodehost", card=smi, **nh))
+        nh = run("nodehost", nodehost_phase, dev,
+                 os.path.join(scratch, f"smoke-{os.getpid()}"))
     if want("colocated"):
-        colo = colocated_phase(
-            dev, os.path.join(scratch, f"colo-{os.getpid()}"),
-            profile_s=args.profile_colocated)
-        emit(dict(phase="colocated", card=smi, **colo))
+        colo = run("colocated", colocated_phase, dev,
+                   os.path.join(scratch, f"colo-{os.getpid()}"),
+                   profile_s=args.profile_colocated)
     if only:
         print(f"chip_smoke: ran {sorted(only)} in "
-              f"{time.perf_counter() - t_all:.1f} s", file=sys.stderr)
+              f"{time.perf_counter() - t_all:.1f} s {phase_s}",
+              file=sys.stderr)
         return 0
 
     rows = []
@@ -1552,7 +2143,20 @@ def main(argv) -> int:
             row["max_abs_err"] = max(ckern["max_abs_err"][e]
                                      for e in row["entries"])
         rows.append(row)
-    emit({"kernels": rows})
+    for k, info in MESH_KERNEL_INFO.items():
+        step = k == "raft_step_internal"
+        rows.append(dict(
+            name=k, route="cuda", source=info["source"],
+            replaces=info["replaces"], also_replaces=info["also_replaces"],
+            launches=(pa if step else mc["leg2"])["kernel_launches"][k],
+            launches_multichip=(mc["leg1"] if step else mc["leg2"])[
+                "kernel_launches"][k],
+            max_abs_err=mkern["max_abs_err"][k],
+            ms=mkern["ms"][k], device_ms=mkern["device_ms"][k],
+            plain_ms=mkern["plain_ms"][k], bound_ms=mkern["bound_ms"][k],
+            bound_by="bytes", library_ms=mkern["library_ms"][k],
+        ))
+    emit({"kernels": rows, "phase_s": phase_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

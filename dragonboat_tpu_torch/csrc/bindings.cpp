@@ -68,10 +68,12 @@ void* stream_of(const at::Device& dev) {
 
 }  // namespace
 
-void raft_step(const Tensors& state, const Tensors& new_state,
-               const Tensors& inbox, const Tensors& outs_, int64_t G,
-               int64_t P, int64_t W, int64_t M, int64_t E, int64_t O) {
-  const char* name = "raft_step";
+// raft_step.cu in either layout (internal = 1: G-last)
+static void step_launch(const char* name, int internal,
+                        const Tensors& state, const Tensors& new_state,
+                        const Tensors& inbox, const Tensors& outs_,
+                        int64_t G, int64_t P, int64_t W, int64_t M,
+                        int64_t E, int64_t O) {
   TORCH_CHECK(!state.empty(), name, ": no state tensors");
   const at::Device dev = state[0].device();
   auto si = ins(state, dbt::N_STATE, dev, name);
@@ -83,8 +85,23 @@ void raft_step(const Tensors& state, const Tensors& new_state,
   dbt::raft_step_launch(si.data(), so.data(), ib.data(), o.data(),
                         dim(G, name), dim(P, name), dim(W, name),
                         dim(M, name), dim(E, name), dim(O, name),
-                        stream_of(dev));
+                        internal, stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void raft_step(const Tensors& state, const Tensors& new_state,
+               const Tensors& inbox, const Tensors& outs_, int64_t G,
+               int64_t P, int64_t W, int64_t M, int64_t E, int64_t O) {
+  step_launch("raft_step", 0, state, new_state, inbox, outs_, G, P, W, M, E,
+              O);
+}
+
+void raft_step_internal(const Tensors& state, const Tensors& new_state,
+                        const Tensors& inbox, const Tensors& outs_,
+                        int64_t G, int64_t P, int64_t W, int64_t M,
+                        int64_t E, int64_t O) {
+  step_launch("raft_step_internal", 1, state, new_state, inbox, outs_, G, P,
+              W, M, E, O);
 }
 
 void summarize_flags(const Tensors& srcs,
@@ -308,6 +325,76 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void xlane_pack(const Tensors& st, const at::Tensor& buf,
+                const at::Tensor& count,
+                const std::optional<at::Tensor>& suppress,
+                const at::Tensor& dest_local, const at::Tensor& dest_dev,
+                const at::Tensor& rank, const at::Tensor& xbuf,
+                const at::Tensor& scan, const at::Tensor& stats, int64_t me,
+                int64_t D, int64_t B) {
+  const char* name = "xlane_pack";
+  const at::Device dev = buf.device();
+  auto s = ins(st, dbt::N_LANE_STATE, dev, name);
+  TORCH_CHECK(buf.dim() == 3 && buf.size(2) == 11 && st[0].dim() == 2 &&
+                  st[4].dim() == 2 && xbuf.dim() == 3,
+              name, ": bad shapes");
+  const int64_t G = buf.size(0), O = buf.size(1), P = st[0].size(1);
+  const int64_t W = st[4].size(1), XB = xbuf.size(1);
+  const int64_t KT = xbuf.size(2), E = (KT - 14) / 2;
+  TORCH_CHECK(P >= 1 && P <= 16, name, ": P must be in [1, 16]");
+  TORCH_CHECK(W >= 1 && (W & (W - 1)) == 0, name, ": W must be a power of two");
+  TORCH_CHECK(D >= 1 && D <= 16 && me >= 0 && me < D && xbuf.size(0) == D,
+              name, ": me / D out of range");
+  TORCH_CHECK(KT >= 14 && KT % 2 == 0 && XB >= 1 && B >= 1, name,
+              ": xbuf must be [D, XB, 14 + 2E]");
+  for (int i = 0; i < dbt::N_LANE_STATE; ++i)
+    TORCH_CHECK(st[i].size(0) == G, name, ": state row counts differ");
+  TORCH_CHECK(count.numel() == G && dest_local.numel() == G * P &&
+                  dest_dev.numel() == G * P && rank.numel() == G * P &&
+                  stats.numel() == dbt::N_LANE_STATS &&
+                  scan.numel() == G * D + D,
+              name, ": bad table shapes");
+  const int* sup = nullptr;
+  if (suppress) {
+    TORCH_CHECK(suppress->numel() == G, name, ": suppress must be [G]");
+    sup = in(*suppress, dev, name);
+  }
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::xlane_pack_launch(s.data(), in(buf, dev, name), in(count, dev, name),
+                         sup, in(dest_local, dev, name),
+                         in(dest_dev, dev, name), in(rank, dev, name),
+                         out(xbuf, dev, name), out(scan, dev, name),
+                         out(stats, dev, name), dim(G, name), dim(P, name),
+                         dim(W, name), dim(O, name), dim(E, name),
+                         dim(D, name), dim(XB, name), dim(B, name),
+                         dim(me, name), stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void xlane_scatter(const Tensors& inbox, const at::Tensor& recv,
+                   const at::Tensor& stats, int64_t B, int64_t base) {
+  const char* name = "xlane_scatter";
+  const at::Device dev = recv.device();
+  auto ib = outs(inbox, dbt::N_INBOX, dev, name);
+  TORCH_CHECK(inbox[0].dim() == 2 && inbox[10].dim() == 3 &&
+                  recv.dim() == 2,
+              name, ": bad shapes");
+  const int64_t G = inbox[0].size(0), M = inbox[0].size(1);
+  const int64_t E = inbox[10].size(2), R = recv.size(0);
+  TORCH_CHECK(recv.size(1) == 14 + 2 * E, name,
+              ": recv must be [R, 14 + 2E]");
+  TORCH_CHECK(stats.numel() == dbt::N_LANE_STATS, name, ": stats must be [7]");
+  for (int i = 0; i < dbt::N_INBOX; ++i)
+    TORCH_CHECK(inbox[i].size(0) == G && inbox[i].size(1) == M, name,
+                ": inbox shapes differ");
+  const c10::cuda::CUDAGuard guard(dev);
+  dbt::xlane_scatter_launch(ib.data(), in(recv, dev, name),
+                            out(stats, dev, name), dim(R, name), dim(G, name),
+                            dim(M, name), dim(E, name), dim(B, name),
+                            dim(base, name), stream_of(dev));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 namespace {
 
 void inbox(int64_t mode, const Tensors& a, const Tensors& b,
@@ -433,7 +520,9 @@ void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("raft_step", &raft_step, "csrc/raft_step.cu");
+  m.def("raft_step", &raft_step, "csrc/raft_step.cu, external layout");
+  m.def("raft_step_internal", &raft_step_internal,
+        "csrc/raft_step.cu, internal (G-last) layout");
   m.def("summarize_flags", &summarize_flags, "csrc/flags.cu");
   m.def("gather_pack", &gather_pack, "csrc/gather_pack.cu");
   m.def("place_rows", &place_rows, "csrc/place_rows.cu, rows mode");
@@ -447,4 +536,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "csrc/inbox.cu, from_ticks mode");
   m.def("zero_inbox_rows", &zero_inbox_rows, "csrc/inbox.cu, zero_rows mode");
   m.def("select_and_blob", &select_and_blob, "csrc/select_blob.cu");
+  m.def("xlane_pack", &xlane_pack, "csrc/xlane.cu, pack");
+  m.def("xlane_scatter", &xlane_scatter, "csrc/xlane.cu, scatter");
 }

@@ -26,11 +26,17 @@ constexpr int MAX_FIELDS = 32;
 // RouteStats, then the suppressed-row count)
 constexpr int N_ROUTE_STATE = 7;
 constexpr int N_ROUTE_STATS = 7;
+// xlane: the state sources (peer_id, replica_id, first_index,
+// last_index, ring_term, ring_cc) and the lane stats row (the five
+// CrossStats, then the suppressed and the live row counts)
+constexpr int N_LANE_STATE = 6;
+constexpr int N_LANE_STATS = 7;
 
-// raft_step.cu — every array in the field order of ops/types.py
+// raft_step.cu — every array in the field order of ops/types.py; the
+// external [G, ...] layout (internal = 0) or the G-last one (1)
 void raft_step_launch(const int* const* st_in, int* const* st_out,
                       const int* const* inbox, int* const* out, int G,
-                      int P, int W, int M, int E, int O,
+                      int P, int W, int M, int E, int O, int internal,
                       void* stream);
 
 // flags.cu — srcs: old term, vote, committed, leader_id, role,
@@ -94,5 +100,21 @@ void select_blob_launch(const int* flags, const int* combo,
                         int* detail, const int* caps, int G, int nw, int O,
                         int Mo, int E, int P, int W, int host_off,
                         void* stream);
+
+// xlane.cu, pack — st: N_LANE_STATE sources; suppress may be null;
+// xbuf [D, XB, 14 + 2E] and stats [7] are written whole; scan is
+// [G * D + D] scratch
+void xlane_pack_launch(const int* const* st, const int* buf,
+                       const int* count, const int* suppress,
+                       const int* dest_local, const int* dest_dev,
+                       const int* rank, int* xbuf, int* scan, int* stats,
+                       int G, int P, int W, int O, int E, int D, int XB,
+                       int B, int me, void* stream);
+
+// xlane.cu, scatter — adds the R received rows into inbox (in place) and
+// writes the delivered count into stats[1]
+void xlane_scatter_launch(int* const* inbox, const int* recv, int* stats,
+                          int R, int G, int M, int E, int B, int base,
+                          void* stream);
 
 }  // namespace dbt

@@ -19,6 +19,26 @@
 // those accesses strided across a warp.  A later version can stage
 // them through shared memory or registers.
 //
+// Two layouts, one row logic, compiled once per layout.  The row
+// logic reads and writes every per-row array as DBT_EL(a, k), element k
+// counted from the row's first element a:
+//   * this file alone builds the external layout of `kernel.step`
+//     ([G, P], [G, W], inbox [G, M] / [G, M, E], out.buf [G, O,
+//     N_FIELDS]) as `dbt::ext::step_row` and `raft_step_kernel`: a row's
+//     elements are contiguous and DBT_EL(a, k) is a[k];
+//   * raft_step_internal.cu defines DBT_STEP_GL and includes this file
+//     to build the G-last layout of `kernel.step_internal`
+//     (kernel.py:1674) as `dbt::gl::step_row` and
+//     `raft_step_internal_kernel`: element k of row g sits at k * G + g,
+//     DBT_EL(a, k) is Row::at(a, k) = a[k * G].
+// Choosing the layout in the preprocessor, not by a template argument,
+// leaves the external kernel's source and so its machine code as it was
+// before the G-last layout was added (a template or an accessor function
+// changes the compiler's inlining; checked with `python3 -m
+// dragonboat_tpu_torch.ops.sass_compare <earlier csrc>`).  The G-last
+// kernel still keeps part of its row in the thread's stack frame
+// (ptxas -v): staging that is work for a faster version.
+//
 // Hazards handled as the reference defines them:
 //   * a peer slot outside [0, P) reads 0 and writes nothing (the
 //     one-hot selects of `_col` / `_set_col`);
@@ -29,9 +49,20 @@
 //   * a full outbox sets ESC_OVERFLOW, as `_emit` does.
 //
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
-// C++: then only the per-row logic (`dbt::step_row`) is built.
+// C++: then only the per-row logic (`dbt::ext::step_row`, or with
+// DBT_STEP_GL `dbt::gl::step_row`) is built; including it twice, the
+// second time with DBT_STEP_GL defined, builds both.
 #include "common.cuh"
 #include "launch.h"
+
+#ifndef DBT_STEP_GL
+#define DBT_STEP_GL 0
+#endif
+
+// What both layouts share, defined once however often the file is
+// included.
+#ifndef DBT_RAFT_STEP_SHARED
+#define DBT_RAFT_STEP_SHARED
 
 namespace dbt {
 
@@ -87,6 +118,29 @@ DBT_HD bool is_hot(int mt) {
   }
 }
 
+// raft_step_internal.cu: the G-last kernel on `stream`
+void raft_step_internal_launch(const StepArgs& a, void* stream);
+
+}  // namespace dbt
+
+#endif  // DBT_RAFT_STEP_SHARED
+
+// Element k of a row's per-row array that starts at a (DBT_ROW_EL: in
+// step_row, through the row r): a[k] in the external layout, a[k * S]
+// through Row::at in the G-last one.
+#if DBT_STEP_GL
+#define DBT_STEP_NS gl
+#define DBT_EL(a, k) at(a, k)
+#define DBT_ROW_EL(a, k) r.at(a, k)
+#else
+#define DBT_STEP_NS ext
+#define DBT_EL(a, k) (a)[k]
+#define DBT_ROW_EL(a, k) (a)[k]
+#endif
+
+namespace dbt {
+namespace DBT_STEP_NS {
+
 // One row's state: scalars by value, peer/ring/out arrays in place.
 struct Row {
   int shard_id, replica_id, self_slot, election_timeout, heartbeat_timeout,
@@ -105,17 +159,25 @@ struct Row {
   int* slot_term;
   int* ent_drop;
   int count, escalate, append_lo, barrier_idx, barrier_term;
+#if DBT_STEP_GL
+  long long S;  // the element stride of the per-row arrays: G
+
+  template <typename T>
+  DBT_HD T& at(T* a, int k) const {
+    return a[(long long)k * S];
+  }
+#endif
 
   // -- peer slots ---------------------------------------------------------
   DBT_HD bool in_p(int s) const { return s >= 0 && s < P; }
-  DBT_HD int col(const int* a, int s) const { return in_p(s) ? a[s] : 0; }
+  DBT_HD int col(const int* a, int s) const { return in_p(s) ? DBT_EL(a, s) : 0; }
   DBT_HD void set_col(int* a, int s, int v) {
-    if (in_p(s)) a[s] = v;
+    if (in_p(s)) DBT_EL(a, s) = v;
   }
-  DBT_HD bool valid(int p) const { return peer_id[p] != 0; }
+  DBT_HD bool valid(int p) const { return DBT_EL(peer_id, p) != 0; }
   DBT_HD bool is_voter(int p) const {
-    return peer_id[p] != 0 &&
-           (peer_kind[p] == KIND_VOTER || peer_kind[p] == KIND_WITNESS);
+    return DBT_EL(peer_id, p) != 0 &&
+           (DBT_EL(peer_kind, p) == KIND_VOTER || DBT_EL(peer_kind, p) == KIND_WITNESS);
   }
   DBT_HD int num_voters() const {
     int n = 0;
@@ -130,7 +192,7 @@ struct Row {
   DBT_HD int slot_of(int pid, bool* found) const {
     if (pid != 0) {
       for (int p = 0; p < P; ++p) {
-        if (peer_id[p] != 0 && peer_id[p] == pid) {
+        if (DBT_EL(peer_id, p) != 0 && DBT_EL(peer_id, p) == pid) {
           *found = true;
           return p;
         }
@@ -148,7 +210,7 @@ struct Row {
     bool boundary = idx == wsub(first_index, 1);
     bool in_win = idx >= win_lo() && idx <= last_index;
     bool beyond = idx > last_index;
-    int t = zero ? 0 : (boundary ? base_term : ring_term[ring_pos(idx)]);
+    int t = zero ? 0 : (boundary ? base_term : DBT_EL(ring_term, ring_pos(idx)));
     *known = zero || boundary || in_win;
     *esc = !*known && !beyond;
     return t;
@@ -164,14 +226,14 @@ struct Row {
   }
   DBT_HD void ring_write(int idx, int t, int cc) {
     int p = ring_pos(idx);
-    ring_term[p] = t;
-    ring_cc[p] = cc;
+    DBT_EL(ring_term, p) = t;
+    DBT_EL(ring_cc, p) = cc;
   }
   DBT_HD bool pending_cc_any() const {
     int lo = win_lo();
     for (int j = 0; j < W; ++j) {
       int cand = wadd(lo, (int)((uint32_t)wsub(j, lo) & (uint32_t)(W - 1)));
-      if (cand > committed && cand <= last_index && ring_cc[j] == 1) return true;
+      if (cand > committed && cand <= last_index && DBT_EL(ring_cc, j) == 1) return true;
     }
     return false;
   }
@@ -181,18 +243,22 @@ struct Row {
                    int commit, int reject, int hint, int hint_high,
                    int n_entries, int src_slot) {
     if (count < O) {
+#if DBT_STEP_GL
+      int* r = buf + (long long)count * N_FIELDS * S;
+#else
       int* r = buf + count * N_FIELDS;
-      r[F_MTYPE] = mtype;
-      r[F_TO] = to;
-      r[F_TERM] = t;
-      r[F_LOG_TERM] = log_term_;
-      r[F_LOG_INDEX] = log_index;
-      r[F_COMMIT] = commit;
-      r[F_REJECT] = reject;
-      r[F_HINT] = hint;
-      r[F_HINT_HIGH] = hint_high;
-      r[F_N_ENTRIES] = n_entries;
-      r[F_SRC_SLOT] = src_slot;
+#endif
+      DBT_EL(r, F_MTYPE) = mtype;
+      DBT_EL(r, F_TO) = to;
+      DBT_EL(r, F_TERM) = t;
+      DBT_EL(r, F_LOG_TERM) = log_term_;
+      DBT_EL(r, F_LOG_INDEX) = log_index;
+      DBT_EL(r, F_COMMIT) = commit;
+      DBT_EL(r, F_REJECT) = reject;
+      DBT_EL(r, F_HINT) = hint;
+      DBT_EL(r, F_HINT_HIGH) = hint_high;
+      DBT_EL(r, F_N_ENTRIES) = n_entries;
+      DBT_EL(r, F_SRC_SLOT) = src_slot;
       ++count;
     } else {
       escalate |= ESC_OVERFLOW;
@@ -217,16 +283,16 @@ struct Row {
     leader_id = 0;
     election_tick = 0;
     heartbeat_tick = 0;
-    for (int p = 0; p < P; ++p) granted[p] = 0;
+    for (int p = 0; p < P; ++p) DBT_EL(granted, p) = 0;
     transfer_target = 0;
     pending_cc = 0;
     reset_timeout();
     for (int p = 0; p < P; ++p) {
       if (!valid(p)) continue;
-      match[p] = p == self_slot ? last_index : 0;
-      next_idx[p] = wadd(last_index, 1);
-      rstate[p] = RS_RETRY;
-      snap_index[p] = 0;
+      DBT_EL(match, p) = p == self_slot ? last_index : 0;
+      DBT_EL(next_idx, p) = wadd(last_index, 1);
+      DBT_EL(rstate, p) = RS_RETRY;
+      DBT_EL(snap_index, p) = 0;
     }
   }
   DBT_HD void become_follower(int new_term, int leader) {
@@ -239,7 +305,7 @@ struct Row {
   }
   DBT_HD void become_pre_candidate() {
     role = ROLE_PRE_CANDIDATE;
-    for (int p = 0; p < P; ++p) granted[p] = 0;
+    for (int p = 0; p < P; ++p) DBT_EL(granted, p) = 0;
     leader_id = 0;
     election_tick = 0;
     reset_timeout();
@@ -253,7 +319,7 @@ struct Row {
   }
   DBT_HD bool votes_at_least_quorum(int want) const {
     int n = 0;
-    for (int p = 0; p < P; ++p) n += (is_voter(p) && granted[p] == want) ? 1 : 0;
+    for (int p = 0; p < P; ++p) n += (is_voter(p) && DBT_EL(granted, p) == want) ? 1 : 0;
     return n >= quorum();
   }
   DBT_HD bool vote_quorum() const { return votes_at_least_quorum(1); }
@@ -274,7 +340,7 @@ struct Row {
   DBT_HD bool try_commit() {
     int s[PMAX];
     for (int p = 0; p < P; ++p) {
-      int v = is_voter(p) ? match[p] : -1;
+      int v = is_voter(p) ? DBT_EL(match, p) : -1;
       int j = p;
       while (j > 0 && s[j - 1] > v) {
         s[j] = s[j - 1];
@@ -302,7 +368,7 @@ struct Row {
     int prev = wsub(nxt, 1);
     if (prev < wsub(first_index, 1)) {
       // compacted below the resolvable boundary -> snapshot path
-      if (in_p(slot)) need_snapshot[slot] = 1;
+      if (in_p(slot)) DBT_EL(need_snapshot, slot) = 1;
       set_col(rstate, slot, RS_WAIT);
       return;
     }
@@ -326,8 +392,8 @@ struct Row {
   DBT_HD void broadcast_heartbeat(int hint, int hint_high) {
     for (int p = 0; p < P; ++p) {
       if (!valid(p) || self_slot == p) continue;
-      emit(MT_HEARTBEAT, peer_id[p], term, 0, committed,
-           imin(match[p], committed), 0, hint, hint_high, 0, -1);
+      emit(MT_HEARTBEAT, DBT_EL(peer_id, p), term, 0, committed,
+           imin(DBT_EL(match, p), committed), 0, hint, hint_high, 0, -1);
     }
   }
 
@@ -336,7 +402,7 @@ struct Row {
     reset(term);
     leader_id = replica_id;
     for (int p = 0; p < P; ++p)
-      if (valid(p)) active[p] = 1;
+      if (valid(p)) DBT_EL(active, p) = 1;
     if (wadd(committed, 1) < win_lo() && committed < last_index)
       escalate |= ESC_WINDOW;
     pending_cc = pending_cc_any() ? 1 : 0;
@@ -356,7 +422,7 @@ struct Row {
         if (esc) escalate |= ESC_WINDOW;
         for (int p = 0; p < P; ++p) {
           if (!is_voter(p) || self_slot == p) continue;
-          emit(MT_REQUEST_PREVOTE, peer_id[p], wadd(term, 1), lt, last_index,
+          emit(MT_REQUEST_PREVOTE, DBT_EL(peer_id, p), wadd(term, 1), lt, last_index,
                0, 0, 0, 0, 0, -1);
         }
         return;
@@ -374,7 +440,7 @@ struct Row {
     int hint = transfer ? replica_id : 0;
     for (int p = 0; p < P; ++p) {
       if (!is_voter(p) || self_slot == p) continue;
-      emit(MT_REQUEST_VOTE, peer_id[p], term, lt, last_index, 0, 0, hint, 0,
+      emit(MT_REQUEST_VOTE, DBT_EL(peer_id, p), term, lt, last_index, 0, 0, hint, 0,
            0, -1);
     }
   }
@@ -390,9 +456,9 @@ struct Row {
   DBT_HD void check_quorum_now() {
     int cnt = 1;
     for (int p = 0; p < P; ++p)
-      if (is_voter(p) && p != self_slot && active[p] == 1) ++cnt;
+      if (is_voter(p) && p != self_slot && DBT_EL(active, p) == 1) ++cnt;
     for (int p = 0; p < P; ++p)
-      if (is_voter(p)) active[p] = 0;
+      if (is_voter(p)) DBT_EL(active, p) = 0;
     if (cnt < quorum()) become_follower(term, 0);
   }
 
@@ -500,7 +566,7 @@ struct Row {
     bool conflict_esc = false;
     for (int i = 0; i < E && i < n; ++i) {
       bool e_esc;
-      if (!match_term(wadd(m.log_index, 1 + i), m.ent_term[i], &e_esc)) {
+      if (!match_term(wadd(m.log_index, 1 + i), DBT_EL(m.ent_term, i), &e_esc)) {
         conflict_off = i;
         conflict_esc = e_esc;
         break;
@@ -515,7 +581,7 @@ struct Row {
       if (idx_at_conf <= committed) escalate |= ESC_INVARIANT;
       append_lo = imin(append_lo, idx_at_conf);
       for (int i = conflict_off; i < E && i < n; ++i)
-        ring_write(wadd(m.log_index, 1 + i), m.ent_term[i], m.ent_cc[i]);
+        ring_write(wadd(m.log_index, 1 + i), DBT_EL(m.ent_term, i), DBT_EL(m.ent_cc, i));
       last_index = last_new;
     }
     committed = imax(committed, imin(m.commit, last_new));
@@ -653,9 +719,9 @@ struct Row {
     bool appended_any = false;
     if (accept) {
       for (int i = 0; i < E && i < n; ++i) {
-        bool is_cc = m.ent_cc[i] == 1;
+        bool is_cc = DBT_EL(m.ent_cc, i) == 1;
         if (is_cc && pending_cc == 1) {
-          ent_drop[slot_i * E + i] = 1;  // config-change gate
+          DBT_EL(ent_drop, slot_i * E + i) = 1;  // config-change gate
           continue;
         }
         if (is_cc) pending_cc = 1;
@@ -665,8 +731,8 @@ struct Row {
     }
     if (appended_any && num_voters() == 1 && self_is_voter()) try_commit();
     if (appended_any) broadcast_replicate();
-    int sb = accept ? base : (drop_all ? SLOT_DROPPED : slot_base[slot_i]);
-    int stm = accept ? term : slot_term[slot_i];
+    int sb = accept ? base : (drop_all ? SLOT_DROPPED : DBT_EL(slot_base, slot_i));
+    int stm = accept ? term : DBT_EL(slot_term, slot_i);
     bool foll = role == ROLE_FOLLOWER || role == ROLE_NON_VOTING ||
                 role == ROLE_WITNESS;
     if (foll && leader_id != 0) {
@@ -676,8 +742,8 @@ struct Row {
     if ((foll && leader_id == 0) || role == ROLE_CANDIDATE ||
         role == ROLE_PRE_CANDIDATE)
       sb = SLOT_DROPPED;
-    slot_base[slot_i] = sb;
-    slot_term[slot_i] = stm;
+    DBT_EL(slot_base, slot_i) = sb;
+    DBT_EL(slot_term, slot_i) = stm;
   }
 
   // -- candidate / follower blocks ------------------------------------------
@@ -793,6 +859,9 @@ struct Row {
 DBT_HD void step_row(const StepArgs& a, int g) {
   const int P = a.P, W = a.W, M = a.M, E = a.E, O = a.O;
   Row r;
+#if DBT_STEP_GL
+  r.S = a.G;
+#endif
   const int* const* si = a.st_in;
   int sc[21];
   for (int f = 0; f < 21; ++f) sc[f] = si[f][g];
@@ -821,9 +890,16 @@ DBT_HD void step_row(const StepArgs& a, int g) {
   int* arr[10];
   for (int f = 0; f < 10; ++f) {
     int n = f < 8 ? P : W;
+    // row g's first element: [G, n] rows are contiguous, [n, G] rows
+    // are columns
+#if DBT_STEP_GL
+    const int* src = si[21 + f] + g;
+    int* dst = a.st_out[21 + f] + g;
+#else
     const int* src = si[21 + f] + (long long)g * n;
     int* dst = a.st_out[21 + f] + (long long)g * n;
-    for (int k = 0; k < n; ++k) dst[k] = src[k];
+#endif
+    for (int k = 0; k < n; ++k) DBT_ROW_EL(dst, k) = DBT_ROW_EL(src, k);
     arr[f] = dst;
   }
   r.peer_id = arr[0];
@@ -841,18 +917,26 @@ DBT_HD void step_row(const StepArgs& a, int g) {
   r.E = E;
   r.O = O;
   // outputs, initialised as make_out does
+#if DBT_STEP_GL
+  r.buf = a.out[0] + g;
+  r.need_snapshot = a.out[3] + g;
+  r.slot_base = a.out[4] + g;
+  r.slot_term = a.out[5] + g;
+  r.ent_drop = a.out[6] + g;
+#else
   r.buf = a.out[0] + (long long)g * O * N_FIELDS;
   r.need_snapshot = a.out[3] + (long long)g * P;
   r.slot_base = a.out[4] + (long long)g * M;
   r.slot_term = a.out[5] + (long long)g * M;
   r.ent_drop = a.out[6] + (long long)g * M * E;
-  for (int k = 0; k < O * N_FIELDS; ++k) r.buf[k] = 0;
-  for (int k = 0; k < P; ++k) r.need_snapshot[k] = 0;
+#endif
+  for (int k = 0; k < O * N_FIELDS; ++k) DBT_ROW_EL(r.buf, k) = 0;
+  for (int k = 0; k < P; ++k) DBT_ROW_EL(r.need_snapshot, k) = 0;
   for (int k = 0; k < M; ++k) {
-    r.slot_base[k] = SLOT_UNUSED;
-    r.slot_term[k] = 0;
+    DBT_ROW_EL(r.slot_base, k) = SLOT_UNUSED;
+    DBT_ROW_EL(r.slot_term, k) = 0;
   }
-  for (int k = 0; k < M * E; ++k) r.ent_drop[k] = 0;
+  for (int k = 0; k < M * E; ++k) DBT_ROW_EL(r.ent_drop, k) = 0;
   r.count = 0;
   r.escalate = 0;
   r.append_lo = APPEND_LO_NONE;
@@ -862,7 +946,12 @@ DBT_HD void step_row(const StepArgs& a, int g) {
   // escalated row handles nothing more
   int first_occ = -1;
   for (int s = 0; s < M; ++s) {
+    // slot s of row g: [G, M] / [G, M, E], or [M, G] / [M, E, G]
+#if DBT_STEP_GL
+    long long off = s * r.S + g;
+#else
     long long off = (long long)g * M + s;
+#endif
     int mt = a.ib[0][off];
     if (mt == 0) continue;
     if (first_occ < 0) first_occ = s;
@@ -878,15 +967,21 @@ DBT_HD void step_row(const StepArgs& a, int g) {
     m.hint = a.ib[7][off];
     m.hint_high = a.ib[8][off];
     m.n_entries = a.ib[9][off];
+#if DBT_STEP_GL
+    m.ent_term = a.ib[10] + s * E * r.S + g;
+    m.ent_cc = a.ib[11] + s * E * r.S + g;
+#else
     m.ent_term = a.ib[10] + off * E;
     m.ent_cc = a.ib[11] + off * E;
+#endif
     r.process_slot(m, s);
   }
   // The reference maps every outbox row's F_SRC_SLOT back through its
   // slot compaction order; an unused row holds 0 there, which maps to
   // the row's first occupied slot (or 0 when the inbox is empty).
   if (first_occ < 0) first_occ = 0;
-  for (int k = r.count; k < O; ++k) r.buf[k * N_FIELDS + F_SRC_SLOT] = first_occ;
+  for (int k = r.count; k < O; ++k)
+    DBT_ROW_EL(r.buf, k * N_FIELDS + F_SRC_SLOT) = first_occ;
   // scalars out
   int so[21] = {r.shard_id, r.replica_id, r.self_slot, r.election_timeout,
                 r.heartbeat_timeout, r.check_quorum, r.pre_vote, r.term,
@@ -902,17 +997,31 @@ DBT_HD void step_row(const StepArgs& a, int g) {
   a.out[9][g] = r.barrier_term;
 }
 
+}  // namespace DBT_STEP_NS
 }  // namespace dbt
 
 #ifdef __CUDACC__
+#if DBT_STEP_GL
+__global__ void raft_step_internal_kernel(const dbt::StepArgs a) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < a.G) dbt::gl::step_row(a, g);
+}
+
+void dbt::raft_step_internal_launch(const dbt::StepArgs& a, void* stream) {
+  const int threads = 128;
+  const int blocks = (a.G + threads - 1) / threads;
+  raft_step_internal_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+}
+#else
 __global__ void raft_step_kernel(const dbt::StepArgs a) {
   int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < a.G) dbt::step_row(a, g);
+  if (g < a.G) dbt::ext::step_row(a, g);
 }
 
 void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
                            const int* const* inbox, int* const* out, int G,
-                           int P, int W, int M, int E, int O, void* stream) {
+                           int P, int W, int M, int E, int O, int internal,
+                           void* stream) {
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
@@ -924,8 +1033,18 @@ void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
   a.M = M;
   a.E = E;
   a.O = O;
+  if (internal) {
+    dbt::raft_step_internal_launch(a, stream);
+    return;
+  }
   const int threads = 128;
   const int blocks = (G + threads - 1) / threads;
   raft_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
 }
 #endif
+#endif
+
+#undef DBT_EL
+#undef DBT_ROW_EL
+#undef DBT_STEP_NS
+#undef DBT_STEP_GL

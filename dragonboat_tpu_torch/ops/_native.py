@@ -24,14 +24,19 @@ BUILD = Path(__file__).resolve().parent.parent / "_build"
 MODULE = "dragonboat_tpu_torch_kernels"
 
 # kernel -> its source; bindings.cpp binds each kernel's entry points
+# (raft_step_internal.cu compiles raft_step.cu's row logic again, in the
+# G-last layout)
 KERNELS = {
     "raft_step": "raft_step.cu",
+    "raft_step_internal": "raft_step_internal.cu",
     "summarize_flags": "flags.cu",
     "gather_pack": "gather_pack.cu",
     "place_rows": "place_rows.cu",
     "route": "route.cu",
     "inbox": "inbox.cu",
     "select_and_blob": "select_blob.cu",
+    "xlane_pack": "xlane.cu",
+    "xlane_scatter": "xlane.cu",
 }
 
 CUDA_FLAGS = (
@@ -70,7 +75,7 @@ def module():
         from torch.utils.cpp_extension import load
 
         BUILD.mkdir(parents=True, exist_ok=True)
-        sources = [str(CSRC / f) for f in KERNELS.values()]
+        sources = [str(CSRC / f) for f in dict.fromkeys(KERNELS.values())]
         sources.append(str(CSRC / "bindings.cpp"))
         sys.stdout.flush()
         saved = os.dup(1)

@@ -590,7 +590,7 @@ class ColocatedTorchEngine(TorchStepEngine):
             fused_waves=0, fused_rounds_stepped=0, fused_fences=0,
             readback_windows=0,
         )
-        for k in _native.KERNELS:
+        for k in sorted({k for ks in PROGRAM_KERNELS.values() for k in ks}):
             self.stats[f"parity_attempts_{k}"] = 0
             self.stats[f"parity_checks_{k}"] = 0
 

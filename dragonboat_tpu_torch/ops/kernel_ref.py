@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from . import convert
 from .types import (
     APPEND_LO_NONE,
     DeviceOut,
@@ -78,17 +79,6 @@ from .types import (
 # mask.  Never set this in production code.
 _FORCE_GATES = False
 
-_PEER_FIELDS = (
-    "peer_id",
-    "peer_kind",
-    "match",
-    "next_idx",
-    "rstate",
-    "snap_index",
-    "active",
-    "granted",
-)
-_RING_FIELDS = ("ring_term", "ring_cc")
 _M32 = 0xFFFFFFFF
 
 
@@ -127,36 +117,6 @@ def _arange_col(n: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # internal (G-last) layout plumbing
 # ---------------------------------------------------------------------------
-def state_to_internal(st: DeviceState) -> DeviceState:
-    """[G, P] -> [P, G], [G, W] -> [W, G]; [G] fields untouched."""
-    return st._replace(
-        **{f: getattr(st, f).t() for f in _PEER_FIELDS + _RING_FIELDS}
-    )
-
-
-def state_from_internal(st: DeviceState) -> DeviceState:
-    return st._replace(
-        **{
-            f: getattr(st, f).t().contiguous()
-            for f in _PEER_FIELDS + _RING_FIELDS
-        }
-    )
-
-
-def inbox_to_internal(ib: Inbox) -> Inbox:
-    """[G, M] -> [M, G]; [G, M, E] -> [M, E, G]."""
-    return Inbox(
-        **{
-            f: (
-                getattr(ib, f).permute(1, 2, 0)
-                if getattr(ib, f).dim() == 3
-                else getattr(ib, f).t()
-            )
-            for f in Inbox._fields
-        }
-    )
-
-
 def _make_out_internal(G, P, M, E, O, device) -> DeviceOut:
     def full(shape, v):
         return torch.full(shape, v, dtype=I32, device=device)
@@ -172,16 +132,6 @@ def _make_out_internal(G, P, M, E, O, device) -> DeviceOut:
         append_lo=full((G,), APPEND_LO_NONE),
         barrier_idx=full((G,), -1),
         barrier_term=full((G,), 0),
-    )
-
-
-def _out_from_internal(out: DeviceOut) -> DeviceOut:
-    return out._replace(
-        buf=out.buf.permute(2, 0, 1).contiguous(),
-        need_snapshot=out.need_snapshot.t().contiguous(),
-        slot_base=out.slot_base.t().contiguous(),
-        slot_term=out.slot_term.t().contiguous(),
-        ent_drop=out.ent_drop.permute(2, 0, 1).contiguous(),
     )
 
 
@@ -1469,7 +1419,7 @@ def step(
 ) -> Tuple[DeviceState, DeviceOut]:
     """Advance every row through its inbox: external ``[G, ...]`` layout
     in and out, the G-last internal layout inside."""
-    st = state_to_internal(state)
-    cin = inbox_to_internal(inbox)
+    st = convert.state_to_internal(state)
+    cin = convert.inbox_to_internal(inbox)
     st, out = step_internal(st, cin, out_capacity)
-    return state_from_internal(st), _out_from_internal(out)
+    return convert.state_from_internal(st), convert.out_from_internal(out)

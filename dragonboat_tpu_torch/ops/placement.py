@@ -5,12 +5,22 @@
   is visible: a caller that wants the CPU says ``device="cpu"``.
 * :func:`device_of_row` / :func:`rows_per_device` — the row-block
   placement contract: device ``d`` owns the contiguous row block
-  ``[d*Gl, (d+1)*Gl)``.  The mesh helpers of the reference belong to
-  the multi-device slice and are not carried yet.
+  ``[d*Gl, (d+1)*Gl)``.
+* :class:`GroupsMesh` / :func:`groups_mesh` — the 1-D ``"groups"`` mesh
+  of the sharded device plane.  The reference holds a
+  ``jax.sharding.Mesh`` in one process and lets ``shard_map`` cut every
+  ``[G, ...]`` leaf into per-device row blocks; the port is
+  single-controller in the same way: one process holds a
+  ``GroupsMesh`` of devices, and :meth:`GroupsMesh.shard` /
+  :meth:`GroupsMesh.join` cut a pytree into per-device blocks
+  (:class:`Sharded`) and put it back together.  A mesh may repeat a
+  device (``["cpu"] * 4``, ``[cuda:0] * 4``): the counterpart of the
+  reference's forced host devices, one block per entry.
 """
 from __future__ import annotations
 
 import os
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,3 +71,132 @@ def rows_per_device(capacity: int, n_devices: int) -> int:
 def device_of_row(g: int, capacity: int, n_devices: int) -> int:
     """Device coordinate hosting row ``g`` under the block contract."""
     return g // rows_per_device(capacity, n_devices)
+
+
+# ---------------------------------------------------------------------------
+# the groups mesh
+# ---------------------------------------------------------------------------
+class Sharded(NamedTuple):
+    """A pytree cut into per-device row blocks: ``parts[d]`` is device
+    ``d``'s block (same structure as the global tree, on
+    ``mesh.devices[d]``).  ``internal`` says the row axis is the LAST
+    axis of every leaf (the G-last layout) instead of the first."""
+
+    parts: Tuple[Any, ...]
+    internal: bool = False
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(_map(fn, x) for x in tree))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
+def _rows(t: torch.Tensor, internal: bool) -> int:
+    return t.shape[-1] if internal else t.shape[0]
+
+
+class GroupsMesh:
+    """A 1-D mesh over the groups axis: device ``d`` owns row block
+    ``[d*Gl, (d+1)*Gl)`` of every ``[G, ...]`` array (or ``[..., G]``
+    in the internal layout).  The counterpart of the reference's
+    ``Mesh(devices, ("groups",))`` with ``.size``, ``.axis_names`` and
+    ``.devices``.  A CUDA device without CUDA raises."""
+
+    def __init__(self, devices, axis_name: str = "groups"):
+        devs = tuple(_mesh_device(d) for d in devices)
+        if not devs:
+            raise ValueError("a groups mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError("a groups mesh is all CPU or all CUDA")
+        self.devices = devs
+        self.axis_names = (axis_name,)
+        self.size = len(devs)
+
+    def __repr__(self) -> str:
+        return f"GroupsMesh({[str(d) for d in self.devices]})"
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0].type
+
+    def shard(self, tree, internal: bool = False) -> Sharded:
+        """``tree`` (a tensor or a NamedTuple of them) as per-device
+        contiguous row blocks, block ``d`` on ``devices[d]``; the row
+        axis is the first (``internal=False``) or the last, and the row
+        count must divide.  An already-sharded tree of this mesh is
+        returned as it is (as ``jit`` keeps committed inputs)."""
+        if isinstance(tree, Sharded):
+            if len(tree.parts) != self.size or tree.internal != internal:
+                raise ValueError("sharded input does not fit this mesh")
+            return tree
+        G = _rows(_leaves(tree)[0], internal)
+        gl = rows_per_device(G, self.size)
+
+        def block(d):
+            def cut(t):
+                if _rows(t, internal) != G:
+                    raise ValueError("mesh.shard: leaves disagree on the "
+                                     "row count")
+                lo, hi = d * gl, (d + 1) * gl
+                b = t[..., lo:hi] if internal else t[lo:hi]
+                return b.to(self.devices[d]).contiguous()
+            return _map(cut, tree)
+
+        return Sharded(tuple(block(d) for d in range(self.size)), internal)
+
+    def join(self, tree, device=None):
+        """The global tree of a :class:`Sharded` one, its blocks
+        concatenated on ``device`` (default: the mesh's first device); a
+        global tree passes through."""
+        if not isinstance(tree, Sharded):
+            return tree
+        device = device or self.devices[0]
+        flat = [_leaves(p) for p in tree.parts]
+        joined = iter([
+            torch.cat([f[i].to(device) for f in flat],
+                      dim=-1 if tree.internal else 0)
+            for i in range(len(flat[0]))
+        ])
+        return _map(lambda _t: next(joined), tree.parts[0])
+
+
+def _mesh_device(d) -> torch.device:
+    dev = torch.device(d)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {dev} requested but CUDA is "
+                               "unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(f"mesh device {dev}: only "
+                             f"{torch.cuda.device_count()} visible")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported mesh device {dev}")
+    return dev
+
+
+def groups_mesh(n_devices: Optional[int] = None) -> Optional[GroupsMesh]:
+    """A mesh over the first ``n_devices`` CUDA cards, or None for
+    single-device mode.  ``n_devices`` defaults to
+    ``DRAGONBOAT_TPU_MESH_DEVICES``; unset, 0 or 1 gives None.  Raises
+    when fewer cards are visible."""
+    if n_devices is None:
+        n_devices = int(
+            os.environ.get("DRAGONBOAT_TPU_MESH_DEVICES", "0") or 0
+        )
+    if n_devices <= 1:
+        return None
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < n_devices:
+        raise ValueError(
+            f"mesh wants {n_devices} devices, only {n} visible"
+        )
+    return GroupsMesh([torch.device("cuda", i) for i in range(n_devices)])

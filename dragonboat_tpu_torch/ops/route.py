@@ -1,10 +1,12 @@
 """Device-side message routing: outbox -> co-located peer inboxes.
 
-Port of the single-device part of ``dragonboat_tpu/ops/route.py``
-(everything up to ``fused_rounds``; the mesh tables and the cross-device
-lane wait for the multi-device slice).  Messages whose destination
-replica is resident on the same device are scattered straight into the
-next step's ``Inbox``; the rest stay with the host transport.
+Port of ``dragonboat_tpu/ops/route.py``: the single-device router (up to
+``fused_rounds``) and the multi-device plane (``MeshTables``,
+``CrossStats``, ``build_route_tables_mesh``, ``xbudget_for``,
+``cross_exchange``, ``make_sharded_round``, below).  Messages whose
+destination replica is resident on the same device are scattered
+straight into the next step's ``Inbox``; the rest stay with the host
+transport, or ride the cross-device lane on a groups mesh.
 
 The inbox is direct-mapped, not sorted:
 
@@ -39,12 +41,20 @@ from . import _native
 from . import kernel as K
 from . import plumbing
 from . import route_ref
-from .route_ref import make_prefill
+from .placement import GroupsMesh, Sharded
+from .route_ref import (
+    N_LANE_STATS, X_KF, XI_B, XI_FOUND, XI_FROM, XI_LOC, XI_RANK,
+    make_prefill,
+)
 from .types import I32, N_FIELDS, DeviceOut, DeviceState, Inbox
 
 __all__ = [
     "RouteStats", "build_route_tables", "route", "make_prefill",
-    "merge_and_route", "routed_round", "fused_rounds",
+    "merge_and_route", "routed_round", "fused_rounds", "MeshTables",
+    "CrossStats", "build_route_tables_mesh", "xbudget_for",
+    "xlane_pack", "xlane_scatter", "cross_exchange", "make_sharded_round",
+    # the packed lane row's layout (route_ref.py, csrc/xlane.cu)
+    "XI_FROM", "XI_LOC", "XI_RANK", "XI_B", "XI_FOUND", "X_KF",
 ]
 
 # the state fields the route kernel reads, in csrc/route.cu's order
@@ -338,3 +348,347 @@ def fused_rounds(
             stats_out=stats_all[k],
         )
     return state, inbox, stats_all[:, :6], stats_all[:, 6]
+
+
+# ---------------------------------------------------------------------------
+# multi-device plane: sharded tables + the cross-device lane
+# ---------------------------------------------------------------------------
+class MeshTables(NamedTuple):
+    """Static route tables for a groups mesh (row-block placement:
+    device ``d`` owns global rows ``[d*Gl, (d+1)*Gl)``).  All three are
+    ``[G, P]``, describing the peer in each slot of each row:
+
+      dest_dev[g, p]      device hosting that replica (-1: not placed)
+      dest_local[g, p]    its LOCAL row index on that device
+      rank_in_dest[g, p]  the slot row g's replica occupies in THAT row's
+                          peer table (the single-device table)
+    """
+
+    dest_local: np.ndarray
+    dest_dev: np.ndarray
+    rank_in_dest: np.ndarray
+
+
+class CrossStats(NamedTuple):
+    """Cross-device lane counters, one int32 per shard."""
+
+    sent: torch.Tensor            # messages packed onto the lane
+    delivered: torch.Tensor       # received messages (found) scattered
+    dropped_budget: torch.Tensor  # per-sender region rank >= budget
+    dropped_xlane: torch.Tensor   # per-edge lane slots exhausted (>= XB)
+    dropped_ring: torch.Tensor    # REPLICATE no longer ring-resident
+
+
+def build_route_tables_mesh(
+    shard_ids: np.ndarray,
+    replica_ids: np.ndarray,
+    peer_ids: np.ndarray,
+    n_devices: int,
+) -> MeshTables:
+    """The global ``build_route_tables`` output split by the row-block
+    placement into (device, local row) coordinates.  A peer on the same
+    device routes through ``route``; a peer on another device rides the
+    lane (``cross_exchange``)."""
+    G = peer_ids.shape[0]
+    if n_devices <= 0 or G % n_devices:
+        raise ValueError(f"G={G} must divide over {n_devices} devices")
+    gl = G // n_devices
+    dest, rank = build_route_tables(shard_ids, replica_ids, peer_ids)
+    placed = dest >= 0
+    dest_dev = np.where(placed, dest // gl, -1).astype(np.int32)
+    dest_local = np.where(placed, dest % gl, -1).astype(np.int32)
+    return MeshTables(dest_local, dest_dev, rank)
+
+
+def xbudget_for(tables: MeshTables, budget: int, n_devices: int) -> int:
+    """Worst-case per-edge lane volume of ``tables``: every local row may
+    send up to ``budget`` messages toward each of its peer slots on an
+    edge.  Sized so, ``dropped_xlane`` is structurally zero (the
+    precondition of bit-exact parity with the single-device round)."""
+    G = tables.dest_dev.shape[0]
+    gl = G // n_devices
+    worst = 1
+    blocks = tables.dest_dev.reshape(n_devices, gl, -1)
+    for s in range(n_devices):
+        for d in range(n_devices):
+            if d == s:
+                continue
+            worst = max(worst, int((blocks[s] == d).sum()) * budget)
+    return worst
+
+
+# the state fields the lane pack reads, in csrc/xlane.cu's order
+_LANE_STATE = ("peer_id", "replica_id", "first_index", "last_index",
+               "ring_term", "ring_cc")
+# most mesh devices the pack kernel counts per row (xlane.cu XDMAX)
+_XLANE_DMAX = 16
+
+
+def xlane_pack(
+    state: DeviceState,
+    out: DeviceOut,
+    dest_local: torch.Tensor,
+    dest_dev: torch.Tensor,
+    rank_in_dest: torch.Tensor,
+    *,
+    me: int,
+    n_dev: int,
+    E: int,
+    budget: int,
+    xbudget: int,
+    suppress: Optional[torch.Tensor] = None,
+    stats: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard ``me``'s lane buffer ``xbuf [n_dev, xbudget, 14 + 2E]`` and
+    its [7] stats row (``route_ref.lane_pack``), written into ``stats``
+    when given.  CUDA: ``csrc/xlane.cu``'s pack; CPU: the plain
+    version."""
+    if _device(out.buf) == "cpu":
+        xbuf, st = route_ref.lane_pack(
+            state, out, dest_local, dest_dev, rank_in_dest, me=me,
+            n_dev=n_dev, E=E, budget=budget, xbudget=xbudget,
+            suppress=suppress,
+        )
+        if stats is not None:
+            stats.copy_(st)
+            st = stats
+        return xbuf, st
+    G, O, nf = out.buf.shape
+    P = state.peer_id.shape[1]
+    if nf != N_FIELDS or not 1 <= P <= K.PMAX:
+        raise ValueError("xlane_pack: bad outbox or peer width")
+    if not 1 <= n_dev <= _XLANE_DMAX or not 0 <= me < n_dev:
+        raise ValueError(f"xlane_pack: me={me} of n_dev={n_dev}: at most "
+                         f"{_XLANE_DMAX} devices")
+    for t in (dest_local, dest_dev, rank_in_dest):
+        if tuple(t.shape) != (G, P):
+            raise ValueError("xlane_pack: the tables must be [G, P]")
+    dev = out.buf.device
+    xbuf = torch.empty((n_dev, xbudget, X_KF + 2 * E), dtype=I32,
+                       device=dev)
+    if stats is None:
+        stats = torch.empty((N_LANE_STATS,), dtype=I32, device=dev)
+    scan = torch.empty((G * n_dev + n_dev,), dtype=I32, device=dev)
+    _native.launch(
+        "xlane_pack", [getattr(state, f) for f in _LANE_STATE], out.buf,
+        out.count, _int32(suppress), dest_local, dest_dev, rank_in_dest,
+        xbuf, scan, stats, me, n_dev, budget,
+    )
+    return xbuf, stats
+
+
+
+def xlane_scatter(
+    inbox: Inbox,
+    recv: torch.Tensor,
+    *,
+    budget: int,
+    base: int,
+    stats: Optional[torch.Tensor] = None,
+) -> Tuple[Inbox, torch.Tensor]:
+    """Add the received lane rows ``recv [R, 14 + 2E]`` into ``inbox`` in
+    place (``route_ref.lane_scatter``); returns ``(inbox, delivered)``,
+    with ``delivered`` written into ``stats[1]`` when given.  CUDA:
+    ``csrc/xlane.cu``'s scatter; CPU: the plain version."""
+    if _device(recv) == "cpu":
+        inbox, n = route_ref.lane_scatter(inbox, recv, budget=budget,
+                                          base=base)
+        if stats is not None:
+            stats[1] = n
+        return inbox, n
+    E = inbox.ent_term.shape[2]
+    if recv.dim() != 2 or recv.shape[1] != X_KF + 2 * E:
+        raise ValueError("xlane_scatter: recv must be [R, 14 + 2E]")
+    if stats is None:
+        stats = torch.zeros((N_LANE_STATS,), dtype=I32, device=recv.device)
+    _native.launch("xlane_scatter", list(inbox), recv, stats, budget, base)
+    return inbox, stats[1]
+
+
+def ring_shift(mesh: GroupsMesh, xbufs) -> list:
+    """The lane's transport: D-1 ring shifts.  Shift ``s`` hands device
+    ``(i+s) % D`` the block ``xbufs[i][(i+s) % D]`` that device ``i``
+    packed for it; device ``d`` receives ``[(D-1)*XB, KT]`` rows, shift
+    by shift.  Each hop is a device-to-device copy: within one card on
+    its stream, between cards a peer copy that PyTorch orders after the
+    source stream's work (the pack) and before the destination stream's
+    next work (the scatter) with stream events — the host does not
+    synchronize."""
+    D = mesh.size
+    XB, KT = xbufs[0].shape[1:]
+    recv = [torch.empty(((D - 1) * XB, KT), dtype=I32, device=dv)
+            for dv in mesh.devices]
+    for shift in range(1, D):
+        for i in range(D):
+            dst = (i + shift) % D
+            recv[dst][(shift - 1) * XB:shift * XB].copy_(xbufs[i][dst])
+    return recv
+
+
+def _lane(mesh, states, outs, inboxes, tables, sups, *, E, budget, xbudget,
+          base, stats_rows):
+    """The cross-device lane over per-device blocks: pack on every
+    device, ring shifts, scatter on every device.  ``tables[d]`` =
+    (dest_local, dest_dev, rank) of device d; ``stats_rows[d]`` its [7]
+    row.  With one device only the pack runs (its stats row: zeros, the
+    suppressed and live rows)."""
+    D = mesh.size
+    xbufs = [
+        xlane_pack(states[d], outs[d], *tables[d], me=d, n_dev=D, E=E,
+                   budget=budget, xbudget=xbudget, suppress=sups[d],
+                   stats=stats_rows[d])[0]
+        for d in range(D)
+    ]
+    if D <= 1:
+        return inboxes
+    recv = ring_shift(mesh, xbufs)
+    return [
+        xlane_scatter(inboxes[d], recv[d], budget=budget, base=base,
+                      stats=stats_rows[d])[0]
+        for d in range(D)
+    ]
+
+
+def _tensor(t) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t
+    return torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32))
+
+
+def _shard_tables(mesh, dest_local, dest_dev, rank_in_dest):
+    """Per device: (dest_local, dest_dev, rank) blocks."""
+    parts = [mesh.shard(t if isinstance(t, Sharded) else _tensor(t)).parts
+             for t in (dest_local, dest_dev, rank_in_dest)]
+    return [tuple(p[d] for p in parts) for d in range(mesh.size)]
+
+
+def cross_exchange(
+    mesh: GroupsMesh,
+    state,
+    out,
+    inbox,
+    dest_local,
+    dest_dev,
+    rank_in_dest,
+    *,
+    budget: int,
+    xbudget: int,
+    base: int,
+    suppress=None,
+) -> Tuple[Sharded, CrossStats]:
+    """The device-to-device lane (route.py:652) over ``mesh``: messages
+    whose destination replica lives on another device are packed into a
+    fixed per-edge buffer ``[D, xbudget, 14 + 2E]`` per device
+    (``xlane_pack``), moved by D-1 ring shifts (``ring_shift``), and
+    added into the SAME inbox region slots the single-device router
+    would have used, ``base + rank*budget + b`` (``xlane_scatter``).
+    A region has one sender on one device, so it is local-fed XOR
+    lane-fed and the result is bit-identical to the single-device
+    router's.  Overflow is dropped and counted.
+
+    Operands are global trees or :class:`Sharded` ones (``suppress`` a
+    [G] mask, optional).  Returns ``(inbox', stats)``: the inbox as
+    :class:`Sharded` blocks, ``stats`` a :class:`CrossStats` of [D]
+    int32 tensors on the mesh's first device.  With one device it
+    returns the inbox and zero stats."""
+    st, ob, ib = mesh.shard(state), mesh.shard(out), mesh.shard(inbox)
+    D = mesh.size
+    dev0 = mesh.devices[0]
+    if D <= 1:
+        zero = torch.zeros((D,), dtype=I32, device=dev0)
+        return ib, CrossStats(zero, zero, zero, zero, zero)
+    sups = ([None] * D if suppress is None
+            else list(mesh.shard(suppress).parts))
+    rows = [torch.empty((N_LANE_STATS,), dtype=I32, device=dv)
+            for dv in mesh.devices]
+    E = ib.parts[0].ent_term.shape[2]
+    inboxes = _lane(
+        mesh, list(st.parts), list(ob.parts),
+        [Inbox(*(t.clone() for t in p)) for p in ib.parts],
+        _shard_tables(mesh, dest_local, dest_dev, rank_in_dest), sups,
+        E=E, budget=budget, xbudget=xbudget, base=base, stats_rows=rows,
+    )
+    lane = torch.stack([r.to(dev0) for r in rows])
+    return Sharded(tuple(inboxes)), CrossStats(*lane[:, :5].t())
+
+
+def make_sharded_round(
+    mesh: GroupsMesh,
+    *,
+    M: int,
+    E: int,
+    out_capacity: int,
+    budget: int,
+    xbudget: int,
+    base: int,
+    propose_leaders: bool = False,
+    propose_n: int = 1,
+    rounds: int = 1,
+):
+    """The consensus round over a groups mesh (route.py:850).  Returns
+    ``round_fn(state, inbox, dest_local, dest_dev, rank) -> (state',
+    inbox', route_stats [D*rounds, 6], lane_stats [D*rounds, 7])``.
+
+    Per device and per round: ``step`` on the device's row block, the
+    escalation select, ``route`` over the local view of the tables
+    (``where(dest_dev == me, dest_local, -1)``, on a fresh tick /
+    proposal prefill, escalated rows suppressed), then the lane
+    (``cross_exchange``'s pack, shifts and scatter).  With ``rounds > 1``
+    the lane fires BETWEEN fused rounds, so cross-device traffic sent in
+    round k is in round k+1's inbox.  On CUDA every step of that is a
+    kernel (``raft_step``, ``place_rows``, ``route``, ``xlane_pack``,
+    ``xlane_scatter``) or a device copy, with no plain torch between
+    them; on a CPU mesh every step is its plain version.
+
+    Operands are global trees (cut into blocks on entry) or
+    :class:`Sharded` ones; state' and inbox' come back :class:`Sharded`.
+    The stats are device-major (row ``d*rounds + k``: device d, round
+    k): RouteStats, then [sent, delivered, dropped_budget,
+    dropped_xlane, dropped_ring, escalated, rows_live], on the mesh's
+    first device."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError("groups mesh must be one-dimensional")
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    D = mesh.size
+    dev0 = mesh.devices[0]
+
+    def round_fn(state, inbox, dest_local, dest_dev, rank):
+        states = list(mesh.shard(state).parts)
+        inboxes = list(mesh.shard(inbox).parts)
+        tabs = _shard_tables(mesh, dest_local, dest_dev, rank)
+        # each device's local view of the tables, before the first kernel
+        local = [torch.where(dd == d, dl, -1).to(I32)
+                 for d, (dl, dd, _rk) in enumerate(tabs)]
+        rstats = [torch.empty((rounds, 7), dtype=I32, device=dv)
+                  for dv in mesh.devices]
+        lstats = [torch.empty((rounds, N_LANE_STATS), dtype=I32, device=dv)
+                  for dv in mesh.devices]
+        for k in range(rounds):
+            outs = []
+            for d in range(D):
+                new, out = K.step(states[d], inboxes[d],
+                                  out_capacity=out_capacity)
+                st2, ib2, rs, n_esc = merge_and_route(
+                    states[d], new, out, local[d], tabs[d][2], M=M, E=E,
+                    budget=budget, base=base,
+                    propose_leaders=propose_leaders, propose_n=propose_n,
+                    stats_out=rstats[d][k],
+                )
+                if mesh.device_type == "cpu":
+                    rstats[d][k, :6] = torch.stack(list(rs))
+                    rstats[d][k, 6] = n_esc
+                states[d], inboxes[d] = st2, ib2
+                outs.append(out)
+            inboxes = _lane(
+                mesh, states, outs, inboxes, tabs,
+                [o.escalate for o in outs], E=E, budget=budget,
+                xbudget=xbudget, base=base,
+                stats_rows=[lstats[d][k] for d in range(D)],
+            )
+        route_stats = torch.cat([r[:, :6].to(dev0) for r in rstats])
+        lane_stats = torch.cat([r.to(dev0) for r in lstats])
+        return (Sharded(tuple(states)), Sharded(tuple(inboxes)),
+                route_stats, lane_stats)
+
+    return round_fn

@@ -8,6 +8,14 @@ computes (``route`` :131, ``make_prefill`` :395, ``merge_and_route``
 torch with the reference's arithmetic kept as it is: one-hot selects
 over the peer and ring axes, ``any`` and ``sum`` over every matching
 peer slot, int32 sums.
+
+``lane_pack`` / ``lane_scatter`` are the two halves of the reference's
+cross-device lane (``cross_exchange``, route.py:652) around its ring
+shifts, for the CUDA kernels of ``csrc/xlane.cu``.  They keep the
+reference's per-message arithmetic but not its one-hot matmuls over
+``[D*XB, G*O]`` and ``[R, G, M]`` (``route.py:775``, :796): the lane
+slot is a ``cumsum`` and the scatter an ``index_put_`` with
+accumulation, which give the same integers at any size.
 """
 from __future__ import annotations
 
@@ -369,3 +377,157 @@ def fused_rounds(
         stats_l.append(stats)
         esc_l.append(n_esc)
     return state, inbox, torch.stack(stats_l), torch.stack(esc_l)
+
+
+# ---------------------------------------------------------------------------
+# the cross-device lane (route.py:652 cross_exchange, per shard)
+# ---------------------------------------------------------------------------
+# packed lane row (route.py:638-649): the 9 wire columns, then sender
+# replica id, destination local row, destination region rank, region
+# slot b, found flag, then E entry terms and E entry cc bits
+XI_FROM = len(WIRE_COLS)
+XI_LOC = XI_FROM + 1
+XI_RANK = XI_FROM + 2
+XI_B = XI_FROM + 3
+XI_FOUND = XI_FROM + 4
+X_KF = XI_FROM + 5  # ent_term starts here; row width = X_KF + 2 * E
+# lane stats row: CrossStats, then escalated rows and live rows
+N_LANE_STATS = 7
+
+
+def lane_pack(
+    state: DeviceState,
+    out: DeviceOut,
+    dest_local: torch.Tensor,
+    dest_dev: torch.Tensor,
+    rank_in_dest: torch.Tensor,
+    *,
+    me: int,
+    n_dev: int,
+    E: int,
+    budget: int,
+    xbudget: int,
+    suppress: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard ``me``'s half of the lane before the ring shifts: every
+    message whose destination replica lives on another device, packed
+    into ``xbuf [n_dev, xbudget, X_KF + 2E]`` (row ``q`` of block ``d``
+    is the ``q``-th sendable message toward device ``d`` in flat
+    ``(g, o)`` order; zeros where no message sits).
+
+    Returns ``(xbuf, stats [7])``: sent, 0 (delivered: the scatter's),
+    dropped_budget, dropped_xlane, dropped_ring, then the number of
+    suppressed rows and of the other (live) rows."""
+    G, O, _ = out.buf.shape
+    W = state.ring_term.shape[1]
+    B, D, XB = budget, n_dev, xbudget
+    dev = out.buf.device
+    buf = out.buf
+    mtype = buf[:, :, F_MTYPE]
+    to = buf[:, :, F_TO]
+    n_ent = buf[:, :, F_N_ENTRIES]
+    log_index = buf[:, :, F_LOG_INDEX]
+    log_term = buf[:, :, F_LOG_TERM]
+    valid = torch.arange(O, device=dev)[None, :] < out.count[:, None]
+    n_sup = torch.zeros((), dtype=I32, device=dev)
+    if suppress is not None:
+        sup = suppress.bool()
+        n_sup = sup.sum(dtype=I32)
+        valid = valid & ~sup[:, None]
+    hits = (
+        (state.peer_id[:, None, :] == to[:, :, None])
+        & (to[:, :, None] != 0)
+        & (state.peer_id[:, None, :] != 0)
+    )  # [G, O, P]
+    found = hits.any(dim=2)
+
+    def at_pstar(tab):  # the sum over every matching peer slot
+        return torch.where(hits, tab[:, None, :], 0).sum(dim=2, dtype=I32)
+
+    xdev = at_pstar(dest_dev)
+    xloc = at_pstar(dest_local)
+    xrank = at_pstar(rank_in_dest)
+    is_repl = mtype == MT_REPLICATE
+    carries = is_repl & (n_ent > 0)
+    win_lo = torch.maximum(state.first_index, state.last_index - (W - 1))
+    marker = is_repl & (log_index > 0) & (log_term == 0)
+    ring_ok = ~carries | (
+        (log_index + 1 >= win_lo[:, None])
+        & (log_index + n_ent <= state.last_index[:, None])
+        & ~marker
+    )
+    remote = found & (xdev >= 0) & (xdev != me)
+    routable = valid & remote & (mtype != MT_PROPOSE)
+    deliverable = routable & ring_ok
+    oh = (hits & deliverable[:, :, None]).to(I32)
+    k_excl = torch.cumsum(oh, dim=1, dtype=I32) - oh
+    b_of = torch.where(hits, k_excl, 0).sum(dim=2, dtype=I32)
+    in_b = b_of < B
+    sendable = deliverable & in_b
+    # lane slot q: exclusive count of the earlier sendable messages toward
+    # the same device, in flat (g, o) order
+    fdev = xdev.reshape(-1).long()
+    edge = sendable.reshape(-1) & (fdev >= 0) & (fdev < D)
+    dcol = fdev.clamp(0, max(D - 1, 0))
+    ohd = torch.zeros((G * O, max(D, 1)), dtype=I32, device=dev)
+    ohd[edge, dcol[edge]] = 1
+    q = (torch.cumsum(ohd, dim=0, dtype=I32) - ohd).gather(
+        1, dcol[:, None])[:, 0]
+    in_q = edge & (q < XB)
+    # the packed rows
+    wm = W - 1
+    ents_t, ents_c = [], []
+    for e in range(E):
+        pos = ((log_index + 1 + e).clamp(min=0) & wm).long()
+        has_e = carries & (e < n_ent)
+        ents_t.append(torch.where(has_e, state.ring_term.gather(1, pos), 0))
+        ents_c.append(torch.where(has_e, state.ring_cc.gather(1, pos), 0))
+    from_g = state.replica_id[:, None].expand(G, O)
+    fields = torch.stack(
+        [buf[:, :, c] for c in WIRE_COLS]
+        + [from_g, xloc, xrank, b_of, sendable.to(I32)]
+        + ents_t + ents_c,
+        dim=2,
+    ).reshape(G * O, -1)
+    KT = fields.shape[1]
+    xbuf = torch.zeros((D * XB, KT), dtype=I32, device=dev)
+    at = fdev[in_q] * XB + q[in_q].long()
+    xbuf[at] = fields[in_q]
+    sent = in_q.sum(dtype=I32)
+    stats = torch.stack([
+        sent,
+        torch.zeros((), dtype=I32, device=dev),
+        (deliverable & ~in_b).sum(dtype=I32),
+        sendable.sum(dtype=I32) - sent,
+        (routable & ~ring_ok).sum(dtype=I32),
+        n_sup,
+        G - n_sup,
+    ])
+    return xbuf.reshape(D, XB, KT), stats
+
+
+def lane_scatter(
+    inbox: Inbox, recv: torch.Tensor, *, budget: int, base: int
+) -> Tuple[Inbox, torch.Tensor]:
+    """Shard's half of the lane after the ring shifts: ADD every received
+    row with ``found != 0`` into inbox slot ``base + rank*budget + b`` of
+    its destination row, in place (the reference's one-hot sum).  A row
+    or slot outside ``[0, G)`` / ``[0, M)`` writes nothing but is still
+    counted.  Returns ``(inbox, delivered)``."""
+    G, M = inbox.mtype.shape
+    E = inbox.ent_term.shape[2]
+    ok = recv[:, XI_FOUND] != 0
+    row = recv[:, XI_LOC]
+    slot = base + recv[:, XI_RANK] * budget + recv[:, XI_B]
+    put = ok & (row >= 0) & (row < G) & (slot >= 0) & (slot < M)
+    at = (row[put].long() * M + slot[put].long(),)
+    vals = recv[put]
+    # recv column of each Inbox field, in Inbox order
+    cols = (0, XI_FROM) + tuple(range(1, len(WIRE_COLS)))
+    for t, c in zip(inbox[:10], cols):
+        t.view(-1).index_put_(at, vals[:, c], accumulate=True)
+    inbox.ent_term.view(G * M, E).index_put_(
+        at, vals[:, X_KF:X_KF + E], accumulate=True)
+    inbox.ent_cc.view(G * M, E).index_put_(
+        at, vals[:, X_KF + E:X_KF + 2 * E], accumulate=True)
+    return inbox, ok.sum(dtype=I32)

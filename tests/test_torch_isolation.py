@@ -1,8 +1,9 @@
 """Import rule and drift guard of the PyTorch port.
 
 * ``import dragonboat_tpu_torch`` plus its ``nodehost``, ``ops.engine``,
-  ``ops.route``, ``ops.colocated`` and ``storage.tan`` loads no ``jax*`` and no ``dragonboat_tpu`` module (in a fresh
-  interpreter);
+  ``ops.kernel``, ``ops.placement``, ``ops.route``, ``ops.colocated``
+  and ``storage.tan`` loads no ``jax*`` and no ``dragonboat_tpu`` module
+  (in a fresh interpreter);
 * no file under ``dragonboat_tpu_torch/`` imports ``jax`` or anything of
   ``dragonboat_tpu``;
 * every host-plane module the port carries is byte-identical to its
@@ -57,6 +58,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import sys\n"
         "import dragonboat_tpu_torch, dragonboat_tpu_torch.nodehost\n"
         "import dragonboat_tpu_torch.ops.engine\n"
+        "import dragonboat_tpu_torch.ops.kernel\n"
+        "import dragonboat_tpu_torch.ops.placement\n"
         "import dragonboat_tpu_torch.ops.route\n"
         "import dragonboat_tpu_torch.ops.colocated\n"
         "import dragonboat_tpu_torch.storage.tan\n"
