@@ -16,6 +16,10 @@ Phases, each printing one JSON line:
                sequence of steps plus seeded fuzz inboxes over every hot
                message type; then each kernel's time per launch at that
                size (CUDA events per call, and the profiler's device time).
+               raft_step also at the engines' small grids: G = 512 (the
+               NodeHost engine's capacity, the same widths) and G = 4096
+               (the colocated engine's; P=3, W=16, assembled M=20, E=4,
+               O=32), bit-exact and timed the same way.
 3. colo_kernels — route, the three inbox entry points (assemble,
                from_ticks, zero_rows) and select_and_blob, bit-exact
                against their plain versions at G = 30,000 rows (P=5, W=32,
@@ -23,9 +27,9 @@ Phases, each printing one JSON line:
                capacity tiers) on states advanced by the port's own
                fused_rounds over build_route_tables of the 10k x 3 layout;
                then timed the same way.
-4. mesh_kernels — raft_step_internal (raft_step.cu's row logic in the
-               G-last layout) bit-exact against its plain version at bench
-               phase A's geometry, G = 300,000 rows (100k groups x 3;
+4. mesh_kernels — raft_step_internal (raft_step.cu's G-last kernel)
+               bit-exact against its plain version at bench phase A's
+               geometry, G = 300,000 rows (100k groups x 3;
                P=3, W=8, M=12, E=1, O=8) on states advanced by the tick
                loop and under seeded fuzz inboxes; xlane_pack and
                xlane_scatter bit-exact against theirs at multichip leg
@@ -117,6 +121,21 @@ def cluster_state_np(G: int, P_: int, W_: int, seed: int) -> dict:
     # spread the first elections out
     cols["election_tick"] = rng.integers(0, 10, G).astype(np.int32)
     return cols
+
+
+def padded_cluster_np(G: int, P_: int, W_: int, seed: int) -> dict:
+    """``cluster_state_np`` on the first G - G % 3 rows, then empty rows
+    (no peers), as the unused capacity of an engine holds them."""
+    from dragonboat_tpu_torch.ops import types as T
+
+    live = G - G % 3
+    cols = cluster_state_np(live, P_, W_, seed)
+    if live == G:
+        return cols
+    z = np.zeros((G - live,), np.int32)
+    pad = T.make_state_np(G - live, P_, W_, shard_ids=z, replica_ids=z,
+                          peer_ids=np.zeros((G - live, P_), np.int32))
+    return {k: np.concatenate([cols[k], pad[k]]) for k in cols}
 
 
 def route_np(st: dict, out: dict, rng, M_: int, E_: int, *,
@@ -352,8 +371,34 @@ def ptxas_report(log: str) -> dict:
     return rep
 
 
+def ptxas_numbers(lines) -> dict:
+    """Registers, stack frame, spills and static shared memory from one
+    kernel's ptxas report lines (None where a line is missing)."""
+    text = " ".join(lines or [])
+
+    def num(pat):
+        m = re.search(pat, text)
+        return int(m.group(1)) if m else None
+
+    return dict(regs=num(r"Used (\d+) registers"),
+                stack=num(r"(\d+) bytes stack frame"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                spill_loads=num(r"(\d+) bytes spill loads"),
+                static_smem=num(r"(\d+) bytes smem") or 0)
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def step_bound_ms(st, ib, out, E_: int) -> float:
+    """The raft step's bound at this run's inputs: the state in and out,
+    the slot types, the other words of the occupied slots (9 + 2E each)
+    and every output, once each, over the card's memory rate."""
+    occ = int((ib.mtype != 0).sum())
+    words = (sum(t.numel() for t in st) * 2 + ib.mtype.numel()
+             + occ * (9 + 2 * E_) + sum(t.numel() for t in out))
+    return bound_ms(4 * words)
 
 
 def _max_err(got, want) -> int:
@@ -468,9 +513,15 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
         check("raft_step", list(new) + list(out), list(rnew) + list(rout))
         plumbing_checks(st, new, out, ib_np)
         fuzz_esc += int((out.escalate != 0).sum())
+    small = {k: small_grid_step(dev, **g) for k, g in SMALL_GRIDS.items()}
+    for v in small.values():
+        errs["raft_step"] = max(errs["raft_step"], v["max_abs_err"])
+        checks["raft_step"] += v["checks"]
     result = dict(routed_steps=n_routed, fuzz_steps=n_fuzz, rows=G,
                   routed=routed, fuzz_escalations=fuzz_esc,
-                  checks=checks, max_abs_err=errs)
+                  checks=checks, max_abs_err=errs,
+                  rows_per_block=K.rows_per_block(G, P, W, M, E, O),
+                  small_grids=small)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -486,11 +537,7 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
     ms, plain_ms, bound, lib_ms = {}, {}, {}, {}
     ms["raft_step"] = time_ms(lambda: K.step(st0, ib, O), 20)
     plain_ms["raft_step"] = time_ms(lambda: kernel_ref.step(st0, ib, O), 3, 1)
-    occ = int((ib_np["mtype"] != 0).sum())
-    words = (sum(t.numel() for t in st0) * 2  # state in and out
-             + ib.mtype.numel() + occ * (9 + 2 * E)  # occupied slots only
-             + sum(t.numel() for t in out))
-    bound["raft_step"] = bound_ms(4 * words)
+    bound["raft_step"] = step_bound_ms(st0, ib, out, E)
     lib_ms["raft_step"] = None
 
     ms["summarize_flags"] = time_ms(
@@ -537,6 +584,58 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                   library_ms=lib_ms, gather_rows=[b, b2], scatter_rows=n)
     return result
+
+
+# the engines' small grids: the NodeHost engine's capacity at its widths,
+# and the colocated engine's (P=3, W=16, assembled M = 3 * 4 + 8)
+SMALL_GRIDS = {
+    "G512": dict(G=512, P=5, W=32, M=8, E=4, O=32),
+    "G4096": dict(G=4096, P=3, W=16, M=20, E=4, O=32),
+}
+
+
+def small_grid_step(dev, G, P, W, M, E, O, n_routed: int = 16,
+                    n_fuzz: int = 4) -> dict:
+    """``raft_step`` bit-exact against its plain version at a small grid
+    (a padded seeded cluster through routed steps, then fuzz inboxes),
+    then timed on the last routed step's inputs and on a fuzz inbox."""
+    from dragonboat_tpu_torch.ops import convert, kernel_ref
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import types as T
+
+    rng = np.random.default_rng(SEED + G)
+    st_np = padded_cluster_np(G, P, W, SEED + G)
+    st = convert.state_from_numpy(st_np, dev)
+    out_np = {"buf": np.zeros((G, O, T.N_FIELDS), np.int32),
+              "count": np.zeros((G,), np.int32)}
+    err = checks = 0
+    for k in range(n_routed + n_fuzz):
+        ib_np = (route_np(st_np, out_np, rng, M, E) if k < n_routed
+                 else fuzz_inbox_np(st_np, rng, M, E))
+        ib = convert.inbox_from_numpy(ib_np, dev)
+        new, out = K.step(st, ib, O)
+        rnew, rout = kernel_ref.step(st, ib, O)
+        err = max(err, _max_err(list(new) + list(out),
+                                list(rnew) + list(rout)))
+        checks += 1
+        if k == n_routed - 1:
+            routed = (st, ib, out)
+        if k < n_routed:
+            st = new
+            st_np, out_np = convert.to_numpy(new), convert.to_numpy(out)
+    fuzz = (st, ib, out)
+    res = dict(rows=G, P=P, W=W, M=M, E=E, O=O, checks=checks,
+               max_abs_err=err,
+               rows_per_block=K.rows_per_block(G, P, W, M, E, O),
+               leaders=int((st_np["role"] == T.ROLE_LEADER).sum()))
+    for name, (s0, i0, o0) in (("routed", routed), ("fuzz", fuzz)):
+        res[name] = dict(
+            ms=time_ms(lambda: K.step(s0, i0, O), 20),
+            device_ms=device_ms(lambda: K.step(s0, i0, O)),
+            plain_ms=time_ms(lambda: kernel_ref.step(s0, i0, O), 3, 1),
+            bound_ms=step_bound_ms(s0, i0, o0, E),
+            occupied_slots=int((i0.mtype != 0).sum()))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +860,7 @@ X_ROUNDS, X_WAVES, X_WAVE_ROUNDS = 40, 8, 3
 
 MESH_KERNEL_INFO = {
     "raft_step_internal": dict(
-        source="dragonboat_tpu_torch/csrc/raft_step_internal.cu",
+        source="dragonboat_tpu_torch/csrc/raft_step.cu",
         replaces="dragonboat_tpu/ops/kernel.py:1674",
         also_replaces=["dragonboat_tpu/ops/kernel.py:1707"],
     ),
@@ -931,7 +1030,9 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
                      warm_rounds=warm_rounds,
                      per_device_lane=lane_np.tolist())
     result = dict(step=step_rows, lane=lane_rows, checks=checks,
-                  max_abs_err=errs)
+                  max_abs_err=errs,
+                  rows_per_block=K.rows_per_block(G, A_P, A_W, A_M, A_E,
+                                                  A_O, internal=True))
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"mesh kernels disagree with their plain "
@@ -942,17 +1043,13 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
     # ---- timing ------------------------------------------------------------
     ms, dev_ms, plain_ms, bound, lib_ms = {}, {}, {}, {}, {}
     occ = int((fuzz_ib.mtype != 0).sum())
-    # the state in and out, the slot types, the occupied slots' other
-    # words and every output, once each
-    words = (sum(t.numel() for t in st) * 2 + fuzz_ib.mtype.numel()
-             + occ * (9 + 2 * A_E) + sum(t.numel() for t in step_out))
     ms["raft_step_internal"] = time_ms(
         lambda: K.step_internal(st, fuzz_ib, A_O), 20)
     dev_ms["raft_step_internal"] = device_ms(
         lambda: K.step_internal(st, fuzz_ib, A_O))
     plain_ms["raft_step_internal"] = time_ms(
         lambda: kernel_ref.step_internal(st, fuzz_ib, A_O), 2, 1)
-    bound["raft_step_internal"] = bound_ms(4 * words)
+    bound["raft_step_internal"] = step_bound_ms(st, fuzz_ib, step_out, A_E)
     lib_ms["raft_step_internal"] = None
     # the external kernel on the same rows, for the two layouts side by side
     st_ext = convert.state_from_internal(st)
@@ -2062,9 +2159,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _native.module()
     build_s = time.perf_counter() - t0
+    ptxas = ptxas_report(_native.build_log())
     emit(dict(phase="device", name=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
-              build_s=build_s, ptxas=ptxas_report(_native.build_log())))
+              build_s=build_s, ptxas=ptxas))
 
     phase_s = {}
 
@@ -2101,6 +2199,16 @@ def main(argv) -> int:
               file=sys.stderr)
         return 0
 
+    from dragonboat_tpu_torch.ops import kernel as K
+
+    def block(kernel, R, geom, internal):
+        """a raft-step kernel's block: rows, staged outbox messages a row,
+        shared memory, ptxas"""
+        return dict(rows_per_block=R, staged_messages=K.staged_messages(
+                        geom[-1]),
+                    dynamic_smem=K.smem_bytes(R, *geom, internal=internal),
+                    **ptxas_numbers(ptxas.get(kernel)))
+
     rows = []
     for k, info in KERNEL_INFO.items():
         rows.append(dict(
@@ -2114,6 +2222,14 @@ def main(argv) -> int:
             bound_ms=kern["bound_ms"][k], bound_by="bytes",
             library_ms=kern["library_ms"][k],
         ))
+        if k == "raft_step":
+            rows[-1]["block"] = block("raft_step_kernel",
+                                      kern["rows_per_block"],
+                                      (P, W, M, E, O), False)
+            rows[-1]["small_grids"] = {
+                g: dict(v["routed"], rows_per_block=v["rows_per_block"],
+                        fuzz_device_ms=v["fuzz"]["device_ms"])
+                for g, v in kern["small_grids"].items()}
     for k, info in COLO_KERNEL_INFO.items():
         ents = info["entries"]
 
@@ -2156,6 +2272,10 @@ def main(argv) -> int:
             plain_ms=mkern["plain_ms"][k], bound_ms=mkern["bound_ms"][k],
             bound_by="bytes", library_ms=mkern["library_ms"][k],
         ))
+        if step:
+            rows[-1]["block"] = block("raft_step_internal_kernel",
+                                      mkern["rows_per_block"],
+                                      (A_P, A_W, A_M, A_E, A_O), True)
     emit({"kernels": rows, "phase_s": phase_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -68,13 +68,17 @@ void* stream_of(const at::Device& dev) {
 
 }  // namespace
 
-// raft_step.cu in either layout (internal = 1: G-last)
+// raft_step.cu in either layout (internal = 1: G-last), R rows a block
 static void step_launch(const char* name, int internal,
                         const Tensors& state, const Tensors& new_state,
                         const Tensors& inbox, const Tensors& outs_,
                         int64_t G, int64_t P, int64_t W, int64_t M,
-                        int64_t E, int64_t O) {
+                        int64_t E, int64_t O, int64_t R, int64_t K) {
   TORCH_CHECK(!state.empty(), name, ": no state tensors");
+  TORCH_CHECK(R == 32 || R == 64 || R == 128, name,
+              ": rows a block must be 32, 64 or 128, got ", R);
+  TORCH_CHECK(K >= 0 && K <= O, name, ": staged messages ", K,
+              " outside [0, ", O, "]");
   const at::Device dev = state[0].device();
   auto si = ins(state, dbt::N_STATE, dev, name);
   auto so = outs(new_state, dbt::N_STATE, dev, name);
@@ -85,23 +89,25 @@ static void step_launch(const char* name, int internal,
   dbt::raft_step_launch(si.data(), so.data(), ib.data(), o.data(),
                         dim(G, name), dim(P, name), dim(W, name),
                         dim(M, name), dim(E, name), dim(O, name),
-                        internal, stream_of(dev));
+                        internal, dim(R, name), dim(K, name),
+                        stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void raft_step(const Tensors& state, const Tensors& new_state,
                const Tensors& inbox, const Tensors& outs_, int64_t G,
-               int64_t P, int64_t W, int64_t M, int64_t E, int64_t O) {
+               int64_t P, int64_t W, int64_t M, int64_t E, int64_t O,
+               int64_t R, int64_t K) {
   step_launch("raft_step", 0, state, new_state, inbox, outs_, G, P, W, M, E,
-              O);
+              O, R, K);
 }
 
 void raft_step_internal(const Tensors& state, const Tensors& new_state,
                         const Tensors& inbox, const Tensors& outs_,
                         int64_t G, int64_t P, int64_t W, int64_t M,
-                        int64_t E, int64_t O) {
+                        int64_t E, int64_t O, int64_t R, int64_t K) {
   step_launch("raft_step_internal", 1, state, new_state, inbox, outs_, G, P,
-              W, M, E, O);
+              W, M, E, O, R, K);
 }
 
 void summarize_flags(const Tensors& srcs,

@@ -33,11 +33,13 @@ constexpr int N_LANE_STATE = 6;
 constexpr int N_LANE_STATS = 7;
 
 // raft_step.cu — every array in the field order of ops/types.py; the
-// external [G, ...] layout (internal = 0) or the G-last one (1)
+// external [G, ...] layout (internal = 0) or the G-last one (1); blocks of
+// rows_per_block rows (32, 64 or 128), the first `staged` (<= O) outbox
+// messages of a row staged in shared memory
 void raft_step_launch(const int* const* st_in, int* const* st_out,
                       const int* const* inbox, int* const* out, int G,
                       int P, int W, int M, int E, int O, int internal,
-                      void* stream);
+                      int rows_per_block, int staged, void* stream);
 
 // flags.cu — srcs: old term, vote, committed, leader_id, role,
 // last_index; the same six of new; new peer_id, peer_kind, match,

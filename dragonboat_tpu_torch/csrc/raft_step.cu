@@ -1,43 +1,63 @@
-// raft_step: the raft step for every row, one thread per row.
+// raft_step: the raft step for every row, one thread per row, the row's
+// arrays staged in shared memory.
 //
-// Replaces dragonboat_tpu/ops/kernel.py `step` (`_step_impl` /
-// `_process_slot` and every handler, kernel.py:181-1649).  It computes
-// what that program computes, not how: the JAX program runs each inbox
-// slot as one masked pass over all rows with one-hot selects; here each
-// thread walks ITS row's inbox slots in order, skipping empty ones, and
-// stops handling a row once its `escalate` word is set.  That gives the
-// reference's slot compaction/un-compaction for free: slot outputs and
-// buf[..., F_SRC_SLOT] are written in caller coordinates directly.
+// Replaces dragonboat_tpu/ops/kernel.py `step` (:1652; `_step_impl` /
+// `_process_slot` and every handler, kernel.py:181-1649) as
+// `raft_step_kernel`, and `step_internal` (:1674, the G-last layout) as
+// `raft_step_internal_kernel`.  It computes what that program computes,
+// not how: the JAX program runs each inbox slot as one masked pass over
+// all rows with one-hot selects; here each thread walks ITS row's inbox
+// slots in order, skipping empty ones, and stops once its `escalate` word
+// is set.  That gives the reference's slot compaction/un-compaction for
+// free: slot outputs and buf[..., F_SRC_SLOT] are in caller coordinates.
 //
 // Bound: bytes.  A row reads its state (21 + 8P + 2W words) and inbox
-// (10M + 2ME words) once and writes the new state and its outputs
-// (11O + 5 + P + 2M + ME words); the control flow is a few hundred
-// integer operations per message, far below the card's integer rate.
-// This first version keeps the row's scalars in registers and works on
-// its peer/ring/outbox arrays in place in the OUTPUT tensors (the input
-// arrays are copied over first); the row-major [G, P] layout makes
-// those accesses strided across a warp.  A later version can stage
-// them through shared memory or registers.
+// slot types (M) once, the other words of its occupied slots (9 + 2E
+// each), and writes its new state and outputs (11O + 5 + P + 2M + ME
+// words); the control flow is a few hundred integer operations a
+// message, far below the card's integer rate.  What the card spends
+// beyond the bound is the row logic's latency: one thread walks a row's
+// slots, and the rows of a warp take different handlers.
 //
-// Two layouts, one row logic, compiled once per layout.  The row
-// logic reads and writes every per-row array as DBT_EL(a, k), element k
-// counted from the row's first element a:
-//   * this file alone builds the external layout of `kernel.step`
-//     ([G, P], [G, W], inbox [G, M] / [G, M, E], out.buf [G, O,
-//     N_FIELDS]) as `dbt::ext::step_row` and `raft_step_kernel`: a row's
-//     elements are contiguous and DBT_EL(a, k) is a[k];
-//   * raft_step_internal.cu defines DBT_STEP_GL and includes this file
-//     to build the G-last layout of `kernel.step_internal`
-//     (kernel.py:1674) as `dbt::gl::step_row` and
-//     `raft_step_internal_kernel`: element k of row g sits at k * G + g,
-//     DBT_EL(a, k) is Row::at(a, k) = a[k * G].
-// Choosing the layout in the preprocessor, not by a template argument,
-// leaves the external kernel's source and so its machine code as it was
-// before the G-last layout was added (a template or an accessor function
-// changes the compiler's inlining; checked with `python3 -m
-// dragonboat_tpu_torch.ops.sass_compare <earlier csrc>`).  The G-last
-// kernel still keeps part of its row in the thread's stack frame
-// (ptxas -v): staging that is work for a faster version.
+// Design.  A block steps R rows (32, 64 or 128), one thread each, in
+// four phases split by __syncthreads():
+//   1. load: the block's 8 peer arrays and 2 ring arrays (8P + 2W words a
+//      row) are copied into a shared-memory tile with cp.async, coalesced:
+//      in the external layout ([G, n] arrays) the block's rows of an array
+//      are one contiguous slab, read linearly and transposed into the
+//      tile; in the G-last layout ([n, G]) they are n runs of R words,
+//      copied 16 bytes at a time where G and the pointers allow it.  Each
+//      thread publishes its row's first occupied inbox slot and sets its
+//      row's first K outbox messages in the tile: zeros, and F_SRC_SLOT =
+//      that first slot (what the reference's un-compaction gives an
+//      unused outbox row).
+//   2. prefill: the block writes its rows' other outputs coalesced, as
+//      the reference initialises them: outbox messages K .. O-1 (as
+//      above), need_snapshot, slot_base, slot_term and ent_drop.
+//   3. rows: each thread runs the row logic on its row: the 21 state
+//      scalars in registers, the 10 state arrays in the tile, where
+//      thread t's element k of the array at tile word a is
+//      tile[(a + k) * S + t] (S = R in the G-last layout, R + 1 in the
+//      external one, so that the transposes of phases 1 and 4 hit
+//      distinct banks; consecutive threads always do).  An emit of one
+//      of the row's first K messages writes the tile; later messages, a
+//      proposal's slot words and a snapshot flag are written straight to
+//      device memory.
+//   4. store: the block writes the tile's arrays and staged messages
+//      out, coalesced, as in phase 1.
+// The row logic is one piece of code for both layouts: the two kernels
+// differ only in phases 1, 2 and 4 and in the stride they hand it (an
+// inbox or output element k of row g sits at g * n + k in the external
+// layout, es = 1, and at g + k * G in the G-last one, es = G).  The Row
+// holds no pointer into device memory: its outputs are addressed from
+// the kernel's arguments when written.  Shared memory a block:
+// (S * (8P + 2W + 11K) + R) * 4 bytes.  ops/kernel.py picks R
+// (`rows_per_block`: the largest that still gives every SM a block) and
+// K (`staged_messages`: min(O, 8)); both were chosen by measurement on
+// the H100 (scripts/step_ab.py --sweep; PERF.md): staging the
+// first 8 messages takes bench phase A's election traffic off scattered
+// device-memory stores, while staging all 32 of a wide outbox costs
+// more occupancy than it saves.
 //
 // Hazards handled as the reference defines them:
 //   * a peer slot outside [0, P) reads 0 and writes nothing (the
@@ -45,28 +65,54 @@
 //   * `_slot_of` returns slot 0 when no peer matches;
 //   * the election jitter is uint32 arithmetic;
 //   * int32 sums wrap (wadd/wsub), as JAX int32 does;
-//   * the quorum sort is an insertion sort over at most PMAX slots;
+//   * the quorum index is the value at position P - quorum of the sorted
+//     slot values (match of a voter, -1 otherwise), counted, not sorted;
 //   * a full outbox sets ESC_OVERFLOW, as `_emit` does.
 //
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
-// C++: then only the per-row logic (`dbt::ext::step_row`, or with
-// DBT_STEP_GL `dbt::gl::step_row`) is built; including it twice, the
-// second time with DBT_STEP_GL defined, builds both.
+// C++: then the phases (`step_load`, `step_prefill`, `step_rows`,
+// `step_store`) are host functions that one caller runs for every thread
+// of a block in turn, in the kernel's order.
 #include "common.cuh"
 #include "launch.h"
 
-#ifndef DBT_STEP_GL
-#define DBT_STEP_GL 0
+// Everything of the row logic is inlined into the kernels: a call that
+// is not would take the Row, and with it the row's scalars, by address,
+// into the thread's stack frame (ptxas -v shows it as a frame).
+#ifdef __CUDACC__
+#define DBT_RI __host__ __device__ __forceinline__
+#else
+#define DBT_RI inline
 #endif
-
-// What both layouts share, defined once however often the file is
-// included.
-#ifndef DBT_RAFT_STEP_SHARED
-#define DBT_RAFT_STEP_SHARED
 
 namespace dbt {
 
-constexpr int PMAX = 16;
+constexpr int N_SCALARS = 21;  // DeviceState's [G] fields, first in order
+
+// the 8 peer arrays, in DeviceState's order (fields 21..28)
+enum PeerArray {
+  PA_ID = 0,
+  PA_KIND,
+  PA_MATCH,
+  PA_NEXT,
+  PA_RSTATE,
+  PA_SNAP,
+  PA_ACTIVE,
+  PA_GRANTED
+};
+
+// i / n for 0 <= i and i * n < 2^32, with m = div_magic(n)
+DBT_RI unsigned div_magic(int n) {
+  return n <= 1 ? 0u
+                : (unsigned)((0x100000000ull + (unsigned)n - 1) / (unsigned)n);
+}
+DBT_RI int div_by(int i, unsigned m) {
+#ifdef __CUDA_ARCH__
+  return m ? (int)__umulhi((unsigned)i, m) : i;
+#else
+  return m ? (int)(((unsigned long long)(unsigned)i * m) >> 32) : i;
+#endif
+}
 
 struct StepArgs {
   const int* st_in[N_STATE];
@@ -74,16 +120,61 @@ struct StepArgs {
   const int* ib[N_INBOX];
   int* out[N_OUT];
   int G, P, W, M, E, O;
+  int R;          // rows (threads) a block
+  int lgR;        // log2(R)
+  int S;          // the tile's stride: R (G-last) or R + 1 (external)
+  int K;          // outbox messages a row staged in the tile (<= O)
+  unsigned mP, mW, mK;  // div_magic of P, W and K * N_FIELDS
+
+  // first tile word of each array (state field 21 + f)
+  DBT_RI int arr(int f) const { return f < 8 ? f * P : 8 * P + (f - 8) * W; }
+  // first tile word of the staged outbox
+  DBT_RI int t_buf() const { return 8 * P + 2 * W; }
+  // the tile's words a row; the block's first-slot words follow at T * S
+  DBT_RI int T() const { return t_buf() + K * N_FIELDS; }
 };
+
+DBT_RI void step_args_init(StepArgs& a, int G, int P, int W, int M, int E,
+                           int O, int internal, int R, int K) {
+  a.G = G;
+  a.P = P;
+  a.W = W;
+  a.M = M;
+  a.E = E;
+  a.O = O;
+  a.R = R;
+  a.lgR = 0;
+  while ((1 << a.lgR) < R) ++a.lgR;
+  a.S = internal ? R : R + 1;
+  a.K = K;
+  a.mP = div_magic(P);
+  a.mW = div_magic(W);
+  a.mK = div_magic(K * N_FIELDS);
+}
+
+// Where row g's inbox and output elements sit in device memory: element
+// k of an array with n elements a row at row_off(g, n, es) + k * es, es =
+// row_stride(a): [G, n] rows are contiguous (es = 1), [n, G] rows are
+// columns (es = G; G = 1 addresses the same words either way).
+DBT_RI long long row_off(int g, int n, int es) {
+  return (long long)g * (es == 1 ? n : 1);
+}
+template <bool GL>
+DBT_RI int row_stride(const StepArgs& a) {
+  return GL ? a.G : 1;
+}
 
 struct Msg {
   int mtype, from_id, term, log_term, log_index, commit, reject, hint,
       hint_high, n_entries;
-  const int* ent_term;
+  const int* ent_term;  // entry i at ent_term[i * es]
   const int* ent_cc;
+  int es;
+  DBT_RI int eterm(int i) const { return ent_term[(long long)i * es]; }
+  DBT_RI int ecc(int i) const { return ent_cc[(long long)i * es]; }
 };
 
-DBT_HD uint32_t splitmix32(uint32_t x) {
+DBT_RI uint32_t splitmix32(uint32_t x) {
   uint32_t z = x + 0x9E3779B9u;
   z ^= z >> 16;
   z *= 0x85EBCA6Bu;
@@ -93,7 +184,7 @@ DBT_HD uint32_t splitmix32(uint32_t x) {
   return z;
 }
 
-DBT_HD bool is_hot(int mt) {
+DBT_RI bool is_hot(int mt) {
   switch (mt) {
     case MT_TICK:
     case MT_ELECTION:
@@ -118,81 +209,78 @@ DBT_HD bool is_hot(int mt) {
   }
 }
 
-// raft_step_internal.cu: the G-last kernel on `stream`
-void raft_step_internal_launch(const StepArgs& a, void* stream);
-
-}  // namespace dbt
-
-#endif  // DBT_RAFT_STEP_SHARED
-
-// Element k of a row's per-row array that starts at a (DBT_ROW_EL: in
-// step_row, through the row r): a[k] in the external layout, a[k * S]
-// through Row::at in the G-last one.
-#if DBT_STEP_GL
-#define DBT_STEP_NS gl
-#define DBT_EL(a, k) at(a, k)
-#define DBT_ROW_EL(a, k) r.at(a, k)
-#else
-#define DBT_STEP_NS ext
-#define DBT_EL(a, k) (a)[k]
-#define DBT_ROW_EL(a, k) (a)[k]
-#endif
-
-namespace dbt {
-namespace DBT_STEP_NS {
-
-// One row's state: scalars by value, peer/ring/out arrays in place.
+// One row: its scalars by value, its arrays in its column of the tile.
 struct Row {
   int shard_id, replica_id, self_slot, election_timeout, heartbeat_timeout,
       check_quorum, pre_vote;
   int term, vote, leader_id, role, committed, last_index, first_index,
       base_term, election_tick, heartbeat_tick, rand_timeout, timeout_seq,
       pending_cc, transfer_target;
-  int *peer_id, *peer_kind, *match, *next_idx, *rstate, *snap_index, *active,
-      *granted;
-  int *ring_term, *ring_cc;
-  int P, W, E, O;
+  int P, W, M, E, O, S;
+  // the row's column of the tile: element k of the array at tile word a
+  // is tt[(a + k) * S]
+  int* tt;
+  int K, kb;  // messages 0 .. K-1 go to the tile from word kb on
+  // the row's outputs in device memory (the outbox from message K on,
+  // need_snapshot, slot_base, slot_term, ent_drop), addressed from the
+  // kernel's arguments when written: element k of an output with n
+  // elements a row at out[f] + row_off(g, n, es) + k * es
+  const StepArgs* args;
+  int g, es;
+  // the step never writes peer_id or peer_kind: the row's peer slots
+  // (bit p: peer_id[p] != 0), its voters (voter or witness) and what
+  // follows from them are read once
+  unsigned peers, voters;
+  int n_voters, self_kind_, self_voter;
   // outputs
-  int* buf;
-  int* need_snapshot;
-  int* slot_base;
-  int* slot_term;
-  int* ent_drop;
   int count, escalate, append_lo, barrier_idx, barrier_term;
-#if DBT_STEP_GL
-  long long S;  // the element stride of the per-row arrays: G
 
-  template <typename T>
-  DBT_HD T& at(T* a, int k) const {
-    return a[(long long)k * S];
+  // -- the tile ------------------------------------------------------------
+  DBT_RI int& el(int a, int k) const { return tt[(a + k) * S]; }
+  DBT_RI int& pa(int f, int p) const { return el(f * P, p); }
+  DBT_RI int& ring_term(int j) const { return el(8 * P, j); }
+  DBT_RI int& ring_cc(int j) const { return el(8 * P + W, j); }
+  DBT_RI int* out_row(int f, int n) const {
+    return args->out[f] + row_off(g, n, es);
   }
-#endif
+  DBT_RI int& need_snapshot(int p) const {
+    return out_row(3, P)[(long long)p * es];
+  }
+  DBT_RI int& slot_base(int s) const { return out_row(4, M)[(long long)s * es]; }
+  DBT_RI int& slot_term(int s) const { return out_row(5, M)[(long long)s * es]; }
+  DBT_RI int& ent_drop(int k) const {
+    return out_row(6, M * E)[(long long)k * es];
+  }
 
   // -- peer slots ---------------------------------------------------------
-  DBT_HD bool in_p(int s) const { return s >= 0 && s < P; }
-  DBT_HD int col(const int* a, int s) const { return in_p(s) ? DBT_EL(a, s) : 0; }
-  DBT_HD void set_col(int* a, int s, int v) {
-    if (in_p(s)) DBT_EL(a, s) = v;
+  DBT_RI bool in_p(int s) const { return s >= 0 && s < P; }
+  DBT_RI int col(int f, int s) const { return in_p(s) ? pa(f, s) : 0; }
+  DBT_RI void set_col(int f, int s, int v) {
+    if (in_p(s)) pa(f, s) = v;
   }
-  DBT_HD bool valid(int p) const { return DBT_EL(peer_id, p) != 0; }
-  DBT_HD bool is_voter(int p) const {
-    return DBT_EL(peer_id, p) != 0 &&
-           (DBT_EL(peer_kind, p) == KIND_VOTER || DBT_EL(peer_kind, p) == KIND_WITNESS);
+  DBT_RI void read_peers() {
+    peers = voters = 0;
+    n_voters = 0;
+    for (int p = 0; p < P; ++p) {
+      const int id = pa(PA_ID, p), k = pa(PA_KIND, p);
+      const bool v = id != 0 && (k == KIND_VOTER || k == KIND_WITNESS);
+      peers |= (id != 0 ? 1u : 0u) << p;
+      voters |= (v ? 1u : 0u) << p;
+      n_voters += v ? 1 : 0;
+    }
+    self_kind_ = col(PA_KIND, self_slot);
+    self_voter = col(PA_ID, self_slot) == replica_id && self_kind_ == KIND_VOTER;
   }
-  DBT_HD int num_voters() const {
-    int n = 0;
-    for (int p = 0; p < P; ++p) n += is_voter(p) ? 1 : 0;
-    return n;
-  }
-  DBT_HD int quorum() const { return num_voters() / 2 + 1; }
-  DBT_HD int self_kind() const { return col(peer_kind, self_slot); }
-  DBT_HD bool self_is_voter() const {
-    return col(peer_id, self_slot) == replica_id && self_kind() == KIND_VOTER;
-  }
-  DBT_HD int slot_of(int pid, bool* found) const {
+  DBT_RI bool valid(int p) const { return (peers >> p) & 1u; }
+  DBT_RI bool is_voter(int p) const { return (voters >> p) & 1u; }
+  DBT_RI int num_voters() const { return n_voters; }
+  DBT_RI int quorum() const { return n_voters / 2 + 1; }
+  DBT_RI int self_kind() const { return self_kind_; }
+  DBT_RI bool self_is_voter() const { return self_voter != 0; }
+  DBT_RI int slot_of(int pid, bool* found) const {
     if (pid != 0) {
       for (int p = 0; p < P; ++p) {
-        if (DBT_EL(peer_id, p) != 0 && DBT_EL(peer_id, p) == pid) {
+        if (pa(PA_ID, p) == pid) {
           *found = true;
           return p;
         }
@@ -203,99 +291,110 @@ struct Row {
   }
 
   // -- log-term ring ------------------------------------------------------
-  DBT_HD int win_lo() const { return imax(first_index, wsub(last_index, W - 1)); }
-  DBT_HD int ring_pos(int idx) const { return (idx < 0 ? 0 : idx) & (W - 1); }
-  DBT_HD int log_term(int idx, bool* known, bool* esc) const {
+  DBT_RI int win_lo() const { return imax(first_index, wsub(last_index, W - 1)); }
+  DBT_RI int ring_pos(int idx) const { return (idx < 0 ? 0 : idx) & (W - 1); }
+  DBT_RI int log_term(int idx, bool* known, bool* esc) const {
     bool zero = idx == 0;
     bool boundary = idx == wsub(first_index, 1);
     bool in_win = idx >= win_lo() && idx <= last_index;
     bool beyond = idx > last_index;
-    int t = zero ? 0 : (boundary ? base_term : DBT_EL(ring_term, ring_pos(idx)));
+    int t = zero ? 0 : (boundary ? base_term : ring_term(ring_pos(idx)));
     *known = zero || boundary || in_win;
     *esc = !*known && !beyond;
     return t;
   }
-  DBT_HD bool match_term(int idx, int t, bool* esc) const {
+  DBT_RI bool match_term(int idx, int t, bool* esc) const {
     bool known;
     int lt = log_term(idx, &known, esc);
     return known && lt == t;
   }
-  DBT_HD int last_term(bool* esc) const {
+  DBT_RI int last_term(bool* esc) const {
     bool known;
     return log_term(last_index, &known, esc);
   }
-  DBT_HD void ring_write(int idx, int t, int cc) {
+  DBT_RI void ring_write(int idx, int t, int cc) {
     int p = ring_pos(idx);
-    DBT_EL(ring_term, p) = t;
-    DBT_EL(ring_cc, p) = cc;
+    ring_term(p) = t;
+    ring_cc(p) = cc;
   }
-  DBT_HD bool pending_cc_any() const {
+  DBT_RI bool pending_cc_any() const {
     int lo = win_lo();
     for (int j = 0; j < W; ++j) {
       int cand = wadd(lo, (int)((uint32_t)wsub(j, lo) & (uint32_t)(W - 1)));
-      if (cand > committed && cand <= last_index && DBT_EL(ring_cc, j) == 1) return true;
+      if (cand > committed && cand <= last_index && ring_cc(j) == 1) return true;
     }
     return false;
   }
 
   // -- outbox ---------------------------------------------------------------
-  DBT_HD void emit(int mtype, int to, int t, int log_term_, int log_index,
+  // one message's fields at w[f * s]
+  template <typename Stride>
+  DBT_RI static void put_msg(int* w, Stride s, int mtype, int to, int t,
+                             int log_term_, int log_index, int commit,
+                             int reject, int hint, int hint_high,
+                             int n_entries, int src_slot) {
+    w[F_MTYPE * s] = mtype;
+    w[F_TO * s] = to;
+    w[F_TERM * s] = t;
+    w[F_LOG_TERM * s] = log_term_;
+    w[F_LOG_INDEX * s] = log_index;
+    w[F_COMMIT * s] = commit;
+    w[F_REJECT * s] = reject;
+    w[F_HINT * s] = hint;
+    w[F_HINT_HIGH * s] = hint_high;
+    w[F_N_ENTRIES * s] = n_entries;
+    w[F_SRC_SLOT * s] = src_slot;
+  }
+  DBT_RI void emit(int mtype, int to, int t, int log_term_, int log_index,
                    int commit, int reject, int hint, int hint_high,
                    int n_entries, int src_slot) {
-    if (count < O) {
-#if DBT_STEP_GL
-      int* r = buf + (long long)count * N_FIELDS * S;
-#else
-      int* r = buf + count * N_FIELDS;
-#endif
-      DBT_EL(r, F_MTYPE) = mtype;
-      DBT_EL(r, F_TO) = to;
-      DBT_EL(r, F_TERM) = t;
-      DBT_EL(r, F_LOG_TERM) = log_term_;
-      DBT_EL(r, F_LOG_INDEX) = log_index;
-      DBT_EL(r, F_COMMIT) = commit;
-      DBT_EL(r, F_REJECT) = reject;
-      DBT_EL(r, F_HINT) = hint;
-      DBT_EL(r, F_HINT_HIGH) = hint_high;
-      DBT_EL(r, F_N_ENTRIES) = n_entries;
-      DBT_EL(r, F_SRC_SLOT) = src_slot;
-      ++count;
-    } else {
+    if (count >= O) {
       escalate |= ESC_OVERFLOW;
+      return;
     }
+    if (count < K)
+      put_msg(&el(kb + count * N_FIELDS, 0), S, mtype, to, t, log_term_,
+              log_index, commit, reject, hint, hint_high, n_entries,
+              src_slot);
+    else
+      put_msg(out_row(0, O * N_FIELDS) + (long long)count * N_FIELDS * es,
+              (long long)es, mtype,
+              to, t, log_term_, log_index, commit, reject, hint, hint_high,
+              n_entries, src_slot);
+    ++count;
   }
 
   // -- role transitions -----------------------------------------------------
-  DBT_HD int jitter(int seq) const {
+  DBT_RI int jitter(int seq) const {
     uint32_t h = splitmix32(((uint32_t)shard_id << 24) ^
                             ((uint32_t)replica_id << 8) ^ (uint32_t)seq);
     uint32_t span = (uint32_t)election_timeout;
     return (int)(span ? h % span : h);
   }
-  DBT_HD void reset_timeout() {
+  DBT_RI void reset_timeout() {
     int seq = wadd(timeout_seq, 1);
     rand_timeout = wadd(election_timeout, jitter(seq));
     timeout_seq = seq;
   }
-  DBT_HD void reset(int new_term) {
+  DBT_RI void reset(int new_term) {
     if (term != new_term) vote = 0;
     term = new_term;
     leader_id = 0;
     election_tick = 0;
     heartbeat_tick = 0;
-    for (int p = 0; p < P; ++p) DBT_EL(granted, p) = 0;
+    for (int p = 0; p < P; ++p) pa(PA_GRANTED, p) = 0;
     transfer_target = 0;
     pending_cc = 0;
     reset_timeout();
     for (int p = 0; p < P; ++p) {
       if (!valid(p)) continue;
-      DBT_EL(match, p) = p == self_slot ? last_index : 0;
-      DBT_EL(next_idx, p) = wadd(last_index, 1);
-      DBT_EL(rstate, p) = RS_RETRY;
-      DBT_EL(snap_index, p) = 0;
+      pa(PA_MATCH, p) = p == self_slot ? last_index : 0;
+      pa(PA_NEXT, p) = wadd(last_index, 1);
+      pa(PA_RSTATE, p) = RS_RETRY;
+      pa(PA_SNAP, p) = 0;
     }
   }
-  DBT_HD void become_follower(int new_term, int leader) {
+  DBT_RI void become_follower(int new_term, int leader) {
     int sk = self_kind();
     role = sk == KIND_NON_VOTING ? ROLE_NON_VOTING
            : sk == KIND_WITNESS  ? ROLE_WITNESS
@@ -303,53 +402,68 @@ struct Row {
     reset(new_term);
     leader_id = leader;
   }
-  DBT_HD void become_pre_candidate() {
+  DBT_RI void become_pre_candidate() {
     role = ROLE_PRE_CANDIDATE;
-    for (int p = 0; p < P; ++p) DBT_EL(granted, p) = 0;
+    for (int p = 0; p < P; ++p) pa(PA_GRANTED, p) = 0;
     leader_id = 0;
     election_tick = 0;
     reset_timeout();
   }
-  DBT_HD void grant_self() { set_col(granted, self_slot, 1); }
-  DBT_HD void become_candidate() {
+  DBT_RI void grant_self() { set_col(PA_GRANTED, self_slot, 1); }
+  DBT_RI void become_candidate() {
     role = ROLE_CANDIDATE;
     reset(wadd(term, 1));
     vote = replica_id;
     grant_self();
   }
-  DBT_HD bool votes_at_least_quorum(int want) const {
+  DBT_RI bool votes_at_least_quorum(int want) const {
     int n = 0;
-    for (int p = 0; p < P; ++p) n += (is_voter(p) && DBT_EL(granted, p) == want) ? 1 : 0;
+    for (int p = 0; p < P; ++p) n += (is_voter(p) && pa(PA_GRANTED, p) == want) ? 1 : 0;
     return n >= quorum();
   }
-  DBT_HD bool vote_quorum() const { return votes_at_least_quorum(1); }
-  DBT_HD bool vote_rejected() const { return votes_at_least_quorum(2); }
+  DBT_RI bool vote_quorum() const { return votes_at_least_quorum(1); }
+  DBT_RI bool vote_rejected() const { return votes_at_least_quorum(2); }
 
-  DBT_HD void append_one(int cc) {
+  DBT_RI void append_one(int cc) {
     int new_last = wadd(last_index, 1);
     append_lo = imin(append_lo, new_last);
     ring_write(new_last, term, cc);
     last_index = new_last;
-    int sm = col(match, self_slot);
-    int sn = col(next_idx, self_slot);
-    set_col(match, self_slot, imax(sm, new_last));
-    set_col(next_idx, self_slot, imax(sn, wadd(new_last, 1)));
+    int sm = col(PA_MATCH, self_slot);
+    int sn = col(PA_NEXT, self_slot);
+    set_col(PA_MATCH, self_slot, imax(sm, new_last));
+    set_col(PA_NEXT, self_slot, imax(sn, wadd(new_last, 1)));
   }
 
-  // sorted-match quorum + current-term-only gate; true when it advanced
-  DBT_HD bool try_commit() {
-    int s[PMAX];
+  // The reference sorts v_p (match of a voter, -1 otherwise) ascending and
+  // takes s[P - quorum] (0 when that is out of range): the quorum-th
+  // largest value, which is the largest v_p that at least quorum of the
+  // values reach.  Counted here, with no array.
+  DBT_RI int quorum_index() const {
+    const int q = quorum();
+    const int k = P - q;
+    if (k < 0 || k >= P) return 0;
+    int best = 0;
+    bool found = false;
     for (int p = 0; p < P; ++p) {
-      int v = is_voter(p) ? DBT_EL(match, p) : -1;
-      int j = p;
-      while (j > 0 && s[j - 1] > v) {
-        s[j] = s[j - 1];
-        --j;
+      const int v = (voters >> p & 1u) ? pa(PA_MATCH, p) : -1;
+      if (found && v <= best) continue;
+      int n = 0;
+      for (int j = 0; j < P; ++j) {
+        const int u = (voters >> j & 1u) ? pa(PA_MATCH, j) : -1;
+        n += u >= v ? 1 : 0;
       }
-      s[j] = v;
+      if (n >= q) {
+        best = v;
+        found = true;
+      }
     }
-    int k = P - quorum();
-    int qidx = (k >= 0 && k < P) ? s[k] : 0;
+    return best;
+  }
+
+  // quorum index + current-term-only gate; true when it advanced
+  DBT_RI bool try_commit() {
+    const int qidx = quorum_index();
     if (!(qidx > committed)) return false;
     bool esc;
     bool ok = match_term(qidx, term, &esc);
@@ -360,16 +474,16 @@ struct Row {
   }
 
   // -- replicate / heartbeat sending --------------------------------------
-  DBT_HD void send_replicate(int slot) {
-    int rs = col(rstate, slot);
-    int nxt = col(next_idx, slot);
-    int to = col(peer_id, slot);
+  DBT_RI void send_replicate(int slot) {
+    int rs = col(PA_RSTATE, slot);
+    int nxt = col(PA_NEXT, slot);
+    int to = col(PA_ID, slot);
     if (rs == RS_WAIT || rs == RS_SNAPSHOT || to == 0) return;
     int prev = wsub(nxt, 1);
     if (prev < wsub(first_index, 1)) {
       // compacted below the resolvable boundary -> snapshot path
-      if (in_p(slot)) DBT_EL(need_snapshot, slot) = 1;
-      set_col(rstate, slot, RS_WAIT);
+      if (in_p(slot)) need_snapshot(slot) = 1;
+      set_col(PA_RSTATE, slot, RS_WAIT);
       return;
     }
     bool known, esc;
@@ -381,28 +495,28 @@ struct Row {
          -1);
     if (n > 0) {
       int last_sent = wadd(prev, n);
-      if (rs == RS_REPLICATE) set_col(next_idx, slot, wadd(last_sent, 1));
-      if (rs == RS_RETRY) set_col(rstate, slot, RS_WAIT);
+      if (rs == RS_REPLICATE) set_col(PA_NEXT, slot, wadd(last_sent, 1));
+      if (rs == RS_RETRY) set_col(PA_RSTATE, slot, RS_WAIT);
     }
   }
-  DBT_HD void broadcast_replicate() {
+  DBT_RI void broadcast_replicate() {
     for (int p = 0; p < P; ++p)
       if (valid(p) && self_slot != p) send_replicate(p);
   }
-  DBT_HD void broadcast_heartbeat(int hint, int hint_high) {
+  DBT_RI void broadcast_heartbeat(int hint, int hint_high) {
     for (int p = 0; p < P; ++p) {
       if (!valid(p) || self_slot == p) continue;
-      emit(MT_HEARTBEAT, DBT_EL(peer_id, p), term, 0, committed,
-           imin(DBT_EL(match, p), committed), 0, hint, hint_high, 0, -1);
+      emit(MT_HEARTBEAT, pa(PA_ID, p), term, 0, committed,
+           imin(pa(PA_MATCH, p), committed), 0, hint, hint_high, 0, -1);
     }
   }
 
-  DBT_HD void become_leader() {
+  DBT_RI void become_leader() {
     role = ROLE_LEADER;
     reset(term);
     leader_id = replica_id;
     for (int p = 0; p < P; ++p)
-      if (valid(p)) DBT_EL(active, p) = 1;
+      if (valid(p)) pa(PA_ACTIVE, p) = 1;
     if (wadd(committed, 1) < win_lo() && committed < last_index)
       escalate |= ESC_WINDOW;
     pending_cc = pending_cc_any() ? 1 : 0;
@@ -412,7 +526,7 @@ struct Row {
     if (num_voters() == 1 && self_is_voter()) try_commit();
   }
 
-  DBT_HD void campaign(bool pre, bool transfer) {
+  DBT_RI void campaign(bool pre, bool transfer) {
     if (pre) {
       become_pre_candidate();
       grant_self();
@@ -422,7 +536,7 @@ struct Row {
         if (esc) escalate |= ESC_WINDOW;
         for (int p = 0; p < P; ++p) {
           if (!is_voter(p) || self_slot == p) continue;
-          emit(MT_REQUEST_PREVOTE, DBT_EL(peer_id, p), wadd(term, 1), lt, last_index,
+          emit(MT_REQUEST_PREVOTE, pa(PA_ID, p), wadd(term, 1), lt, last_index,
                0, 0, 0, 0, 0, -1);
         }
         return;
@@ -440,12 +554,12 @@ struct Row {
     int hint = transfer ? replica_id : 0;
     for (int p = 0; p < P; ++p) {
       if (!is_voter(p) || self_slot == p) continue;
-      emit(MT_REQUEST_VOTE, DBT_EL(peer_id, p), term, lt, last_index, 0, 0, hint, 0,
+      emit(MT_REQUEST_VOTE, pa(PA_ID, p), term, lt, last_index, 0, 0, hint, 0,
            0, -1);
     }
   }
 
-  DBT_HD void handle_election(int hint) {
+  DBT_RI void handle_election(int hint) {
     if (role == ROLE_LEADER || role == ROLE_NON_VOTING ||
         role == ROLE_WITNESS || !self_is_voter())
       return;
@@ -453,21 +567,21 @@ struct Row {
     campaign(pre_vote == 1 && !transfer, transfer);
   }
 
-  DBT_HD void check_quorum_now() {
+  DBT_RI void check_quorum_now() {
     int cnt = 1;
     for (int p = 0; p < P; ++p)
-      if (is_voter(p) && p != self_slot && DBT_EL(active, p) == 1) ++cnt;
+      if (is_voter(p) && p != self_slot && pa(PA_ACTIVE, p) == 1) ++cnt;
     for (int p = 0; p < P; ++p)
-      if (is_voter(p)) DBT_EL(active, p) = 0;
+      if (is_voter(p)) pa(PA_ACTIVE, p) = 0;
     if (cnt < quorum()) become_follower(term, 0);
   }
 
-  DBT_HD void tick(int n, int hint, int hint_high) {
+  DBT_RI void tick(int n, int hint, int hint_high) {
     if (role == ROLE_LEADER) {
-      int el = wadd(election_tick, n);
+      int el_ = wadd(election_tick, n);
       int hb = wadd(heartbeat_tick, n);
-      bool fired = el >= election_timeout;
-      election_tick = fired ? 0 : el;
+      bool fired = el_ >= election_timeout;
+      election_tick = fired ? 0 : el_;
       heartbeat_tick = hb;
       if (fired && check_quorum == 1) check_quorum_now();
       if (role != ROLE_LEADER) return;
@@ -493,7 +607,7 @@ struct Row {
   }
 
   // -- message-term gate ------------------------------------------------------
-  DBT_HD bool on_message_term(const Msg& m) {
+  DBT_RI bool on_message_term(const Msg& m) {
     int mt = m.mtype;
     bool local = m.term == 0;
     bool higher = !local && m.term > term;
@@ -520,13 +634,13 @@ struct Row {
   }
 
   // -- votes ------------------------------------------------------------------
-  DBT_HD bool up_to_date(const Msg& m) {
+  DBT_RI bool up_to_date(const Msg& m) {
     bool esc;
     int lt = last_term(&esc);
     if (esc) escalate |= ESC_WINDOW;
     return m.log_term > lt || (m.log_term == lt && m.log_index >= last_index);
   }
-  DBT_HD void handle_request_vote(const Msg& m) {
+  DBT_RI void handle_request_vote(const Msg& m) {
     if (role == ROLE_NON_VOTING) return;
     bool utd = up_to_date(m);
     bool grant = (vote == 0 || vote == m.from_id) && utd;
@@ -537,7 +651,7 @@ struct Row {
     emit(MT_REQUEST_VOTE_RESP, m.from_id, term, 0, 0, 0, grant ? 0 : 1, 0, 0,
          0, -1);
   }
-  DBT_HD void handle_request_prevote(const Msg& m) {
+  DBT_RI void handle_request_prevote(const Msg& m) {
     if (role == ROLE_NON_VOTING) return;
     bool utd = up_to_date(m);
     bool grant = utd && (m.term > term || vote == 0 || vote == m.from_id);
@@ -546,7 +660,7 @@ struct Row {
   }
 
   // -- follower side ------------------------------------------------------------
-  DBT_HD void handle_replicate(const Msg& m) {
+  DBT_RI void handle_replicate(const Msg& m) {
     if (m.log_index < committed) {
       emit(MT_REPLICATE_RESP, m.from_id, term, 0, committed, 0, 0, 0, 0, 0, -1);
       return;
@@ -566,7 +680,7 @@ struct Row {
     bool conflict_esc = false;
     for (int i = 0; i < E && i < n; ++i) {
       bool e_esc;
-      if (!match_term(wadd(m.log_index, 1 + i), DBT_EL(m.ent_term, i), &e_esc)) {
+      if (!match_term(wadd(m.log_index, 1 + i), m.eterm(i), &e_esc)) {
         conflict_off = i;
         conflict_esc = e_esc;
         break;
@@ -581,43 +695,43 @@ struct Row {
       if (idx_at_conf <= committed) escalate |= ESC_INVARIANT;
       append_lo = imin(append_lo, idx_at_conf);
       for (int i = conflict_off; i < E && i < n; ++i)
-        ring_write(wadd(m.log_index, 1 + i), DBT_EL(m.ent_term, i), DBT_EL(m.ent_cc, i));
+        ring_write(wadd(m.log_index, 1 + i), m.eterm(i), m.ecc(i));
       last_index = last_new;
     }
     committed = imax(committed, imin(m.commit, last_new));
     emit(MT_REPLICATE_RESP, m.from_id, term, 0, last_new, 0, 0, 0, 0, 0, -1);
   }
-  DBT_HD void handle_heartbeat(const Msg& m) {
+  DBT_RI void handle_heartbeat(const Msg& m) {
     committed = imax(committed, imin(m.commit, last_index));
     emit(MT_HEARTBEAT_RESP, m.from_id, term, 0, 0, 0, 0, m.hint, m.hint_high,
          0, -1);
   }
 
   // -- leader side --------------------------------------------------------------
-  DBT_HD void handle_replicate_resp(const Msg& m) {
+  DBT_RI void handle_replicate_resp(const Msg& m) {
     bool found;
     int slot = slot_of(m.from_id, &found);
     if (!found) return;
-    set_col(active, slot, 1);
-    int rs = col(rstate, slot);
-    int mt0 = col(match, slot);
-    int nxt = col(next_idx, slot);
-    int snap = col(snap_index, slot);
+    set_col(PA_ACTIVE, slot, 1);
+    int rs = col(PA_RSTATE, slot);
+    int mt0 = col(PA_MATCH, slot);
+    int nxt = col(PA_NEXT, slot);
+    int snap = col(PA_SNAP, slot);
     int li = m.log_index;
     bool rej = m.reject == 1;
     // decrease (oracle: remote.decrease)
     bool repl = rs == RS_REPLICATE;
     bool do_r = rej && repl && li > mt0;
     if (do_r) {
-      set_col(next_idx, slot, wadd(mt0, 1));
-      set_col(snap_index, slot, 0);
-      set_col(rstate, slot, RS_RETRY);
+      set_col(PA_NEXT, slot, wadd(mt0, 1));
+      set_col(PA_SNAP, slot, 0);
+      set_col(PA_RSTATE, slot, RS_RETRY);
     }
     bool do_nr = rej && !repl && wsub(nxt, 1) == li;
     if (do_nr) {
       int dec = imax(imax(imin(li, wadd(m.hint, 1)), wadd(mt0, 1)), 1);
-      set_col(next_idx, slot, dec);
-      if (rs == RS_WAIT) set_col(rstate, slot, RS_RETRY);
+      set_col(PA_NEXT, slot, dec);
+      if (rs == RS_WAIT) set_col(PA_RSTATE, slot, RS_RETRY);
     }
     if (do_r || do_nr) send_replicate(slot);
     // ack
@@ -626,18 +740,18 @@ struct Row {
     bool advanced = ack && mt0 < li;
     int new_match = imax(mt0, li);
     int new_next = imax(nxt, wadd(li, 1));
-    if (advanced) set_col(match, slot, new_match);
-    if (ack) set_col(next_idx, slot, new_next);
-    if (advanced && rs == RS_WAIT) set_col(rstate, slot, RS_RETRY);
-    if (advanced && col(rstate, slot) == RS_SNAPSHOT && new_match >= snap) {
-      set_col(next_idx, slot, imax(wadd(new_match, 1), wadd(snap, 1)));
-      set_col(snap_index, slot, 0);
-      set_col(rstate, slot, RS_RETRY);
+    if (advanced) set_col(PA_MATCH, slot, new_match);
+    if (ack) set_col(PA_NEXT, slot, new_next);
+    if (advanced && rs == RS_WAIT) set_col(PA_RSTATE, slot, RS_RETRY);
+    if (advanced && col(PA_RSTATE, slot) == RS_SNAPSHOT && new_match >= snap) {
+      set_col(PA_NEXT, slot, imax(wadd(new_match, 1), wadd(snap, 1)));
+      set_col(PA_SNAP, slot, 0);
+      set_col(PA_RSTATE, slot, RS_RETRY);
     }
-    if (advanced && col(rstate, slot) == RS_RETRY) {
-      set_col(next_idx, slot, wadd(new_match, 1));
-      set_col(snap_index, slot, 0);
-      set_col(rstate, slot, RS_REPLICATE);
+    if (advanced && col(PA_RSTATE, slot) == RS_RETRY) {
+      set_col(PA_NEXT, slot, wadd(new_match, 1));
+      set_col(PA_SNAP, slot, 0);
+      set_col(PA_RSTATE, slot, RS_REPLICATE);
     }
     bool cadv = advanced && try_commit();
     if (cadv) broadcast_replicate();
@@ -646,32 +760,32 @@ struct Row {
     if (advanced && transfer_target == m.from_id && last_index == new_match)
       emit(MT_TIMEOUT_NOW, m.from_id, term, 0, 0, 0, 0, 0, 0, 0, -1);
     // stale ack while streaming a snapshot that has completed
-    int rs4 = col(rstate, slot);
-    int m4 = col(match, slot);
-    int s4 = col(snap_index, slot);
+    int rs4 = col(PA_RSTATE, slot);
+    int m4 = col(PA_MATCH, slot);
+    int s4 = col(PA_SNAP, slot);
     if (ack && !advanced && rs4 == RS_SNAPSHOT && m4 >= s4) {
-      set_col(next_idx, slot, imax(wadd(m4, 1), wadd(s4, 1)));
-      set_col(snap_index, slot, 0);
-      set_col(rstate, slot, RS_RETRY);
+      set_col(PA_NEXT, slot, imax(wadd(m4, 1), wadd(s4, 1)));
+      set_col(PA_SNAP, slot, 0);
+      set_col(PA_RSTATE, slot, RS_RETRY);
     }
   }
 
-  DBT_HD void handle_heartbeat_resp(const Msg& m) {
+  DBT_RI void handle_heartbeat_resp(const Msg& m) {
     bool found;
     int slot = slot_of(m.from_id, &found);
     if (!found) return;
-    set_col(active, slot, 1);
-    if (col(rstate, slot) == RS_WAIT) set_col(rstate, slot, RS_RETRY);
-    if (col(match, slot) < last_index) send_replicate(slot);
+    set_col(PA_ACTIVE, slot, 1);
+    if (col(PA_RSTATE, slot) == RS_WAIT) set_col(PA_RSTATE, slot, RS_RETRY);
+    if (col(PA_MATCH, slot) < last_index) send_replicate(slot);
     // read-index ctx echo to the host (voting members only)
-    int kind = col(peer_kind, slot);
+    int kind = col(PA_KIND, slot);
     bool voter = kind == KIND_VOTER || kind == KIND_WITNESS;
     if (voter && (m.hint != 0 || m.hint_high != 0))
       emit(MT_READ_INDEX_RESP, replica_id, term, 0, m.from_id, 0, 0, m.hint,
            m.hint_high, 0, -1);
   }
 
-  DBT_HD void handle_read_index(const Msg& m) {
+  DBT_RI void handle_read_index(const Msg& m) {
     if (!(role == ROLE_LEADER && self_kind() != KIND_WITNESS)) {
       emit(MT_READ_INDEX_RESP, replica_id, term, 0, 0, 0, 1, m.hint,
            m.hint_high, 0, -1);
@@ -690,26 +804,26 @@ struct Row {
     }
   }
 
-  DBT_HD void handle_unreachable(const Msg& m) {
+  DBT_RI void handle_unreachable(const Msg& m) {
     bool found;
     int slot = slot_of(m.from_id, &found);
-    if (!found || col(rstate, slot) != RS_REPLICATE) return;
-    set_col(next_idx, slot, wadd(col(match, slot), 1));
-    set_col(snap_index, slot, 0);
-    set_col(rstate, slot, RS_RETRY);
+    if (!found || col(PA_RSTATE, slot) != RS_REPLICATE) return;
+    set_col(PA_NEXT, slot, wadd(col(PA_MATCH, slot), 1));
+    set_col(PA_SNAP, slot, 0);
+    set_col(PA_RSTATE, slot, RS_RETRY);
   }
 
-  DBT_HD void handle_snapshot_status(const Msg& m) {
+  DBT_RI void handle_snapshot_status(const Msg& m) {
     bool found;
     int slot = slot_of(m.from_id, &found);
-    if (!found || col(rstate, slot) != RS_SNAPSHOT) return;
-    int snap = m.reject == 1 ? 0 : col(snap_index, slot);
-    set_col(next_idx, slot, imax(wadd(col(match, slot), 1), wadd(snap, 1)));
-    set_col(snap_index, slot, 0);
-    set_col(rstate, slot, RS_WAIT);
+    if (!found || col(PA_RSTATE, slot) != RS_SNAPSHOT) return;
+    int snap = m.reject == 1 ? 0 : col(PA_SNAP, slot);
+    set_col(PA_NEXT, slot, imax(wadd(col(PA_MATCH, slot), 1), wadd(snap, 1)));
+    set_col(PA_SNAP, slot, 0);
+    set_col(PA_RSTATE, slot, RS_WAIT);
   }
 
-  DBT_HD void handle_propose(const Msg& m, int slot_i) {
+  DBT_RI void handle_propose(const Msg& m, int slot_i) {
     bool lead = role == ROLE_LEADER;
     int n = m.n_entries;
     bool transferring = transfer_target != 0;
@@ -719,9 +833,9 @@ struct Row {
     bool appended_any = false;
     if (accept) {
       for (int i = 0; i < E && i < n; ++i) {
-        bool is_cc = DBT_EL(m.ent_cc, i) == 1;
+        bool is_cc = m.ecc(i) == 1;
         if (is_cc && pending_cc == 1) {
-          DBT_EL(ent_drop, slot_i * E + i) = 1;  // config-change gate
+          ent_drop(slot_i * E + i) = 1;  // config-change gate
           continue;
         }
         if (is_cc) pending_cc = 1;
@@ -731,8 +845,8 @@ struct Row {
     }
     if (appended_any && num_voters() == 1 && self_is_voter()) try_commit();
     if (appended_any) broadcast_replicate();
-    int sb = accept ? base : (drop_all ? SLOT_DROPPED : DBT_EL(slot_base, slot_i));
-    int stm = accept ? term : DBT_EL(slot_term, slot_i);
+    int sb = accept ? base : (drop_all ? SLOT_DROPPED : slot_base(slot_i));
+    int stm = accept ? term : slot_term(slot_i);
     bool foll = role == ROLE_FOLLOWER || role == ROLE_NON_VOTING ||
                 role == ROLE_WITNESS;
     if (foll && leader_id != 0) {
@@ -742,17 +856,17 @@ struct Row {
     if ((foll && leader_id == 0) || role == ROLE_CANDIDATE ||
         role == ROLE_PRE_CANDIDATE)
       sb = SLOT_DROPPED;
-    DBT_EL(slot_base, slot_i) = sb;
-    DBT_EL(slot_term, slot_i) = stm;
+    slot_base(slot_i) = sb;
+    slot_term(slot_i) = stm;
   }
 
   // -- candidate / follower blocks ------------------------------------------
-  DBT_HD void record_vote(const Msg& m) {
+  DBT_RI void record_vote(const Msg& m) {
     bool found;
     int slot = slot_of(m.from_id, &found);
-    if (found) set_col(granted, slot, m.reject == 1 ? 2 : 1);
+    if (found) set_col(PA_GRANTED, slot, m.reject == 1 ? 2 : 1);
   }
-  DBT_HD void candidate_block(const Msg& m) {
+  DBT_RI void candidate_block(const Msg& m) {
     int mt = m.mtype;
     if (!(role == ROLE_CANDIDATE || role == ROLE_PRE_CANDIDATE)) return;
     if (mt == MT_REPLICATE || mt == MT_HEARTBEAT) {
@@ -774,7 +888,7 @@ struct Row {
       }
     }
   }
-  DBT_HD void follower_block(const Msg& m) {
+  DBT_RI void follower_block(const Msg& m) {
     int mt = m.mtype;
     if (!(role == ROLE_FOLLOWER || role == ROLE_NON_VOTING ||
           role == ROLE_WITNESS))
@@ -793,7 +907,7 @@ struct Row {
   }
 
   // one inbox slot (oracle: Raft.handle + _step)
-  DBT_HD void process_slot(const Msg& m, int slot_i) {
+  DBT_RI void process_slot(const Msg& m, int slot_i) {
     int mt = m.mtype;
     if (!is_hot(mt)) {
       escalate |= ESC_COLD;
@@ -855,141 +969,101 @@ struct Row {
   }
 };
 
-// The whole step for row g.
-DBT_HD void step_row(const StepArgs& a, int g) {
-  const int P = a.P, W = a.W, M = a.M, E = a.E, O = a.O;
+// The row logic of row g, the block's row t: layout-blind, given the
+// element stride es of its inbox and outputs (element k of an array with
+// n elements a row at g * n + k in the external layout, es = 1, and at
+// g + k * G in the G-last one, es = G).
+DBT_RI void step_row(const StepArgs& a, int* tile, int g, int t, int es) {
+  const long long ib0 = row_off(g, a.M, es);
+  const long long e0 = row_off(g, a.M * a.E, es);
   Row r;
-#if DBT_STEP_GL
-  r.S = a.G;
-#endif
   const int* const* si = a.st_in;
-  int sc[21];
-  for (int f = 0; f < 21; ++f) sc[f] = si[f][g];
-  r.shard_id = sc[0];
-  r.replica_id = sc[1];
-  r.self_slot = sc[2];
-  r.election_timeout = sc[3];
-  r.heartbeat_timeout = sc[4];
-  r.check_quorum = sc[5];
-  r.pre_vote = sc[6];
-  r.term = sc[7];
-  r.vote = sc[8];
-  r.leader_id = sc[9];
-  r.role = sc[10];
-  r.committed = sc[11];
-  r.last_index = sc[12];
-  r.first_index = sc[13];
-  r.base_term = sc[14];
-  r.election_tick = sc[15];
-  r.heartbeat_tick = sc[16];
-  r.rand_timeout = sc[17];
-  r.timeout_seq = sc[18];
-  r.pending_cc = sc[19];
-  r.transfer_target = sc[20];
-  // peer and ring arrays: copy the row over, then work in place
-  int* arr[10];
-  for (int f = 0; f < 10; ++f) {
-    int n = f < 8 ? P : W;
-    // row g's first element: [G, n] rows are contiguous, [n, G] rows
-    // are columns
-#if DBT_STEP_GL
-    const int* src = si[21 + f] + g;
-    int* dst = a.st_out[21 + f] + g;
-#else
-    const int* src = si[21 + f] + (long long)g * n;
-    int* dst = a.st_out[21 + f] + (long long)g * n;
-#endif
-    for (int k = 0; k < n; ++k) DBT_ROW_EL(dst, k) = DBT_ROW_EL(src, k);
-    arr[f] = dst;
-  }
-  r.peer_id = arr[0];
-  r.peer_kind = arr[1];
-  r.match = arr[2];
-  r.next_idx = arr[3];
-  r.rstate = arr[4];
-  r.snap_index = arr[5];
-  r.active = arr[6];
-  r.granted = arr[7];
-  r.ring_term = arr[8];
-  r.ring_cc = arr[9];
-  r.P = P;
-  r.W = W;
-  r.E = E;
-  r.O = O;
-  // outputs, initialised as make_out does
-#if DBT_STEP_GL
-  r.buf = a.out[0] + g;
-  r.need_snapshot = a.out[3] + g;
-  r.slot_base = a.out[4] + g;
-  r.slot_term = a.out[5] + g;
-  r.ent_drop = a.out[6] + g;
-#else
-  r.buf = a.out[0] + (long long)g * O * N_FIELDS;
-  r.need_snapshot = a.out[3] + (long long)g * P;
-  r.slot_base = a.out[4] + (long long)g * M;
-  r.slot_term = a.out[5] + (long long)g * M;
-  r.ent_drop = a.out[6] + (long long)g * M * E;
-#endif
-  for (int k = 0; k < O * N_FIELDS; ++k) DBT_ROW_EL(r.buf, k) = 0;
-  for (int k = 0; k < P; ++k) DBT_ROW_EL(r.need_snapshot, k) = 0;
-  for (int k = 0; k < M; ++k) {
-    DBT_ROW_EL(r.slot_base, k) = SLOT_UNUSED;
-    DBT_ROW_EL(r.slot_term, k) = 0;
-  }
-  for (int k = 0; k < M * E; ++k) DBT_ROW_EL(r.ent_drop, k) = 0;
+  r.shard_id = si[0][g];
+  r.replica_id = si[1][g];
+  r.self_slot = si[2][g];
+  r.election_timeout = si[3][g];
+  r.heartbeat_timeout = si[4][g];
+  r.check_quorum = si[5][g];
+  r.pre_vote = si[6][g];
+  r.term = si[7][g];
+  r.vote = si[8][g];
+  r.leader_id = si[9][g];
+  r.role = si[10][g];
+  r.committed = si[11][g];
+  r.last_index = si[12][g];
+  r.first_index = si[13][g];
+  r.base_term = si[14][g];
+  r.election_tick = si[15][g];
+  r.heartbeat_tick = si[16][g];
+  r.rand_timeout = si[17][g];
+  r.timeout_seq = si[18][g];
+  r.pending_cc = si[19][g];
+  r.transfer_target = si[20][g];
+  r.P = a.P;
+  r.W = a.W;
+  r.M = a.M;
+  r.E = a.E;
+  r.O = a.O;
+  r.S = a.S;
+  r.tt = tile + t;
+  r.K = a.K;
+  r.kb = a.t_buf();
+  r.args = &a;
+  r.g = g;
+  r.es = es;
   r.count = 0;
   r.escalate = 0;
   r.append_lo = APPEND_LO_NONE;
   r.barrier_idx = -1;
   r.barrier_term = 0;
+  r.read_peers();
   // the row's inbox slots, in order; empty slots are no-ops and an
   // escalated row handles nothing more
-  int first_occ = -1;
-  for (int s = 0; s < M; ++s) {
-    // slot s of row g: [G, M] / [G, M, E], or [M, G] / [M, E, G]
-#if DBT_STEP_GL
-    long long off = s * r.S + g;
-#else
-    long long off = (long long)g * M + s;
-#endif
-    int mt = a.ib[0][off];
+  const long long es_slot = (long long)a.E * es;
+  for (int s = 0; s < a.M && r.escalate == 0; ++s) {
+    const long long off = ib0 + (long long)s * es;
+    const int mt = a.ib[0][off];
     if (mt == 0) continue;
-    if (first_occ < 0) first_occ = s;
-    if (r.escalate != 0) continue;
     Msg m;
     m.mtype = mt;
-    m.from_id = a.ib[1][off];
-    m.term = a.ib[2][off];
-    m.log_term = a.ib[3][off];
     m.log_index = a.ib[4][off];
-    m.commit = a.ib[5][off];
-    m.reject = a.ib[6][off];
     m.hint = a.ib[7][off];
     m.hint_high = a.ib[8][off];
-    m.n_entries = a.ib[9][off];
-#if DBT_STEP_GL
-    m.ent_term = a.ib[10] + s * E * r.S + g;
-    m.ent_cc = a.ib[11] + s * E * r.S + g;
-#else
-    m.ent_term = a.ib[10] + off * E;
-    m.ent_cc = a.ib[11] + off * E;
-#endif
+    if (mt != MT_TICK) {  // a tick reads no other word
+      m.from_id = a.ib[1][off];
+      m.term = a.ib[2][off];
+      m.log_term = a.ib[3][off];
+      m.commit = a.ib[5][off];
+      m.reject = a.ib[6][off];
+      m.n_entries = a.ib[9][off];
+    }
+    m.ent_term = a.ib[10] + e0 + s * es_slot;
+    m.ent_cc = a.ib[11] + e0 + s * es_slot;
+    m.es = es;
     r.process_slot(m, s);
   }
-  // The reference maps every outbox row's F_SRC_SLOT back through its
-  // slot compaction order; an unused row holds 0 there, which maps to
-  // the row's first occupied slot (or 0 when the inbox is empty).
-  if (first_occ < 0) first_occ = 0;
-  for (int k = r.count; k < O; ++k)
-    DBT_ROW_EL(r.buf, k * N_FIELDS + F_SRC_SLOT) = first_occ;
-  // scalars out
-  int so[21] = {r.shard_id, r.replica_id, r.self_slot, r.election_timeout,
-                r.heartbeat_timeout, r.check_quorum, r.pre_vote, r.term,
-                r.vote, r.leader_id, r.role, r.committed, r.last_index,
-                r.first_index, r.base_term, r.election_tick, r.heartbeat_tick,
-                r.rand_timeout, r.timeout_seq, r.pending_cc,
-                r.transfer_target};
-  for (int f = 0; f < 21; ++f) a.st_out[f][g] = so[f];
+  int* const* so = a.st_out;
+  so[0][g] = r.shard_id;
+  so[1][g] = r.replica_id;
+  so[2][g] = r.self_slot;
+  so[3][g] = r.election_timeout;
+  so[4][g] = r.heartbeat_timeout;
+  so[5][g] = r.check_quorum;
+  so[6][g] = r.pre_vote;
+  so[7][g] = r.term;
+  so[8][g] = r.vote;
+  so[9][g] = r.leader_id;
+  so[10][g] = r.role;
+  so[11][g] = r.committed;
+  so[12][g] = r.last_index;
+  so[13][g] = r.first_index;
+  so[14][g] = r.base_term;
+  so[15][g] = r.election_tick;
+  so[16][g] = r.heartbeat_tick;
+  so[17][g] = r.rand_timeout;
+  so[18][g] = r.timeout_seq;
+  so[19][g] = r.pending_cc;
+  so[20][g] = r.transfer_target;
   a.out[1][g] = r.count;
   a.out[2][g] = r.escalate;
   a.out[7][g] = r.append_lo;
@@ -997,54 +1071,256 @@ DBT_HD void step_row(const StepArgs& a, int g) {
   a.out[9][g] = r.barrier_term;
 }
 
-}  // namespace DBT_STEP_NS
+// ---------------------------------------------------------------------------
+// the block's phases; thread t's share of each
+// ---------------------------------------------------------------------------
+// cp.async copies into shared memory on the card (4 bytes, or 16 from a
+// 16-byte aligned address to one), wait_all before the barrier; plain
+// copies on the host
+DBT_RI void async4(int* sdst, const int* gsrc) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(sdst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gsrc)
+               : "memory");
+#else
+  *sdst = *gsrc;
+#endif
+}
+DBT_RI void async16(int* sdst, const int* gsrc) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(sdst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gsrc)
+               : "memory");
+#else
+  for (int i = 0; i < 4; ++i) sdst[i] = gsrc[i];
+#endif
+}
+DBT_RI void async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+// 16 bytes from shared memory to device memory, both 16-byte aligned
+DBT_RI void copy16(int* dst, const int* src) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+
+DBT_RI bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15ull) == 0;
+}
+
+// The block's rows of a per-row array of n elements into the tile from
+// word b on.  m = div_magic(n).
+template <bool GL>
+DBT_RI void copy_in(const StepArgs& a, int* tile, const int* src, int b,
+                    int n, unsigned m, int g0, int n_rows, int t) {
+  const int S = a.S;
+  if (!GL) {
+    // one contiguous slab of n_rows * n words, read linearly
+    const int* s = src + (long long)g0 * n;
+    const int total = n_rows * n;
+    for (int i = t; i < total; i += a.R) {
+      const int r = div_by(i, m);
+      async4(tile + (b + i - r * n) * S + r, s + i);
+    }
+  } else if ((a.G & 3) == 0 && aligned16(src)) {
+    // n runs of n_rows words (a multiple of 4), 16 bytes a copy
+    const int qs = a.lgR - 2;
+    const int nq = n << qs;
+    for (int i = t; i < nq; i += a.R) {
+      const int k = i >> qs, j = (i & ((1 << qs) - 1)) << 2;
+      if (j < n_rows)
+        async16(tile + (b + k) * S + j, src + (long long)k * a.G + g0 + j);
+    }
+  } else if (t < n_rows) {
+    for (int k = 0; k < n; ++k)
+      async4(tile + (b + k) * S + t, src + (long long)k * a.G + g0 + t);
+  }
+}
+
+// The tile's words b .. b + n - 1 of the block's rows out to the first n
+// elements of dst's rows of rs elements (external layout; rs = n but for
+// the staged outbox).
+template <bool GL>
+DBT_RI void copy_out(const StepArgs& a, const int* tile, int* dst, int b,
+                     int n, unsigned m, int g0, int n_rows, int t,
+                     int rs = 0) {
+  const int S = a.S;
+  if (!GL) {
+    rs = rs ? rs : n;
+    int* d = dst + (long long)g0 * rs;
+    const int total = n_rows * n;
+    for (int i = t; i < total; i += a.R) {
+      const int r = div_by(i, m), k = i - r * n;
+      d[(long long)r * rs + k] = tile[(b + k) * S + r];
+    }
+  } else if ((a.G & 3) == 0 && aligned16(dst)) {
+    const int qs = a.lgR - 2;
+    const int nq = n << qs;
+    for (int i = t; i < nq; i += a.R) {
+      const int k = i >> qs, j = (i & ((1 << qs) - 1)) << 2;
+      if (j < n_rows)
+        copy16(dst + (long long)k * a.G + g0 + j, tile + (b + k) * S + j);
+    }
+  } else if (t < n_rows) {
+    for (int k = 0; k < n; ++k)
+      dst[(long long)k * a.G + g0 + t] = tile[(b + k) * S + t];
+  }
+}
+
+DBT_RI int block_rows(const StepArgs& a, int blk) {
+  return imin(a.R, a.G - blk * a.R);
+}
+
+// Phase 1: the peer and ring arrays into the tile (asynchronous copies on
+// the card: wait for them before the barrier); the row's first occupied
+// inbox slot.
+template <bool GL>
+DBT_RI void step_load(const StepArgs& a, int* tile, int blk, int t) {
+  const int g0 = blk * a.R, n_rows = block_rows(a, blk);
+  for (int f = 0; f < 10; ++f)
+    copy_in<GL>(a, tile, a.st_in[N_SCALARS + f], a.arr(f), f < 8 ? a.P : a.W,
+                f < 8 ? a.mP : a.mW, g0, n_rows, t);
+  if (t >= n_rows) return;
+  const int es = row_stride<GL>(a);
+  const long long ib0 = row_off(g0 + t, a.M, es);
+  int first = 0;
+  for (int s = 0; s < a.M; ++s) {
+    if (a.ib[0][ib0 + (long long)s * es] != 0) {
+      first = s;
+      break;
+    }
+  }
+  tile[a.T() * a.S + t] = first;
+  int* tt = tile + t;
+  for (int k = 0; k < a.K * N_FIELDS; ++k)
+    tt[(a.t_buf() + k) * a.S] = k % N_FIELDS == F_SRC_SLOT ? first : 0;
+}
+
+// The block's rows of an output of n elements a row, all set to v.
+template <bool GL>
+DBT_RI void fill_out(const StepArgs& a, int* dst, int n, int v, int g0,
+                     int n_rows, int t) {
+  if (!GL) {
+    int* d = dst + (long long)g0 * n;
+    for (int i = t; i < n_rows * n; i += a.R) d[i] = v;
+  } else if (t < n_rows) {
+    for (int k = 0; k < n; ++k) dst[(long long)k * a.G + g0 + t] = v;
+  }
+}
+
+// Phase 2: the outputs the row logic writes in device memory, as the
+// reference initialises them: need_snapshot 0, slot_base SLOT_UNUSED,
+// slot_term 0, ent_drop 0, and the outbox messages past the staged ones
+// zeros but F_SRC_SLOT = the row's first occupied inbox slot.
+template <bool GL>
+DBT_RI void step_prefill(const StepArgs& a, const int* tile, int blk, int t) {
+  const int g0 = blk * a.R, n_rows = block_rows(a, blk);
+  fill_out<GL>(a, a.out[3], a.P, 0, g0, n_rows, t);
+  fill_out<GL>(a, a.out[4], a.M, SLOT_UNUSED, g0, n_rows, t);
+  fill_out<GL>(a, a.out[5], a.M, 0, g0, n_rows, t);
+  fill_out<GL>(a, a.out[6], a.M * a.E, 0, g0, n_rows, t);
+  const int nb = a.O * N_FIELDS, k0 = a.K * N_FIELDS, n = nb - k0;
+  if (n == 0) return;
+  const int* first = tile + a.T() * a.S;
+  if (!GL) {
+    // row r's words k0 .. nb - 1; word i of the n_rows * n walked in
+    // steps of R as (r, k)
+    int* d = a.out[0] + (long long)g0 * nb + k0;
+    const int total = n_rows * n;
+    int r = t / n, k = t - r * n;
+    const int dr = a.R / n, dk = a.R - dr * n;
+    for (int i = t; i < total; i += a.R) {
+      d[(long long)r * nb + k] = (k0 + k) % N_FIELDS == F_SRC_SLOT ? first[r] : 0;
+      r += dr;
+      k += dk;
+      if (k >= n) {
+        k -= n;
+        ++r;
+      }
+    }
+  } else if (t < n_rows) {
+    int* d = a.out[0] + g0 + t;
+    for (int k = k0; k < nb; ++k)
+      d[(long long)k * a.G] = k % N_FIELDS == F_SRC_SLOT ? first[t] : 0;
+  }
+}
+
+// Phase 3: the row logic of the block's row t.
+template <bool GL>
+DBT_RI void step_rows(const StepArgs& a, int* tile, int blk, int t) {
+  if (t >= block_rows(a, blk)) return;
+  const int g = blk * a.R + t;
+  step_row(a, tile, g, t, row_stride<GL>(a));
+}
+
+// Phase 4: the tile's arrays out.
+template <bool GL>
+DBT_RI void step_store(const StepArgs& a, const int* tile, int blk, int t) {
+  const int g0 = blk * a.R, n_rows = block_rows(a, blk);
+  for (int f = 0; f < 10; ++f)
+    copy_out<GL>(a, tile, a.st_out[N_SCALARS + f], a.arr(f),
+                 f < 8 ? a.P : a.W, f < 8 ? a.mP : a.mW, g0, n_rows, t);
+  if (a.K)
+    copy_out<GL>(a, tile, a.out[0], a.t_buf(), a.K * N_FIELDS, a.mK, g0,
+                 n_rows, t, a.O * N_FIELDS);
+}
+
 }  // namespace dbt
 
 #ifdef __CUDACC__
-#if DBT_STEP_GL
-__global__ void raft_step_internal_kernel(const dbt::StepArgs a) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < a.G) dbt::gl::step_row(a, g);
+template <bool GL>
+__device__ __forceinline__ void step_block(const dbt::StepArgs& a) {
+  extern __shared__ int4 dbt_step_tile[];
+  int* tile = reinterpret_cast<int*>(dbt_step_tile);
+  const int blk = blockIdx.x, t = threadIdx.x;
+  dbt::step_load<GL>(a, tile, blk, t);
+  dbt::async_wait_all();
+  __syncthreads();
+  dbt::step_prefill<GL>(a, tile, blk, t);
+  __syncthreads();
+  dbt::step_rows<GL>(a, tile, blk, t);
+  __syncthreads();
+  dbt::step_store<GL>(a, tile, blk, t);
 }
 
-void dbt::raft_step_internal_launch(const dbt::StepArgs& a, void* stream) {
-  const int threads = 128;
-  const int blocks = (a.G + threads - 1) / threads;
-  raft_step_internal_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+__global__ void raft_step_kernel(const __grid_constant__ dbt::StepArgs a) {
+  step_block<false>(a);
 }
-#else
-__global__ void raft_step_kernel(const dbt::StepArgs a) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < a.G) dbt::ext::step_row(a, g);
+
+__global__ void raft_step_internal_kernel(
+    const __grid_constant__ dbt::StepArgs a) {
+  step_block<true>(a);
 }
 
 void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
                            const int* const* inbox, int* const* out, int G,
                            int P, int W, int M, int E, int O, int internal,
-                           void* stream) {
+                           int rows_per_block, int staged, void* stream) {
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
   for (int f = 0; f < dbt::N_INBOX; ++f) a.ib[f] = inbox[f];
   for (int f = 0; f < dbt::N_OUT; ++f) a.out[f] = out[f];
-  a.G = G;
-  a.P = P;
-  a.W = W;
-  a.M = M;
-  a.E = E;
-  a.O = O;
-  if (internal) {
-    dbt::raft_step_internal_launch(a, stream);
-    return;
-  }
-  const int threads = 128;
-  const int blocks = (G + threads - 1) / threads;
-  raft_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  dbt::step_args_init(a, G, P, W, M, E, O, internal, rows_per_block, staged);
+  const size_t smem = ((size_t)a.S * a.T() + a.R) * sizeof(int);
+  const void* fn = internal ? (const void*)raft_step_internal_kernel
+                            : (const void*)raft_step_kernel;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  const int blocks = (G + a.R - 1) / a.R;
+  if (internal)
+    raft_step_internal_kernel<<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
+  else
+    raft_step_kernel<<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
 }
 #endif
-#endif
 
-#undef DBT_EL
-#undef DBT_ROW_EL
-#undef DBT_STEP_NS
-#undef DBT_STEP_GL
+#undef DBT_RI

@@ -24,11 +24,10 @@ BUILD = Path(__file__).resolve().parent.parent / "_build"
 MODULE = "dragonboat_tpu_torch_kernels"
 
 # kernel -> its source; bindings.cpp binds each kernel's entry points
-# (raft_step_internal.cu compiles raft_step.cu's row logic again, in the
-# G-last layout)
+# (raft_step.cu holds both layouts' kernels around one row logic)
 KERNELS = {
     "raft_step": "raft_step.cu",
-    "raft_step_internal": "raft_step_internal.cu",
+    "raft_step_internal": "raft_step.cu",
     "summarize_flags": "flags.cu",
     "gather_pack": "gather_pack.cu",
     "place_rows": "place_rows.cu",

@@ -6,9 +6,10 @@ G-last layout: state peer/ring arrays ``[P, G]`` / ``[W, G]``, inbox
 ``[M, G]`` / ``[M, E, G]``, ``out.buf`` ``[O, N_FIELDS, G]``, see
 ``convert.py``), ``state_to_internal`` / ``inbox_to_internal`` (:1692,
 :1700) and ``make_step_sharded`` (:1707).  On CUDA tensors ``step`` and
-``step_internal`` launch the hand-written kernel ``csrc/raft_step.cu``
-(one thread per row; the row logic compiled once per layout, the
-G-last one in ``csrc/raft_step_internal.cu``) and nothing else —
+``step_internal`` launch the hand-written kernels of ``csrc/raft_step.cu``
+(``raft_step_kernel`` and ``raft_step_internal_kernel``: one thread per
+row, blocks of ``rows_per_block`` rows whose arrays are staged in shared
+memory, one row logic for both layouts) and nothing else —
 ``step_internal`` does not transpose around the external kernel; on CPU
 tensors they run the plain PyTorch versions in ``kernel_ref.py``.  Any
 other device raises.
@@ -22,6 +23,8 @@ for the row.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Tuple
 
 import torch
@@ -35,8 +38,56 @@ from .types import N_FIELDS, DeviceOut, DeviceState, Inbox
 state_to_internal = convert.state_to_internal
 inbox_to_internal = convert.inbox_to_internal
 
-# largest peer-slot count the CUDA kernel's quorum sort holds
+# largest peer-slot count the CUDA kernel takes (its voter bit mask)
 PMAX = 16
+# the H100's streaming multiprocessors, and the shared memory one block
+# can use (232,448 of the SM's 256 KB; NVIDIA's Hopper tuning guide)
+N_SM = 132
+SMEM_MAX = 232_448
+# rows a block of the CUDA kernel may step, one thread each
+ROWS_PER_BLOCK = (32, 64, 128)
+# outbox messages a row the kernel stages in shared memory at most
+STAGED_MAX = 8
+
+
+def staged_messages(O: int) -> int:
+    """Outbox messages a row whose words the kernel stages in its tile
+    (the rest are written straight to device memory)."""
+    return min(O, STAGED_MAX)
+
+
+def smem_bytes(R: int, P: int, W: int, M: int, E: int, O: int,
+               internal: bool = False, staged: int = -1) -> int:
+    """Dynamic shared memory of a block of R rows: the tile of the 8
+    peer and 2 ring arrays (8P + 2W words a row) and the staged outbox
+    messages (``staged``, default ``staged_messages(O)``, N_FIELDS words
+    each) at a stride of R words (G-last) or R + 1 (external: the
+    transposes hit distinct banks), then one word a row for its first
+    occupied inbox slot.  M and E do not count."""
+    K = staged_messages(O) if staged < 0 else staged
+    S = R if internal else R + 1
+    return 4 * (S * (8 * P + 2 * W + K * N_FIELDS) + R)
+
+
+def rows_per_block(G: int, P: int, W: int, M: int, E: int, O: int,
+                   internal: bool = False) -> int:
+    """Rows a block of the CUDA kernel steps: the largest of
+    ``ROWS_PER_BLOCK`` whose tile fits and which still gives every SM a
+    block; where none does (a small G), the smallest that fits.  Raises
+    ``ValueError`` when even 32 rows' tile does not fit."""
+    fit = [R for R in ROWS_PER_BLOCK
+           if smem_bytes(R, P, W, M, E, O, internal) <= SMEM_MAX]
+    if not fit:
+        R = ROWS_PER_BLOCK[0]
+        raise ValueError(
+            f"raft_step: {R} rows of P={P}, W={W} with "
+            f"{staged_messages(O)} staged outbox messages need "
+            f"{smem_bytes(R, P, W, M, E, O, internal)} bytes of shared "
+            f"memory, over the {SMEM_MAX} a block can use")
+    for R in reversed(fit):
+        if -(-G // R) >= N_SM:
+            return R
+    return fit[0]
 
 
 def step(
@@ -67,8 +118,35 @@ def step_internal(
     return _step_cuda(state, inbox, out_capacity, internal=True)
 
 
+def _views(shapes: tuple, dev) -> list:
+    """One int32 allocation cut into contiguous views of ``shapes``, each
+    starting on a 16-byte boundary."""
+    sizes, total, cut = _view_plan(shapes)
+    parts = torch.empty(total, dtype=torch.int32, device=dev).split(sizes)
+    views = []
+    for p, s, n in zip(parts, shapes, cut):
+        if n:
+            p = p[:n]
+        views.append(p if len(s) == 1 else p.view(s))
+    return views
+
+
+@functools.lru_cache(maxsize=64)
+def _view_plan(shapes: tuple):
+    """(each view's words rounded up to 4, their sum, each view's words
+    where it was rounded up, else 0)"""
+    sizes, cut = [], []
+    for s in shapes:
+        n = math.prod(s)
+        sizes.append(n + -n % 4)
+        cut.append(n if n % 4 else 0)
+    return tuple(sizes), sum(sizes), tuple(cut)
+
+
 def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
                internal: bool = False):
+    """Check the operands, allocate the outputs and launch the kernel of
+    either layout."""
     G = state.term.shape[0]
     P = state.peer_id.shape[0 if internal else 1]
     W = state.ring_term.shape[0 if internal else 1]
@@ -81,6 +159,8 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
         raise ValueError(f"{name}: W={W} must be a power of two")
     if O < 1:
         raise ValueError(f"{name}: out_capacity={O} must be >= 1")
+    K = staged_messages(O)
+    R = rows_per_block(G, P, W, M, E, O, internal)
 
     def shape(*dims):  # a per-row array of ``dims`` in this layout
         return (*dims, G) if internal else (G, *dims)
@@ -103,27 +183,14 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
             raise ValueError(f"{name}: inbox.{f} has shape "
                              f"{tuple(getattr(inbox, f).shape)}")
     dev = state.term.device
-    new = DeviceState(*(torch.empty_like(t) for t in state))
-
-    def e(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    out = DeviceOut(
-        buf=e(*shape(O, N_FIELDS)),
-        count=e(G),
-        escalate=e(G),
-        need_snapshot=e(*shape(P)),
-        slot_base=e(*shape(M)),
-        slot_term=e(*shape(M)),
-        ent_drop=e(*shape(M, E)),
-        append_lo=e(G),
-        barrier_idx=e(G),
-        barrier_term=e(G),
-    )
+    new = DeviceState(*_views(tuple(tuple(t.shape) for t in state), dev))
+    out = DeviceOut(*_views((
+        shape(O, N_FIELDS), (G,), (G,), shape(P), shape(M), shape(M),
+        shape(M, E), (G,), (G,), (G,)), dev))
     if G == 0:
         return new, out
     _native.launch(name, list(state), list(new), list(inbox), list(out), G,
-                   P, W, M, E, O)
+                   P, W, M, E, O, R, K)
     return new, out
 
 

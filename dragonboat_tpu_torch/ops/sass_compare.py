@@ -1,16 +1,18 @@
 """Compare the machine code of one kernel source between two trees.
 
     python3 -m dragonboat_tpu_torch.ops.sass_compare OTHER_CSRC \\
-        [--source raft_step.cu] [--diff-dir DIR]
+        [--source raft_step.cu] [--other-source NAME] [--diff-dir DIR]
 
-compiles ``csrc/<source>`` of this package and of ``OTHER_CSRC`` (for
+compiles ``csrc/<source>`` of this package and ``<other-source>``
+(default: the same name) of ``OTHER_CSRC`` (for
 example the ``csrc`` of an earlier commit unpacked with ``git
 archive``) to a cubin with ``nvcc`` (the extension build's flags,
 ``_native.CUDA_FLAGS``, in C++17 as the build compiles), disassembles
 both with ``cuobjdump -sass`` and prints one JSON object: for every
 kernel of either tree its SASS instruction count, registers and stack
-bytes (``cuobjdump -res-usage``), and for each kernel of this tree the
-kernels of the other tree whose machine code is the same, word for word
+bytes (``cuobjdump -res-usage``) and its loads and stores by kind, and
+for each kernel of this tree the kernels of the other tree whose
+machine code is the same, word for word
 (each instruction's encoding and its scheduling word; the kernel's name
 is not part of it, so a renamed kernel still matches).  Kernels of the
 same base name that differ get a unified diff of their instructions in
@@ -85,6 +87,25 @@ def kernels(cubin: Path) -> dict:
     return found
 
 
+_MEM_OPS = ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDL", "STL", "LDGSTS",
+            "LDC")
+
+
+def memory_ops(sass: list) -> dict:
+    """How many of a kernel's instructions are each kind of load and
+    store (LDS/STS shared, LDG/STG global, LD/ST generic, LDL/STL the
+    stack, LDGSTS cp.async, LDC constants)."""
+    n = dict.fromkeys(_MEM_OPS, 0)
+    for ins in sass:
+        op = ins.split()
+        op = op[1] if op and op[0].startswith("@") and len(op) > 1 else (
+            op[0] if op else "")
+        op = op.split(".")[0]
+        if op in n:
+            n[op] += 1
+    return n
+
+
 def base_name(mangled: str) -> str:
     """``_Z16raft_step_kernel...`` -> ``raft_step_kernel``"""
     m = re.match(r"_Z(\d+)", mangled)
@@ -108,23 +129,29 @@ def _diff(a: list, b: list, name_a: str, name_b: str) -> list:
                                              lineterm="", n=2))
 
 
-def compare(other_csrc: Path, source: str, diff_dir=None) -> dict:
+def compare(other_csrc: Path, source: str, diff_dir=None,
+            other_source: str = "") -> dict:
+    other_source = other_source or source
     with tempfile.TemporaryDirectory() as tmp:
         here, there = Path(tmp) / "here.cubin", Path(tmp) / "other.cubin"
         compile_cubin(_native.CSRC, source, here)
-        compile_cubin(other_csrc, source, there)
+        compile_cubin(other_csrc, other_source, there)
         mine, theirs = kernels(here), kernels(there)
-    report = {"source": source, "flags": list(_native.CUDA_FLAGS),
-              "kernels": {}, "other_kernels": {}}
+    report = {"source": source, "other_source": other_source,
+              "flags": list(_native.CUDA_FLAGS),
+              "kernels": {}, "other_kernels": {}, "memory_ops": {},
+              "other_memory_ops": {}}
     for name, k in theirs.items():
         report["other_kernels"][name] = dict(
             instructions=len(k["sass"]), regs=k.get("regs"),
             stack=k.get("stack"))
+        report["other_memory_ops"][name] = memory_ops(k["sass"])
     for name, k in mine.items():
         same = [o for o, ko in theirs.items() if ko["code"] == k["code"]]
         report["kernels"][name] = dict(
             instructions=len(k["sass"]), regs=k.get("regs"),
             stack=k.get("stack"), identical_to=same)
+        report["memory_ops"][name] = memory_ops(k["sass"])
         if same or diff_dir is None:
             continue
         for o, ko in theirs.items():
@@ -144,9 +171,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other_csrc", type=Path)
     ap.add_argument("--source", default="raft_step.cu")
+    ap.add_argument("--other-source", default="")
     ap.add_argument("--diff-dir", default=None)
     args = ap.parse_args(argv)
-    print(json.dumps(compare(args.other_csrc, args.source, args.diff_dir)))
+    print(json.dumps(compare(args.other_csrc, args.source, args.diff_dir,
+                             args.other_source)))
     return 0
 
 

@@ -1,18 +1,24 @@
-"""The CUDA kernels' row logic, built as host C++, against the plain versions.
+"""The CUDA kernels' block and row logic, built as host C++, against the plain versions.
 
 ``csrc/raft_step.cu`` and ``csrc/xlane.cu`` compile as plain C++ when
-there is no CUDA compiler: then only their per-row logic is built
-(``dbt::ext::step_row``, ``dbt::gl::step_row`` — the file included a
-second time with ``DBT_STEP_GL`` — ``dbt::xlane_row``,
-``dbt::xlane_scatter_row``).
+there is no CUDA compiler: then the raft step's block phases
+(``dbt::step_load``, ``step_prefill``, ``step_rows``, ``step_store``, for
+either layout) and the lane's per-row logic (``dbt::xlane_row``,
+``dbt::xlane_scatter_row``) are host functions.
 This file builds a small ``extern "C"`` shim around that logic with g++
 into ``tmp_path``, calls it through ``ctypes`` and holds it against the
 plain PyTorch versions on seeded inputs:
 
-* the raft step in BOTH layouts: the external row logic against
-  ``kernel_ref.step``, the G-last one against ``kernel_ref.step_internal``
-  on the same rows, on a seeded cluster state under seeded fuzz inboxes
-  over every hot message type;
+* the raft step in BOTH layouts, block by block as the kernel runs it
+  (every thread's load, then every thread's prefill, then every row's
+  logic, then every thread's store, on a poisoned tile): the external
+  kernel against ``kernel_ref.step``, the G-last one against
+  ``kernel_ref.step_internal`` on the same rows, on a seeded cluster
+  state under seeded fuzz inboxes over every hot message type, at 32 and
+  128 rows a block, with ragged last blocks, a G that is not a multiple
+  of 4 and P up to 16;
+* the quorum index counted without an array against the insertion sort
+  it replaces, exhaustively over small P;
 * the lane's pack (the count pass, the scan, the write pass and the
   zero fill, in the kernel's order) against ``route_ref.lane_pack`` and
   its scatter against ``route_ref.lane_scatter``, on the lane fuzz of
@@ -26,6 +32,7 @@ with the card; the CUDA launch itself runs only on the card
 from __future__ import annotations
 
 import ctypes
+import itertools
 import shutil
 import subprocess
 
@@ -36,6 +43,7 @@ import chip_smoke
 import test_torch_mesh as TM
 from dragonboat_tpu_torch.ops import _native
 from dragonboat_tpu_torch.ops import convert
+from dragonboat_tpu_torch.ops import kernel as PK
 from dragonboat_tpu_torch.ops import kernel_ref
 from dragonboat_tpu_torch.ops import route as PRt
 from dragonboat_tpu_torch.ops import route_ref
@@ -43,27 +51,85 @@ from dragonboat_tpu_torch.ops import types as PT
 
 torch = convert.torch
 SEED = 20261018
+POISON = -0x5EED
 
 SHIM = r"""
-#include "raft_step.cu"
-#define DBT_STEP_GL 1
+#include <algorithm>
+#include <cstddef>
+#include <vector>
+
 #include "raft_step.cu"
 #include "xlane.cu"
+
+template <bool GL>
+static void run_blocks(dbt::StepArgs& a) {
+  std::vector<int> tile((size_t)a.S * a.T() + a.R);
+  const int blocks = (a.G + a.R - 1) / a.R;
+  for (int b = 0; b < blocks; ++b) {
+    std::fill(tile.begin(), tile.end(), -0x5EED);
+    for (int t = 0; t < a.R; ++t) dbt::step_load<GL>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t) dbt::step_prefill<GL>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t) dbt::step_rows<GL>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t) dbt::step_store<GL>(a, tile.data(), b, t);
+  }
+}
+
+// the quorum index as the kernel computed it before: an insertion sort
+static int quorum_sorted(const dbt::Row& r) {
+  int s[16], n_voters = 0;
+  for (int p = 0; p < r.P; ++p) {
+    const int id = r.pa(dbt::PA_ID, p), kind = r.pa(dbt::PA_KIND, p);
+    const bool voter = id != 0 && (kind == dbt::KIND_VOTER ||
+                                   kind == dbt::KIND_WITNESS);
+    n_voters += voter ? 1 : 0;
+    int v = voter ? r.pa(dbt::PA_MATCH, p) : -1;
+    int j = p;
+    while (j > 0 && s[j - 1] > v) {
+      s[j] = s[j - 1];
+      --j;
+    }
+    s[j] = v;
+  }
+  int k = r.P - (n_voters / 2 + 1);
+  return (k >= 0 && k < r.P) ? s[k] : 0;
+}
 
 extern "C" {
 
 void host_step(const int* const* st_in, int* const* st_out,
                const int* const* ib, int* const* out, int G, int P, int W,
-               int M, int E, int O, int internal) {
+               int M, int E, int O, int internal, int R, int K) {
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
   for (int f = 0; f < dbt::N_INBOX; ++f) a.ib[f] = ib[f];
   for (int f = 0; f < dbt::N_OUT; ++f) a.out[f] = out[f];
-  a.G = G; a.P = P; a.W = W; a.M = M; a.E = E; a.O = O;
-  for (int g = 0; g < G; ++g) {
-    if (internal) dbt::gl::step_row(a, g);
-    else dbt::ext::step_row(a, g);
+  dbt::step_args_init(a, G, P, W, M, E, O, internal, R, K);
+  if (internal)
+    run_blocks<true>(a);
+  else
+    run_blocks<false>(a);
+}
+
+// n cases of P slots each: out[2c] the counted index, out[2c+1] the sorted
+void host_quorum(const int* peer_id, const int* kind, const int* match,
+                 int P, int n, int* out) {
+  std::vector<int> col(8 * P, 0);
+  dbt::Row r;
+  r.P = P;
+  r.S = 1;
+  r.tt = col.data();
+  r.self_slot = 0;
+  r.replica_id = 1;
+  for (int c = 0; c < n; ++c) {
+    for (int p = 0; p < P; ++p) {
+      r.pa(dbt::PA_ID, p) = peer_id[c * P + p];
+      r.pa(dbt::PA_KIND, p) = kind[c * P + p];
+      r.pa(dbt::PA_MATCH, p) = match[c * P + p];
+    }
+    r.read_peers();
+    out[2 * c] = r.quorum_index();
+    out[2 * c + 1] = quorum_sorted(r);
   }
 }
 
@@ -125,6 +191,7 @@ def shim(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     so.host_step.restype = None
+    so.host_quorum.restype = None
     so.host_xlane_pack.restype = None
     so.host_xlane_scatter.restype = None
     return so
@@ -141,8 +208,11 @@ def _ints(*vals):
     return [ctypes.c_int(int(v)) for v in vals]
 
 
-def host_step(so, st: dict, ib: dict, O: int, internal: bool):
-    """The shim's step on numpy fields of either layout."""
+def host_step(so, st: dict, ib: dict, O: int, internal: bool, R: int = 32,
+              K: int = 8):
+    """The shim's step on numpy fields of either layout, blocks of R
+    rows; every output starts poisoned, so a word the kernel leaves
+    unwritten shows."""
     G = st["term"].shape[0]
     ax = 0 if internal else 1
     P, W = st["peer_id"].shape[ax], st["ring_term"].shape[ax]
@@ -150,7 +220,7 @@ def host_step(so, st: dict, ib: dict, O: int, internal: bool):
     E = ib["ent_term"].shape[1 if internal else 2]
     st_in = [np.ascontiguousarray(st[f]) for f in PT.DeviceState._fields]
     ib_in = [np.ascontiguousarray(ib[f]) for f in PT.Inbox._fields]
-    st_out = [np.empty_like(a) for a in st_in]
+    st_out = [np.full_like(a, POISON) for a in st_in]
 
     def shape(*dims):
         return (*dims, G) if internal else (G, *dims)
@@ -161,29 +231,33 @@ def host_step(so, st: dict, ib: dict, O: int, internal: bool):
         "slot_term": shape(M), "ent_drop": shape(M, E), "append_lo": (G,),
         "barrier_idx": (G,), "barrier_term": (G,),
     }
-    outs = [np.empty(out[f], np.int32) for f in PT.DeviceOut._fields]
+    outs = [np.full(out[f], POISON, np.int32) for f in PT.DeviceOut._fields]
     so.host_step(_ptrs(st_in), _ptrs(st_out), _ptrs(ib_in), _ptrs(outs),
-                 *_ints(G, P, W, M, E, O, internal))
+                 *_ints(G, P, W, M, E, O, internal, R, K))
     return (dict(zip(PT.DeviceState._fields, st_out)),
             dict(zip(PT.DeviceOut._fields, outs)))
 
 
-@pytest.mark.parametrize("seed", range(2))
-def test_step_row_both_layouts_match_plain_versions(shim, seed):
+def _padded_cluster(G: int, P: int, W: int, seed: int) -> dict:
+    """``chip_smoke.cluster_state_np`` on the first G - G % 3 rows, then
+    empty rows (no peers), as an engine's unused capacity holds."""
+    return chip_smoke.padded_cluster_np(G, P, W, seed)
+
+
+def _run_steps(shim, seed, G, P, W, M, E, O, R, K, n_steps, n_routed):
     rng = np.random.default_rng(SEED + seed)
-    P, W, M, E, O = 5, 32, 8, 4, 32
-    G = 48
-    ext = chip_smoke.cluster_state_np(G, P, W, SEED + seed)
+    ext = _padded_cluster(G, P, W, SEED + seed)
     out_np = {"buf": np.zeros((G, O, PT.N_FIELDS), np.int32),
               "count": np.zeros((G,), np.int32)}
-    for k in range(16):
+    leaders = 0
+    for k in range(n_steps):
         # routed steps first (elections and commits), then fuzz
-        ib_ext = (chip_smoke.route_np(ext, out_np, rng, M, E) if k < 12
-                  else chip_smoke.fuzz_inbox_np(ext, rng, M, E))
+        ib_ext = (chip_smoke.route_np(ext, out_np, rng, M, E)
+                  if k < n_routed else chip_smoke.fuzz_inbox_np(ext, rng, M, E))
         st_t = convert.state_from_numpy(ext, "cpu")
         ib_t = convert.inbox_from_numpy(ib_ext, "cpu")
         want_st, want_out = kernel_ref.step(st_t, ib_t, O)
-        got_st, got_out = host_step(shim, ext, ib_ext, O, internal=False)
+        got_st, got_out = host_step(shim, ext, ib_ext, O, False, R, K)
         TM.assert_fields_equal(convert.to_numpy(want_st), got_st,
                                f"external state step {k}")
         TM.assert_fields_equal(convert.to_numpy(want_out), got_out,
@@ -193,15 +267,140 @@ def test_step_row_both_layouts_match_plain_versions(shim, seed):
         wi_st, wi_out = kernel_ref.step_internal(
             convert.state_from_numpy(ist, "cpu"),
             convert.inbox_from_numpy(iib, "cpu"), O)
-        gi_st, gi_out = host_step(shim, ist, iib, O, internal=True)
+        gi_st, gi_out = host_step(shim, ist, iib, O, True, R, K)
         TM.assert_fields_equal(convert.to_numpy(wi_st), gi_st,
                                f"internal state step {k}")
         TM.assert_fields_equal(convert.to_numpy(wi_out), gi_out,
                                f"internal out step {k}")
         ext, out_np = got_st, got_out
-        if k == 11:  # the routed steps elected leaders
+        if k == n_routed - 1:  # the routed steps elected leaders
             leaders = int((ext["role"] == PT.ROLE_LEADER).sum())
+    return leaders
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_step_row_both_layouts_match_plain_versions(shim, seed):
+    G = 48
+    leaders = _run_steps(shim, seed, G, 5, 32, 8, 4, 32, R=32, K=8,
+                         n_steps=16, n_routed=12)
     assert leaders >= G // 6, leaders
+
+
+# (G, P, W, M, E, O, R, K staged messages): one ragged block of 128, no
+# message staged; a G that is not a multiple of 4 (the G-last kernel's
+# word copies) in a ragged second block, 3 staged; P = 16, every message
+# staged; bench phase A's widths in blocks of 64
+BLOCK_CASES = [
+    (48, 5, 32, 8, 4, 32, 128, 0),
+    (51, 5, 32, 8, 4, 32, 32, 3),
+    (45, 16, 16, 6, 2, 8, 32, 8),
+    (99, 3, 8, 12, 1, 8, 64, 8),
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=[f"G{c[0]}-P{c[1]}-R{c[6]}-K{c[7]}"
+                              for c in BLOCK_CASES])
+def test_step_blocks_match_plain_versions(shim, case):
+    G, P, W, M, E, O, R, K = case
+    _run_steps(shim, 7, G, P, W, M, E, O, R=R, K=K, n_steps=10, n_routed=7)
+
+
+def _quorum_cases(P: int):
+    """Every mix of empty, voter, non-voting and witness slots with match
+    values in {0, 1, 2}: (peer_id, kind, match), each [n, P]."""
+    slot = [(0, PT.KIND_VOTER), (1, PT.KIND_VOTER),
+            (1, PT.KIND_NON_VOTING), (1, PT.KIND_WITNESS)]
+    kinds = np.array(list(itertools.product(range(4), repeat=P)), np.int32)
+    match = np.array(list(itertools.product(range(3), repeat=P)), np.int32)
+    ki = np.repeat(kinds, len(match), axis=0)
+    mi = np.tile(match, (len(kinds), 1))
+    pid = np.array([s[0] for s in slot], np.int32)[ki] * (
+        np.arange(P, dtype=np.int32) + 1)
+    kind = np.array([s[1] for s in slot], np.int32)[ki]
+    return pid, kind, mi
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5])
+def test_quorum_count_matches_insertion_sort(shim, P):
+    pid, kind, match = _quorum_cases(P)
+    n = pid.shape[0]
+    res = np.empty((n, 2), np.int32)
+    arrays = [np.ascontiguousarray(a) for a in (pid, kind, match)]
+    shim.host_quorum(*[ctypes.c_void_p(a.ctypes.data) for a in arrays],
+                     *_ints(P, n), ctypes.c_void_p(res.ctypes.data))
+    assert np.array_equal(res[:, 0], res[:, 1])
+    # numpy's sort agrees with the insertion sort
+    voter = (pid != 0) & ((kind == PT.KIND_VOTER) | (kind == PT.KIND_WITNESS))
+    q = voter.sum(1) // 2 + 1
+    s = np.sort(np.where(voter, match, -1), axis=1)
+    assert np.array_equal(res[:, 1], s[np.arange(n), P - q])
+    none = voter.sum(1) == 0  # no voter at all: -1, as the sort gives
+    assert none.any() and (res[none, 0] == -1).all()
+    assert (voter.sum(1) == P).any()
+
+
+def test_quorum_count_matches_insertion_sort_wide(shim):
+    rng = np.random.default_rng(SEED)
+    P, n = 16, 20_000
+    pid = np.where(rng.random((n, P)) < 0.2, 0,
+                   np.arange(1, P + 1, dtype=np.int32)).astype(np.int32)
+    kind = rng.integers(0, 3, (n, P)).astype(np.int32)
+    match = rng.integers(-3, 6, (n, P)).astype(np.int32)
+    res = np.empty((n, 2), np.int32)
+    shim.host_quorum(*[ctypes.c_void_p(a.ctypes.data)
+                       for a in (pid, kind, match)],
+                     *_ints(P, n), ctypes.c_void_p(res.ctypes.data))
+    assert np.array_equal(res[:, 0], res[:, 1])
+
+
+# the geometries the main paths launch at: (G, P, W, M, E, O, internal)
+# -> rows a block
+GEOMETRIES = [
+    ((30_000, 5, 32, 8, 4, 32, False), 128),   # the kernels phase
+    ((300_000, 3, 8, 12, 1, 8, True), 128),    # bench phase A
+    ((512, 5, 32, 8, 4, 32, False), 32),       # NodeHost's engine
+    ((4096, 3, 16, 20, 4, 32, False), 32),     # the colocated engine
+    ((37_500, 3, 16, 14, 2, 16, False), 128),  # multichip leg 2, a block
+]
+
+
+@pytest.mark.parametrize("geom,R", GEOMETRIES,
+                         ids=[f"G{g[0][0]}" for g in GEOMETRIES])
+def test_rows_per_block_at_the_main_paths(geom, R):
+    assert PK.rows_per_block(*geom) == R
+    assert PK.smem_bytes(R, *geom[1:]) <= PK.SMEM_MAX
+    G = geom[0]
+    assert -(-G // R) >= PK.N_SM or R == PK.ROWS_PER_BLOCK[0]
+
+
+def test_rows_per_block_raises_above_the_limit():
+    # P = 16, W = 1024: 32 rows need more shared memory than a block has
+    with pytest.raises(ValueError, match=str(PK.SMEM_MAX)):
+        PK.rows_per_block(10_000, 16, 1024, 8, 4, 32)
+    # W = 512 at P = 16 still fits blocks of 32 rows, not of 64
+    assert PK.rows_per_block(10_000, 16, 512, 8, 4, 32) == 32
+    assert PK.smem_bytes(64, 16, 512, 8, 4, 32) > PK.SMEM_MAX
+
+
+@pytest.mark.parametrize("G", [0, 1, 7, 48])
+def test_output_views_are_aligned_and_disjoint(G):
+    # the wrapper's outputs: one allocation, cut into contiguous views
+    # that each start on a 16-byte boundary and overlap no other
+    shapes = ((G, 32, PT.N_FIELDS), (G,), (G,), (G, 5), (G, 8), (G, 8),
+              (G, 8, 4), (G,), (G,), (G,))
+    views = PK._views(shapes, "cpu")
+    assert [tuple(v.shape) for v in views] == [tuple(s) for s in shapes]
+    base = views[0].untyped_storage().data_ptr()
+    spans = []
+    for v in views:
+        assert v.is_contiguous() and v.dtype == torch.int32
+        assert v.untyped_storage().data_ptr() == base  # one allocation
+        off = v.storage_offset()
+        assert off % 4 == 0
+        spans.append((off, off + v.numel()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
 def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB):

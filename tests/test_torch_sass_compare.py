@@ -133,3 +133,12 @@ def test_compare_matches_word_for_word_across_names(
     elif ext_body is BODY_CTRL:
         # the instruction text is the same: the diff has no changed line
         assert ext["diff_lines"] == {OLD: 0}
+
+
+def test_memory_ops_counts_loads_and_stores_by_kind():
+    sass = ["LDS.U R1, [R2]", "@P0 STG.E [R2.64], R3", "IMAD R1, R2, R3",
+            "@!P1 LDGSTS.E [R1], [R2.64]", "LD.E R1, [R2.64]",
+            "STS.128 [R1], R4", "LDL R1, [R1]"]
+    n = S.memory_ops(sass)
+    assert {k: v for k, v in n.items() if v} == dict(
+        LDS=1, STG=1, LDGSTS=1, LD=1, STS=1, LDL=1)
