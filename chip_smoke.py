@@ -26,16 +26,22 @@ Phases, each printing one JSON line:
                E=4, O=32, budget 4, assembled M = P*4 + 8, the fixed
                capacity tiers) on states advanced by the port's own
                fused_rounds over build_route_tables of the 10k x 3 layout;
-               then timed the same way.
+               then timed the same way; route also at the colocated
+               engine's capacity (G = 4096, P=3, W=16), each with its
+               kernels' device split (the profiler's time by kernel).
 4. mesh_kernels — raft_step_internal (raft_step.cu's G-last kernel)
                bit-exact against its plain version at bench phase A's
                geometry, G = 300,000 rows (100k groups x 3;
                P=3, W=8, M=12, E=1, O=8) on states advanced by the tick
                loop and under seeded fuzz inboxes; xlane_pack and
                xlane_scatter bit-exact against theirs at multichip leg
-               2's geometry (150,000 rows on a mesh of 4 blocks); each
-               timed, with the external raft_step at the same 300,000
-               rows beside raft_step_internal.
+               2's geometry (150,000 rows on a mesh of 4 blocks), the
+               pack also at an undersized lane budget (so that the lane
+               drops), and route on leg 2's first block as its sharded
+               round runs it (local tables, tick and propose prefill);
+               each timed, the pack and route with their kernels'
+               device split, with the external raft_step at the same
+               300,000 rows beside raft_step_internal.
 5. phase_a   — the reference bench's phase A loop on step_internal: the
                300,000 rows stay on the card in the G-last layout, 12
                slots of 32 fused ticks per launch; group ticks per second
@@ -357,9 +363,9 @@ def ptxas_report(log: str) -> dict:
     names = ("raft_step_internal_kernel", "raft_step_kernel",
              "summarize_flags_kernel", "gather_pack_kernel",
              "place_rows_kernel", "place_snapshot_kernel",
-             "route_send_kernel", "route_recv_kernel", "inbox_kernel",
+             "route_walk_kernel", "route_recv_kernel", "inbox_kernel",
              "select_rows_kernel", "blob_kernel", "xlane_count_kernel",
-             "xlane_scan_kernel", "xlane_write_kernel", "xlane_zero_kernel",
+             "xlane_scan_kernel", "xlane_write_kernel",
              "xlane_scatter_kernel")
     rep, cur = {}, None
     for ln in log.splitlines():
@@ -387,8 +393,95 @@ def ptxas_numbers(lines) -> dict:
                 static_smem=num(r"(\d+) bytes smem") or 0)
 
 
+def kernel_split(fn, reps: int = 20) -> dict:
+    """Device ms per call of ``fn``, kernel by kernel: the profiler's
+    CUDA kernel, memset and copy durations over ``reps`` calls, summed by
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"\w+_kernel", e.name)
+        name = m.group(0) if m else e.name
+        us[name] = us.get(name, 0.0) + e.time_range.elapsed_us()
+    return {k: v / reps / 1e3 for k, v in sorted(us.items())}
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def lane_pack_work(out, xbuf) -> dict:
+    """What ``xlane_pack`` must read of this run's inputs: the valid
+    outbox slots of the unsuppressed rows, the rows holding one, and the
+    ring words (term, cc) of the entries the packed REPLICATEs carry,
+    read from the packed rows of ``xbuf`` [D, XB, KT]."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+
+    KT = xbuf.shape[2]
+    n_valid = torch.where(out.escalate == 0,
+                          out.count.clamp(0, out.buf.shape[1]),
+                          torch.zeros_like(out.count))
+    packed = xbuf.reshape(-1, KT)
+    carried = ((packed[:, route_ref.XI_FOUND] != 0)
+               & (packed[:, 0] == T.MT_REPLICATE))
+    E_ = (KT - route_ref.X_KF) // 2
+    return dict(pack_valid_slots=int(n_valid.sum()),
+                pack_live_rows=int((n_valid > 0).sum()),
+                pack_ring_words=2 * int(packed[carried, 8].clamp(0, E_).sum()))
+
+
+def lane_pack_bound_ms(out, xbuf, P_: int) -> float:
+    """``xlane_pack``'s bound at this run's inputs, the least it must
+    move: ``lane_pack_work``'s valid slots (11 words each) and ring
+    words; every row's count and suppress words; the peer ids, the three
+    tables and the three row scalars of each row with a valid slot; and
+    the D-1 blocks of ``xbuf`` that the ring shifts send (the own block
+    is never sent)."""
+    from dragonboat_tpu_torch.ops import types as T
+
+    D, XB, KT = xbuf.shape
+    w = lane_pack_work(out, xbuf)
+    return bound_ms(4 * (
+        w["pack_valid_slots"] * T.N_FIELDS + 2 * out.count.numel()
+        + w["pack_live_rows"] * (4 * P_ + 3) + w["pack_ring_words"]
+        + (D - 1) * XB * KT))
+
+
+def route_bound_ms(out, delivered, P_: int, M_: int, E_: int, *,
+                   bits: bool) -> float:
+    """``route``'s bound at this run's inputs: the valid messages (11
+    words each); each row's count, suppress word, alive word and four
+    row scalars; the peer ids and the two tables; the ring words (term,
+    cc) of the REPLICATE entries delivered; the inbox it writes
+    (G*M*(10+2E) words) and, with ``bits``, the packed delivered bits
+    and the undelivered word."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import types as T
+
+    G, O_ = out.buf.shape[:2]
+    n_msgs = int(out.count.clamp(0, O_).sum())
+    repl_ents = int(torch.where(
+        delivered & (out.buf[:, :, T.F_MTYPE] == T.MT_REPLICATE),
+        out.buf[:, :, T.F_N_ENTRIES].clamp(0, E_), 0).sum())
+    words = (n_msgs * T.N_FIELDS + G * (1 + 4 + 2) + G * P_ * 3
+             + 2 * repl_ents + G * M_ * (10 + 2 * E_))
+    if bits:
+        words += G * ((O_ + 31) // 32) + G
+    return bound_ms(4 * words)
 
 
 def step_bound_ms(st, ib, out, E_: int) -> float:
@@ -776,15 +869,7 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
     plain_ms["route"] = time_ms(lambda: route_ref.route(
         merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
         suppress=esc, dest_alive=alive), 5)
-    # ring words of the REPLICATE entries this run delivers
-    repl_ents = int(torch.where(
-        route_deliv & (out.buf[:, :, T.F_MTYPE] == T.MT_REPLICATE),
-        out.buf[:, :, T.F_N_ENTRIES].clamp(0, E), 0).sum())
-    # sent messages (11 words) and their rows' state and tables in; the
-    # inbox, the bits and the undelivered word out
-    bound["route"] = bound_ms(4 * (
-        n_msgs * T.N_FIELDS + G * (1 + 4 + 2) + G * P * 3 + 2 * repl_ents
-        + G * PB * row_w + G * ((O + 31) // 32) + G))
+    bound["route"] = route_bound_ms(out, route_deliv, P, PB, E, bits=True)
     lib_ms["route"] = None
     ms["assemble_inbox"] = time_ms(
         lambda: C._assemble_inbox(host, pending, combo), 50)
@@ -834,9 +919,110 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
         "select_and_blob": device_ms(lambda: C._select_and_blob(
             merged, out, stats6, packed, flags, combo, **kw)),
     }
+    # route at the colocated engine's capacity beside these 30,000 rows,
+    # each with its kernels' device split
+    geoms = {"C30000": dict(
+        rows=G, P=P, O=O, M=PB, base=0, ms=ms["route"],
+        device_ms=dev_ms["route"], bound_ms=bound["route"],
+        split=kernel_split(lambda: R.route_cuda(
+            merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
+            suppress=out.escalate, alive=combo, alive_stride=4, packed=pk,
+            undeliv=und)))}
+    c4 = colo_route_case(dev, 4096, 3, 16)
+    c4_fn, c4_err, c4_bound = colo_route_check(c4)
+    errs["route"] = max(errs["route"], c4_err)
+    checks["route"] += 1
+    geoms["G4096"] = dict(
+        rows=4096, P=3, O=O, M=c4["PB"], base=0, max_abs_err=c4_err,
+        ms=time_ms(c4_fn, 50), device_ms=device_ms(c4_fn),
+        bound_ms=c4_bound, split=kernel_split(c4_fn))
+    if c4_err:
+        raise AssertionError(f"route at G = 4096 disagrees: {c4_err}")
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                  library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0)
+                  library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0,
+                  route_geometries=geoms, max_abs_err=errs, checks=checks)
     return result
+
+
+def colo_route_case(dev, G: int, P_: int, W_: int, waves: int = 6) -> dict:
+    """A colocated route call's inputs at G rows of P_ peer slots (the
+    kernels phase's widths otherwise): a padded seeded cluster advanced
+    by ``waves`` waves of 3 fused rounds over ``build_route_tables``, then
+    one step; the merged state, its outbox, the tables and a [G, 4] combo
+    whose alive lane drops 3% of the rows."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import colocated as C
+    from dragonboat_tpu_torch.ops import convert, plumbing
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+
+    B, MH = BUDGET_K, M_HOST_K
+    PB = P_ * B
+    st_np = padded_cluster_np(G, P_, W_, SEED + G)
+    dest_np, rank_np = R.build_route_tables(
+        st_np["shard_id"], st_np["replica_id"], st_np["peer_id"])
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    dest, rank = put(dest_np), put(rank_np)
+    st = convert.state_from_numpy(st_np, dev)
+    inbox = route_ref.make_prefill(st, MH + PB, E)
+    for w in range(waves):
+        st, inbox, _s, _n = R.fused_rounds(
+            st, inbox, dest, rank, rounds=3, out_capacity=O, budget=B,
+            base=MH, propose_leaders=w >= waves // 2)
+    new, out = K.step(st, inbox, O)
+    merged = T.DeviceState(*plumbing.select_escalated(
+        out.escalate, list(st), list(new)))
+    rng = np.random.default_rng(SEED + G + 5)
+    combo = np.zeros((G, 4), np.int32)
+    combo[:, C._C_ALIVE] = rng.random(G) < 0.97
+    return dict(merged=merged, out=out, dest=dest, rank=rank,
+                combo=put(combo), P=P_, PB=PB, B=B)
+
+
+def colo_route_check(c: dict):
+    """The colocated route call on case ``c`` (``colo_route_case``):
+    (the call, its max abs error against the plain version on every
+    output, its bound)."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import colocated as C
+    from dragonboat_tpu_torch.ops import colocated_ref as CR
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+
+    merged, out, dest, rank, combo = (c[k] for k in (
+        "merged", "out", "dest", "rank", "combo"))
+    G, O_ = out.buf.shape[:2]
+    pk = torch.empty((G, (O_ + 31) // 32), dtype=torch.int32,
+                     device=combo.device)
+    und = torch.empty((G,), dtype=torch.int32, device=combo.device)
+
+    def fn():
+        return R.route_cuda(
+            merged, out, dest, rank, M=c["PB"], E=E, budget=c["B"], base=0,
+            suppress=out.escalate, alive=combo, alive_stride=4, packed=pk,
+            undeliv=und)
+
+    got_ib, got_st, _ = fn()
+    ib, st, deliv = route_ref.route(
+        merged, out, dest, rank, M=c["PB"], E=E, budget=c["B"], base=0,
+        suppress=out.escalate != 0, dest_alive=combo[:, C._C_ALIVE] != 0)
+    valid = (torch.arange(O_, device=combo.device)[None, :]
+             < out.count[:, None])
+    want_und = (valid & ~deliv).any(dim=1).to(torch.int32)
+    n_sup = (out.escalate != 0).sum(dtype=torch.int32).view(1)
+    err = _max_err(
+        list(got_ib) + [got_st, pk, und],
+        list(ib) + [torch.cat([st, n_sup]), CR.pack_delivered(deliv),
+                    want_und])
+    return fn, err, route_bound_ms(out, deliv, c["P"], c["PB"], E,
+                                   bits=True)
 
 
 # ---------------------------------------------------------------------------
@@ -939,6 +1125,36 @@ def leg2_inputs(dev, groups: int = X_GROUPS, n_dev: int = X_DEVICES):
                 dest=put(dest), rank=put(rank), state=st, inbox=ib)
 
 
+def leg2_lane_case(dev, warm_rounds: int = 20) -> dict:
+    """Leg 2's rows after ``warm_rounds`` routed rounds on the card (mid
+    election and commit), stepped once more and merged: the merged state,
+    its outbox, the mesh tables and a fresh prefill, each cut into the
+    4 devices' blocks (``st_b``, ``out_b``, ``tab_b`` = (dest_local,
+    dest_dev, rank) a block, ``ib_b``), the mesh and the lane budget."""
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import plumbing
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+    from dragonboat_tpu_torch.ops import types as T
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    x = leg2_inputs(dev)
+    xs, xi = x["state"], x["inbox"]
+    for _ in range(warm_rounds):
+        xs, xi, _s, _n = R.routed_round(
+            xs, xi, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
+            base=X_BASE, propose_leaders=True)
+    new, out = K.step(xs, xi, X_O)
+    merged = T.DeviceState(*plumbing.select_escalated(
+        out.escalate, list(xs), list(new)))
+    mesh = GroupsMesh([dev] * X_DEVICES)
+    return dict(
+        G=x["G"], xbudget=x["xbudget"], mesh=mesh,
+        st_b=mesh.shard(merged).parts, out_b=mesh.shard(out).parts,
+        tab_b=list(zip(*(mesh.shard(t).parts for t in x["tabs"]))),
+        ib_b=mesh.shard(route_ref.make_prefill(merged, X_M, X_E)).parts)
+
+
 def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
                        warm_rounds: int = 20) -> dict:
     """``raft_step_internal`` bit-exact against its plain version at bench
@@ -951,16 +1167,15 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
     ``raft_step`` at the same 300,000 rows."""
     import torch
 
-    from dragonboat_tpu_torch.ops import convert, kernel_ref, plumbing
+    from dragonboat_tpu_torch.ops import convert, kernel_ref
     from dragonboat_tpu_torch.ops import kernel as K
     from dragonboat_tpu_torch.ops import route as R
     from dragonboat_tpu_torch.ops import route_ref
     from dragonboat_tpu_torch.ops import types as T
-    from dragonboat_tpu_torch.ops.placement import GroupsMesh
 
     rng = np.random.default_rng(SEED + 3)
-    errs = {k: 0 for k in MESH_KERNEL_INFO}
-    checks = {k: 0 for k in MESH_KERNEL_INFO}
+    errs = {k: 0 for k in (*MESH_KERNEL_INFO, "route")}
+    checks = {k: 0 for k in (*MESH_KERNEL_INFO, "route")}
 
     def check(name, got, want):
         errs[name] = max(errs[name], _max_err(got, want))
@@ -989,21 +1204,11 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
                      escalations=esc)
 
     # ---- the lane at leg 2's geometry ------------------------------------
-    x = leg2_inputs(dev)
-    Gx, xb = x["G"], x["xbudget"]
-    xs, xi = x["state"], x["inbox"]
-    for _ in range(warm_rounds):
-        xs, xi, _s, _n = R.routed_round(
-            xs, xi, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
-            base=X_BASE, propose_leaders=True)
-    new, out = K.step(xs, xi, X_O)
-    merged = T.DeviceState(*plumbing.select_escalated(
-        out.escalate, list(xs), list(new)))
-    mesh = GroupsMesh([dev] * X_DEVICES)
-    st_b = mesh.shard(merged).parts
-    out_b = mesh.shard(out).parts
-    tab_b = list(zip(*(mesh.shard(t).parts for t in x["tabs"])))
-    ib_b = mesh.shard(route_ref.make_prefill(merged, X_M, X_E)).parts
+    lc = leg2_lane_case(dev, warm_rounds)
+    Gx, xb = lc["G"], lc["xbudget"]
+    st_b, out_b, tab_b, ib_b = (lc[k] for k in ("st_b", "out_b", "tab_b",
+                                                "ib_b"))
+    mesh = lc["mesh"]
     xbufs, lane = [], []
     for d in range(X_DEVICES):
         kw = dict(me=d, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
@@ -1026,9 +1231,43 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
               list(want_ib) + [n.view(1)])
         lane[d] = stats
     lane_np = torch.stack(lane).cpu().numpy()
+    # the same block with an undersized lane: half the fullest edge's
+    # messages, so that the lane drops some
+    d0 = 0
+    xb_small = max(1, int(xbufs[d0][:, :, route_ref.XI_FOUND].sum(1).max())
+                   // 2)
+    kw_small = dict(me=d0, n_dev=X_DEVICES, E=X_E, budget=X_BUD,
+                    xbudget=xb_small, suppress=out_b[d0].escalate)
+    got = R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw_small)
+    check("xlane_pack", list(got),
+          list(route_ref.lane_pack(st_b[d0], out_b[d0], *tab_b[d0],
+                                   **kw_small)))
+    small_dropped = int(got[1][3])
+    xbuf_small = got[0]
+    # route on the same block as the sharded round runs it: the local
+    # view of the tables, the tick and propose prefill, escalated rows
+    # suppressed (merge_and_route)
+    local = torch.where(tab_b[d0][1] == d0, tab_b[d0][0], -1).to(torch.int32)
+    x_args = (st_b[d0], out_b[d0], local, tab_b[d0][2])
+    x_kw = dict(M=X_M, E=X_E, budget=X_BUD, base=X_BASE)
+
+    def x_route(delivered=False):
+        return R.route_cuda(*x_args, **x_kw, suppress=out_b[d0].escalate,
+                            prefill=(True, True, 1), delivered=delivered)
+
+    got_ib, got_st, got_deliv = x_route(True)
+    want_ib, want_st, want_deliv = route_ref.route(
+        *x_args, **x_kw, suppress=out_b[d0].escalate != 0,
+        base_inbox=route_ref.make_prefill(st_b[d0], X_M, X_E,
+                                          propose_leaders=True))
+    n_sup = (out_b[d0].escalate != 0).sum(dtype=torch.int32).view(1)
+    check("route", list(got_ib) + [got_st, got_deliv],
+          list(want_ib) + [torch.cat([want_st, n_sup]), want_deliv])
     lane_rows = dict(rows=Gx, devices=X_DEVICES, xbudget=xb,
                      warm_rounds=warm_rounds,
-                     per_device_lane=lane_np.tolist())
+                     per_device_lane=lane_np.tolist(),
+                     undersized=dict(xbudget=xb_small,
+                                     dropped_xlane=small_dropped))
     result = dict(step=step_rows, lane=lane_rows, checks=checks,
                   max_abs_err=errs,
                   rows_per_block=K.rows_per_block(G, A_P, A_W, A_M, A_E,
@@ -1039,6 +1278,8 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
                              f"versions: {bad}")
     if lane_np[:, 1].sum() < 1:
         raise AssertionError("no message crossed the lane")
+    if small_dropped < 1:
+        raise AssertionError("the undersized lane dropped nothing")
 
     # ---- timing ------------------------------------------------------------
     ms, dev_ms, plain_ms, bound, lib_ms = {}, {}, {}, {}, {}
@@ -1059,37 +1300,34 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
         device_ms=device_ms(lambda: K.step(st_ext, ib_ext, A_O)),
         bound_ms=bound["raft_step_internal"],
     )
-    d0 = 0
     kw = dict(me=d0, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
               suppress=out_b[d0].escalate)
     ms["xlane_pack"] = time_ms(
         lambda: R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw), 50)
     dev_ms["xlane_pack"] = device_ms(
         lambda: R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw))
+    lane_split = kernel_split(
+        lambda: R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw))
+    small = dict(
+        xbudget=xb_small, dropped_xlane=small_dropped,
+        ms=time_ms(lambda: R.xlane_pack(
+            st_b[d0], out_b[d0], *tab_b[d0], **kw_small), 50),
+        device_ms=device_ms(lambda: R.xlane_pack(
+            st_b[d0], out_b[d0], *tab_b[d0], **kw_small)),
+        split=kernel_split(lambda: R.xlane_pack(
+            st_b[d0], out_b[d0], *tab_b[d0], **kw_small)))
+    route_x = dict(
+        rows=int(local.shape[0]), P=X_P, O=X_O, M=X_M, base=X_BASE,
+        ms=time_ms(x_route, 50), device_ms=device_ms(x_route),
+        bound_ms=route_bound_ms(out_b[d0], want_deliv, X_P, X_M, X_E,
+                                bits=False),
+        split=kernel_split(x_route))
     plain_ms["xlane_pack"] = time_ms(
         lambda: route_ref.lane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw),
         5)
     kt = route_ref.X_KF + 2 * X_E
     sent = int(lane_np[d0, 0])
-    # The least the pack must move, from this run's data: the valid
-    # outbox slots of the unsuppressed rows; every row's count and
-    # suppress words; the peer ids, the three tables and the three row
-    # scalars of each row with a valid slot; the ring words (term, cc)
-    # of the entries the sent REPLICATEs carry, read from the packed
-    # rows; and the D-1 blocks that the ring shifts send (the own block
-    # is never sent).
-    ob = out_b[d0]
-    n_valid = torch.where(ob.escalate == 0, ob.count.clamp(0, X_O),
-                          torch.zeros_like(ob.count))
-    live_rows = int((n_valid > 0).sum())
-    packed = xbufs[d0].reshape(-1, kt)
-    carried = ((packed[:, route_ref.XI_FOUND] != 0)
-               & (packed[:, 0] == T.MT_REPLICATE))
-    ring_words = 2 * int(packed[carried, 8].clamp(0, X_E).sum())
-    bound["xlane_pack"] = bound_ms(4 * (
-        int(n_valid.sum()) * T.N_FIELDS + 2 * ob.count.numel()
-        + live_rows * (4 * X_P + 3) + ring_words
-        + (X_DEVICES - 1) * xb * kt))
+    bound["xlane_pack"] = lane_pack_bound_ms(out_b[d0], xbufs[d0], X_P)
     lib_ms["xlane_pack"] = None
     scratch_ib = T.Inbox(*(t.clone() for t in ib_b[d0]))
     ms["xlane_scatter"] = time_ms(lambda: R.xlane_scatter(
@@ -1113,14 +1351,15 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
         32 * (rv.shape[0] - n_found) + 4 * (
             n_found * kt + 2 * int(in_range.sum()) * (10 + 2 * X_E)))
     lib_ms["xlane_scatter"] = None
+    small["bound_ms"] = lane_pack_bound_ms(out_b[d0], xbuf_small, X_P)
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                   bound_ms=bound, library_ms=lib_ms,
+                  xlane_pack_split=lane_split, xlane_pack_undersized=small,
+                  route_X37500=route_x,
                   raft_step_external_300k=external,
                   timed=dict(step_occupied_slots=occ, lane_device=d0,
                              sent=sent, delivered=delivered,
-                             pack_valid_slots=int(n_valid.sum()),
-                             pack_live_rows=live_rows,
-                             pack_ring_words=ring_words,
+                             **lane_pack_work(out_b[d0], xbufs[d0]),
                              scatter_rows=int(rv.shape[0]),
                              scatter_found=n_found))
     return result
@@ -2246,6 +2485,13 @@ def main(argv) -> int:
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes", library_ms=total("library_ms"),
         )
+        if k == "route":
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     mkern["max_abs_err"]["route"])
+            row["geometries"] = dict(ckern["route_geometries"],
+                                     X37500=mkern["route_X37500"])
+            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+                            if n.startswith("route_")}
         if k == "inbox":
             row["entries"] = {
                 e: dict(launches=colo["entry_launches"].get(e, 0),
@@ -2276,6 +2522,12 @@ def main(argv) -> int:
             rows[-1]["block"] = block("raft_step_internal_kernel",
                                       mkern["rows_per_block"],
                                       (A_P, A_W, A_M, A_E, A_O), True)
+        if k == "xlane_pack":
+            rows[-1].update(
+                split=mkern["xlane_pack_split"],
+                undersized=mkern["xlane_pack_undersized"],
+                ptxas={n: ptxas_numbers(v) for n, v in ptxas.items()
+                       if n.startswith("xlane_") and "scatter" not in n})
     emit({"kernels": rows, "phase_s": phase_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

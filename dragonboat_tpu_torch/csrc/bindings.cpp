@@ -253,8 +253,9 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
            const at::Tensor& stats, const std::optional<at::Tensor>& packed,
            const std::optional<at::Tensor>& undeliv,
            const std::optional<at::Tensor>& delivered,
-           const at::Tensor& scratch, int64_t B, int64_t base, int64_t tick,
-           int64_t propose_leaders, int64_t propose_n) {
+           const at::Tensor& scratch, const at::Tensor& cnt, int64_t B,
+           int64_t base, int64_t tick, int64_t propose_leaders,
+           int64_t propose_n) {
   const char* name = "route";
   const at::Device dev = buf.device();
   auto s = ins(st, dbt::N_ROUTE_STATE, dev, name);
@@ -275,8 +276,10 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
               name, ": bad table shapes");
   for (int i = 0; i < dbt::N_ROUTE_STATE; ++i)
     TORCH_CHECK(st[i].size(0) == G, name, ": state row counts differ");
-  TORCH_CHECK(scratch.numel() == G * P * B * (11 + 2 * E), name,
-              ": scratch must be [G, P, B, 11 + 2E]");
+  TORCH_CHECK(scratch.numel() == G * P * B, name,
+              ": scratch must be [G, P, B]");
+  TORCH_CHECK(cnt.numel() == G * P, name, ": cnt must be [G, P]");
+  TORCH_CHECK(G * M <= INT_MAX - 256, name, ": G * M out of range");
   const int* sup = nullptr;
   if (suppress) {
     TORCH_CHECK(suppress->numel() == G, name, ": suppress must be [G]");
@@ -318,12 +321,13 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
   }
   int* stt = out(stats, dev, name);
   int* scr = out(scratch, dev, name);
+  int* cn = out(cnt, dev, name);
   if (G == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
   dbt::route_launch(s.data(), in(buf, dev, name), in(count, dev, name),
                     in(dest_row, dev, name), in(rank, dev, name), sup, alv,
                     dim(alive_stride, name), bi.empty() ? nullptr : bi.data(),
-                    dim(M_base, name), ib.data(), stt, pk, ud, dl, scr,
+                    dim(M_base, name), ib.data(), stt, pk, ud, dl, scr, cn,
                     dim(G, name), dim(P, name), dim(W, name), dim(O, name),
                     dim(M, name), dim(E, name), dim(B, name), dim(base, name),
                     dim(tick, name), dim(propose_leaders, name),
@@ -336,8 +340,11 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
                 const std::optional<at::Tensor>& suppress,
                 const at::Tensor& dest_local, const at::Tensor& dest_dev,
                 const at::Tensor& rank, const at::Tensor& xbuf,
-                const at::Tensor& scan, const at::Tensor& stats, int64_t me,
-                int64_t D, int64_t B) {
+                const at::Tensor& rowoff, const at::Tensor& btot,
+                const at::Tensor& boff, const at::Tensor& part,
+                const at::Tensor& tot,
+                const at::Tensor& stats, int64_t me, int64_t D, int64_t B,
+                int64_t R) {
   const char* name = "xlane_pack";
   const at::Device dev = buf.device();
   auto s = ins(st, dbt::N_LANE_STATE, dev, name);
@@ -357,9 +364,16 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
     TORCH_CHECK(st[i].size(0) == G, name, ": state row counts differ");
   TORCH_CHECK(count.numel() == G && dest_local.numel() == G * P &&
                   dest_dev.numel() == G * P && rank.numel() == G * P &&
-                  stats.numel() == dbt::N_LANE_STATS &&
-                  scan.numel() == G * D + D,
+                  stats.numel() == dbt::N_LANE_STATS,
               name, ": bad table shapes");
+  TORCH_CHECK(R == 32 || R == 64 || R == 128, name,
+              ": rows a block must be 32, 64 or 128, got ", R);
+  const int64_t nblk = (G + R - 1) / R;
+  TORCH_CHECK(rowoff.numel() == G * D && btot.numel() == nblk * D &&
+                  boff.numel() == nblk * D && part.numel() == nblk * 4 &&
+                  tot.numel() == D,
+              name, ": workspace must be [G, D], [nblk, D] twice, [nblk, 4], "
+              "[D]");
   const int* sup = nullptr;
   if (suppress) {
     TORCH_CHECK(suppress->numel() == G, name, ": suppress must be [G]");
@@ -369,11 +383,14 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
   dbt::xlane_pack_launch(s.data(), in(buf, dev, name), in(count, dev, name),
                          sup, in(dest_local, dev, name),
                          in(dest_dev, dev, name), in(rank, dev, name),
-                         out(xbuf, dev, name), out(scan, dev, name),
-                         out(stats, dev, name), dim(G, name), dim(P, name),
-                         dim(W, name), dim(O, name), dim(E, name),
-                         dim(D, name), dim(XB, name), dim(B, name),
-                         dim(me, name), stream_of(dev));
+                         out(xbuf, dev, name), out(rowoff, dev, name),
+                         out(btot, dev, name), out(boff, dev, name),
+                         out(part, dev, name),
+                         out(tot, dev, name), out(stats, dev, name),
+                         dim(G, name), dim(P, name), dim(W, name),
+                         dim(O, name), dim(E, name), dim(D, name),
+                         dim(XB, name), dim(B, name), dim(me, name),
+                         dim(R, name), stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

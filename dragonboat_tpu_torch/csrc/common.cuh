@@ -15,8 +15,12 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define DBT_HD __host__ __device__ inline
+// a row function the kernels must inline: one that is not takes its
+// structs by address into the thread's stack frame
+#define DBT_FI __host__ __device__ __forceinline__
 #else
 #define DBT_HD inline
+#define DBT_FI inline
 #endif
 
 namespace dbt {

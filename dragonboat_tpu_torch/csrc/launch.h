@@ -78,15 +78,17 @@ void set_remote_snapshot_launch(const int* rstate, const int* snap_index,
                                 void* stream);
 
 // route.cu — st: N_ROUTE_STATE sources; suppress, alive, base_inbox,
-// packed, undeliv and delivered may be null; stats is zeroed and filled
+// packed, undeliv and delivered may be null; stats is zeroed and filled;
+// scratch [G, P, B] and cnt [G, P] are the walk's workspace
 void route_launch(const int* const* st, const int* buf, const int* count,
                   const int* dest_row, const int* rank, const int* suppress,
                   const int* alive, int alive_stride,
                   const int* const* base_inbox, int M_base,
                   int* const* inbox, int* stats, int* packed, int* undeliv,
-                  unsigned char* delivered, int* scratch, int G, int P,
-                  int W, int O, int M, int E, int B, int base, int tick,
-                  int propose_leaders, int propose_n, void* stream);
+                  unsigned char* delivered, int* scratch, int* cnt, int G,
+                  int P, int W, int O, int M, int E, int B, int base,
+                  int tick, int propose_leaders, int propose_n,
+                  void* stream);
 
 // inbox.cu — mode 0 assemble (a = host, b = pending, combo), 1 from_ticks
 // (combo), 2 zero_rows (a = inbox, mask); out is [G, M(, E)]
@@ -104,14 +106,16 @@ void select_blob_launch(const int* flags, const int* combo,
                         void* stream);
 
 // xlane.cu, pack — st: N_LANE_STATE sources; suppress may be null;
-// xbuf [D, XB, 14 + 2E] and stats [7] are written whole; scan is
-// [G * D + D] scratch
+// xbuf [D, XB, 14 + 2E] and stats [7] are written whole; rowoff [G, D],
+// btot [nblk, D], boff [nblk, D], part [nblk, 4] and tot [D] are
+// workspace (nblk = the blocks of rows_per_block rows: 32, 64 or 128)
 void xlane_pack_launch(const int* const* st, const int* buf,
                        const int* count, const int* suppress,
                        const int* dest_local, const int* dest_dev,
-                       const int* rank, int* xbuf, int* scan, int* stats,
-                       int G, int P, int W, int O, int E, int D, int XB,
-                       int B, int me, void* stream);
+                       const int* rank, int* xbuf, int* rowoff, int* btot,
+                       int* boff, int* part, int* tot, int* stats, int G,
+                       int P, int W, int O, int E, int D, int XB, int B,
+                       int me, int rows_per_block, void* stream);
 
 // xlane.cu, scatter — adds the R received rows into inbox (in place) and
 // writes the delivered count into stats[1]

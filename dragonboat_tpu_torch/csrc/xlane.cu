@@ -8,48 +8,68 @@
 // with D-1 `ppermute` ring shifts, and adds the received rows into the
 // inbox region slots base + rank*B + b.  Here the shifts are device
 // copies (ops/route.py `ring_shift`) and the compute on either side is
-// this file:
+// this file.
 //
-//   xlane_pack, four launches on one stream:
-//     1. count, one thread per row g: walks the row's O outbox slots in
-//        order (one counter per peer slot: the reference's k_excl) and
-//        counts its sendable messages per destination device into
-//        scan[g, d]; the drop counts go to the stats (warp sums, one
-//        atomic each: integer sums do not depend on order).
-//     2. scan, ONE block of 1024 threads: the exclusive scan of
-//        scan[:, d] over the rows, in row order — so the lane slot q of
-//        a message is the count of earlier sendable messages to the
-//        same device in flat (g, o) order (route.py:742-747), the same
-//        on every run (an atomic counter would not be).  It writes the
-//        per-device totals, `sent` and `dropped_xlane`.
-//     3. write, one thread per row: the same walk, each message with
-//        q < XB written as its packed row at xbuf[d, q].
-//     4. zero, one thread per xbuf word: rows past a device's total.
-//   xlane_scatter, one launch: one thread per received row; a row with
-//     found != 0 is counted in `delivered` and, when its row and slot
-//     lie in [0, G) x [0, M), its fields are ADDED into the inbox with
-//     atomicAdd (the reference's one-hot sum, exact even if two rows
-//     met).
+// Bound: bytes.  The pack reads the valid outbox messages (11 words
+// each), their rows' tables and ring words, and writes all of xbuf
+// (D*XB*KT words, mostly zeros: the per-edge budget is sized for the
+// worst case); the scatter reads (D-1)*XB*KT words and adds into the
+// inbox words it delivers.
 //
-// Per-message arithmetic kept as the reference's: `hits` is every peer
-// slot whose id matches, xdev / xloc / xrank are SUMS of the tables
-// over the hits (at_pstar, :711) and b is the sum of k_excl over the
-// hits (:737); deliverability uses the below-ring marker and the ring
-// window max(first_index, last_index - (W-1)) (:719-729); a forwarded
-// PROPOSE never rides the lane; payload word e is the sender's ring at
-// max(log_index + 1 + e, 0) & (W-1) while e < n_entries.
+// xlane_pack, three launches on one stream, R rows a block (32, 64 or
+// 128: ops/route.py `lane_rows_per_block`):
+//   1. count (xlane_count_kernel): a sub-warp of 8 lanes walks a row's
+//      outbox, one lane a message (walk.cuh, as route.cu's walk), as far
+//      as the longest outbox among the warp's rows reaches.  The row's P
+//      peer slots (id and the three tables) are loaded lane-parallel and
+//      read by shuffles.  Each lane computes its message's facts over ALL
+//      matching peer slots (hits, the sums xdev / xloc / xrank at the
+//      hits: at_pstar, :711; the ring window, :719-729).  The reference's
+//      exclusive cumsum k_excl per peer slot is a ballot of (hit_p &&
+//      deliverable) a slot (:737), the row's sendable count toward device
+//      d a ballot of (sendable && xdev == d) a device (both walk.cuh
+//      `lane_rank`).  The block's R rows put their counts in shared
+//      memory and scan them in row order (a warp a device): the kernel
+//      writes each row's in-block offset per device [G, D], the block's
+//      totals [nblk, D] and its partial stats [nblk, 4].
+//   2. scan (xlane_scan_kernel): one block scans the nblk x D block
+//      totals into block offsets (one block-wide scan for every device and
+//      partial stat at once), writes the device totals and the stats row
+//      whole (the partials summed; sent = sum of min(total_d, XB)).  No
+//      memset, no atomic.
+//   3. write (xlane_write_kernel): first the grid zeroes rows
+//      [min(total_d, XB), XB) of every device, 16 bytes a store where the
+//      address allows.  Then the same walk again: the j-th of a block's
+//      sendable messages toward device d has lane slot q = the block's
+//      offset + j — the count of earlier sendable messages toward d in
+//      flat (g, o) order (route.py:742-747), the same on every run (an
+//      atomic counter would not be) — and is packed there when q < XB.
+//      A block's rows toward d have consecutive slots, so a block packs
+//      them in shared memory first (up to XL_STAGE_BYTES) and writes each
+//      device's run out whole, coalesced; a block with more rows than
+//      that packs each in place.
+// xlane_scatter, one launch: one thread per received row; a row with
+// found != 0 is counted in `delivered` and, when its row and slot lie in
+// [0, G) x [0, M), its fields are ADDED into the inbox with atomicAdd
+// (the reference's one-hot sum, exact even if two rows met).
 //
-// Bound: bytes.  The pack reads the outbox (G*O*11 words), the row's
-// tables and ring words for carried entries, and writes xbuf (D*XB*KT
-// words); the scatter reads (D-1)*XB*KT words and adds into the inbox
-// words it delivers.  The one-block scan is latency-bound (G/1024
-// chunks of D columns).
+// Per-message arithmetic kept as the reference's: a forwarded PROPOSE
+// never rides the lane; the below-ring marker; payload word e is the
+// sender's ring at max(log_index + 1 + e, 0) & (W-1) while e < n_entries;
+// b is the SUM of k_excl over the hit slots (each gives the same k_excl:
+// the slots that match `to` hold one id).
 //
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
-// C++: then only the per-row logic (`xlane_row`, `xlane_scan_host`,
-// `xlane_scatter_row`) is built.
+// C++: then the per-slot, per-row and per-message steps (`xlane_slot`,
+// `xlane_row_scalars`, `xlane_lane_facts`, `lane_rank`,
+// `xlane_lane_tally`, `xlane_row_at`, `xlane_pack_row`,
+// `xlane_block_segs`, `xlane_flush_rows`, `xlane_finish_stats`,
+// `xlane_zero_range`, `xlane_scatter_row`) are host functions, and a host
+// loop that runs them lane by lane and block by block, with the masks
+// made from the lanes' predicates, checks the three passes without a card.
 #include "common.cuh"
 #include "launch.h"
+#include "walk.cuh"
 
 namespace dbt {
 
@@ -63,16 +83,17 @@ constexpr int XI_RANK = XN_WIRE + 2;
 constexpr int XI_B = XN_WIRE + 3;
 constexpr int XI_FOUND = XN_WIRE + 4;
 constexpr int X_KF = XN_WIRE + 5;
-// most devices and peer slots a row's counters hold
+// most devices a row's counters hold
 constexpr int XDMAX = 16;
-constexpr int XPMAX = 16;
-
-DBT_HD int xwire_col(int i) {
-  const int cols[XN_WIRE] = {F_MTYPE,  F_TERM,  F_LOG_TERM,
-                             F_LOG_INDEX, F_COMMIT, F_REJECT,
-                             F_HINT,   F_HINT_HIGH, F_N_ENTRIES};
-  return cols[i];
-}
+// shared memory a block of the write pass stages its packed rows in
+// (below the 48 KB a block takes without opting in to more)
+constexpr int XL_STAGE_BYTES = 40 * 1024;
+// threads a block of the count and write passes; most rows a block
+constexpr int XL_THREADS = 256;
+constexpr int XL_RMAX = 128;
+// the partial stats a block writes: dropped_budget, dropped_ring,
+// sendable, suppressed rows
+constexpr int XL_NPART = 4;
 
 DBT_HD int wmul(int a, int b) {
   return (int)((uint32_t)a * (uint32_t)b);
@@ -92,124 +113,233 @@ struct XPackArgs {
   const int* dest_dev;     // [G, P]
   const int* rank;         // [G, P]
   int* xbuf;               // [D, XB, KT]
-  int* scan;               // [G, D] counts -> offsets, then [D] totals
+  int* rowoff;             // [G, D] a row's in-block offset per device
+  int* btot;               // [nblk, D] a block's sendable rows per device
+  int* boff;               // [nblk, D] the block's first lane slot
+  int* part;               // [nblk, XL_NPART] a block's partial stats
+  int* tot;                // [D] device totals
   int* stats;              // [7]
-  int G, P, W, O, E, D, XB, B, me;
+  int G, P, W, O, E, D, XB, B, me, R, nblk;
+  int stage_rows;          // packed rows a block stages in shared memory
 };
 
-// Row g's walk.  Count mode (write = false): scan[g, d] = the row's
-// sendable messages toward device d, and the row's dropped_budget,
-// dropped_ring, sendable and suppressed counts added to s[0..3].  Write
-// mode: each sendable message toward device d gets slot q = scan[g, d]
-// (its exclusive offset) + the earlier ones of the row, and is packed
-// at xbuf[d, q] when q < XB.
-DBT_HD void xlane_row(const XPackArgs& a, int g, int* s, bool write) {
-  const int P = a.P, O = a.O, B = a.B, E = a.E, W = a.W, D = a.D;
-  const int KT = X_KF + 2 * E;
-  int cnt[XPMAX], pid[XPMAX];
-  int nd[XDMAX];
-  const long long pb = (long long)g * P;
-  for (int p = 0; p < P; ++p) {
-    cnt[p] = 0;
-    pid[p] = a.peer_id[pb + p];
+// One peer slot of a sending row: its id and the three mesh tables.
+struct XSlot {
+  int pid, dev, loc, rank;
+};
+
+DBT_FI XSlot xlane_slot(const XPackArgs& a, int g, int p) {
+  const long long at = (long long)g * a.P + p;
+  return XSlot{a.peer_id[at], a.dest_dev[at], a.dest_local[at], a.rank[at]};
+}
+
+// A row's facts, the same in every lane of its sub-warp.
+struct XRow {
+  int g, count, last, win_lo, me;
+  bool sup;
+};
+
+DBT_FI void xlane_row_empty(XRow& r) {
+  r.g = r.count = r.last = r.win_lo = r.me = 0;
+  r.sup = false;
+}
+
+DBT_FI void xlane_row_scalars(const XPackArgs& a, int g, XRow& r) {
+  r.g = g;
+  r.count = a.count[g];
+  r.sup = a.suppress && a.suppress[g] != 0;
+  r.last = a.last_index[g];
+  r.win_lo = imax(a.first_index[g], wsub(r.last, a.W - 1));
+  r.me = a.replica_id[g];
+}
+
+// the messages of row r a walk must look at: none when it is suppressed
+DBT_FI int xlane_row_live(const XPackArgs& a, const XRow& r) {
+  return r.sup ? 0 : imax(0, imin(r.count, a.O));
+}
+
+// One message, in the lane that holds it.
+struct XMsg {
+  const int* m;  // its words
+  int mt, to, n_ent, li, lt;
+  uint32_t hits;         // peer slots whose id matches `to`
+  int xdev, xloc, xrank;  // the tables summed over the hits
+  int b;                  // its region slot: the sum of k_excl at the hits
+  bool v, routable, ring_ok, deliverable;
+};
+
+// Message o's words, read only when the row's walk holds it.
+DBT_FI void xlane_msg_load(const XPackArgs& a, const XRow& r, int o,
+                           XMsg& f) {
+  f.m = a.buf + ((long long)r.g * a.O + o) * N_FIELDS;
+  f.v = o < xlane_row_live(a, r);
+  f.mt = f.to = f.n_ent = f.li = f.lt = 0;
+  f.hits = 0;
+  f.xdev = f.xloc = f.xrank = f.b = 0;
+  if (!f.v) return;
+  f.mt = f.m[F_MTYPE];
+  f.to = f.m[F_TO];
+  f.n_ent = f.m[F_N_ENTRIES];
+  f.li = f.m[F_LOG_INDEX];
+  f.lt = f.m[F_LOG_TERM];
+}
+
+// Peer slot p (`s`) against the message: a hit adds its tables.
+DBT_FI void xlane_hit(XMsg& f, int p, const XSlot& s) {
+  if (!(f.v && s.pid == f.to && f.to != 0 && s.pid != 0)) return;
+  f.hits |= 1u << p;
+  f.xdev = wadd(f.xdev, s.dev);
+  f.xloc = wadd(f.xloc, s.loc);
+  f.xrank = wadd(f.xrank, s.rank);
+}
+
+// The message's facts, once every slot has been held against it.
+DBT_FI void xlane_msg_facts(const XPackArgs& a, const XRow& r, XMsg& f) {
+  const bool carries = f.mt == MT_REPLICATE && f.n_ent > 0;
+  const bool marker = f.mt == MT_REPLICATE && f.li > 0 && f.lt == 0;
+  f.ring_ok = !carries || (wadd(f.li, 1) >= r.win_lo &&
+                           wadd(f.li, f.n_ent) <= r.last && !marker);
+  const bool remote = f.hits != 0 && f.xdev >= 0 && f.xdev != a.me;
+  f.routable = remote && f.mt != MT_PROPOSE;
+  f.deliverable = f.routable && f.ring_ok;
+}
+
+// A row's peer slots, id and the three tables: on the card slot p is
+// held by the sub-warp's lane p % WALK_LANES (LaneWords).
+struct XSlots {
+  LaneWords pid, dev, loc, rank;
+  DBT_LANE XSlot get(int p) const {
+    return XSlot{pid.get(p), dev.get(p), loc.get(p), rank.get(p)};
   }
-  for (int d = 0; d < D; ++d) nd[d] = write ? a.scan[(long long)g * D + d] : 0;
-  const bool sup = a.suppress && a.suppress[g] != 0;
-  const int count = a.count[g];
-  const int last = a.last_index[g];
-  const int win_lo = imax(a.first_index[g], wsub(last, W - 1));
-  for (int o = 0; o < O; ++o) {
-    const int* m = a.buf + ((long long)g * O + o) * N_FIELDS;
-    const bool v = o < count && !sup;
-    const int mt = m[F_MTYPE], to = m[F_TO], n_ent = m[F_N_ENTRIES];
-    const int li = m[F_LOG_INDEX], lt = m[F_LOG_TERM];
-    bool found = false;
-    int xdev = 0, xloc = 0, xrank = 0, b = 0;
-    for (int p = 0; p < P; ++p) {
-      const bool h = pid[p] == to && to != 0 && pid[p] != 0;
-      if (!h) continue;
-      found = true;
-      xdev = wadd(xdev, a.dest_dev[pb + p]);
-      xloc = wadd(xloc, a.dest_local[pb + p]);
-      xrank = wadd(xrank, a.rank[pb + p]);
-      b += cnt[p];
+};
+
+// Message o's facts in the lane that holds it: its words, every peer
+// slot held against it, and what follows from them.
+DBT_LANE void xlane_lane_facts(const XPackArgs& a, const XRow& r, int o,
+                               const XSlots& sl, XMsg& f) {
+  xlane_msg_load(a, r, o, f);
+  for (int p = 0; p < a.P; ++p) xlane_hit(f, p, sl.get(p));
+  xlane_msg_facts(a, r, f);
+}
+
+// The message's region slot b = popc(hits) * bx (bx: its k_excl, the
+// same at every hit slot) and its counts: s[0] dropped_budget, s[1]
+// dropped_ring, s[2] sendable.  Returns whether it takes a lane slot: a
+// sendable message toward a device outside [0, D) has no lane (counted
+// as dropped_xlane).
+DBT_FI bool xlane_lane_tally(const XPackArgs& a, XMsg& f, int bx, int* s) {
+  f.b = popc(f.hits) * bx;
+  const bool in_b = f.b < a.B;
+  if (f.deliverable && !in_b) s[0] += 1;
+  if (f.routable && !f.ring_ok) s[1] += 1;
+  if (f.deliverable && in_b) s[2] += 1;
+  return f.deliverable && in_b && f.xdev < a.D;
+}
+
+// Where the j-th of block blk's sendable rows toward device x is packed:
+// row seg[x] + j of the block's stage, or with no stage its lane slot
+// q = boff + j of xbuf when q < XB; else nowhere (null).
+DBT_HD int* xlane_row_at(const XPackArgs& a, int blk, int x, int j,
+                         int* stage, const int* seg) {
+  const long long KT = X_KF + 2 * a.E;
+  if (stage) return stage + (seg[x] + j) * KT;
+  const int q = a.boff[(long long)blk * a.D + x] + j;
+  return q < a.XB ? a.xbuf + ((long long)x * a.XB + q) * KT : nullptr;
+}
+
+// The message as a packed lane row at `row` (KT words).
+DBT_FI void xlane_pack_row(const XPackArgs& a, const XRow& r, const XMsg& f,
+                           int* row) {
+  const int E = a.E;
+  const int* m = f.m;
+  row[0] = f.mt;
+  row[1] = m[F_TERM];
+  row[2] = f.lt;
+  row[3] = f.li;
+  row[4] = m[F_COMMIT];
+  row[5] = m[F_REJECT];
+  row[6] = m[F_HINT];
+  row[7] = m[F_HINT_HIGH];
+  row[8] = f.n_ent;
+  row[XI_FROM] = r.me;
+  row[XI_LOC] = f.xloc;
+  row[XI_RANK] = f.xrank;
+  row[XI_B] = f.b;
+  row[XI_FOUND] = 1;
+  const bool is_repl = f.mt == MT_REPLICATE;
+  const long long rw = (long long)r.g * a.W;
+  if (E <= 4) {  // the ring words in registers: all their loads at once
+    int t[4], c[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool has_e = e < E && is_repl && e < f.n_ent;
+      const int pos = imax(wadd(wadd(f.li, 1), e), 0) & (a.W - 1);
+      t[e] = has_e ? a.ring_term[rw + pos] : 0;
+      c[e] = has_e ? a.ring_cc[rw + pos] : 0;
     }
-    const bool is_repl = mt == MT_REPLICATE;
-    const bool carries = is_repl && n_ent > 0;
-    const bool marker = is_repl && li > 0 && lt == 0;
-    const bool ring_ok =
-        !carries ||
-        (wadd(li, 1) >= win_lo && wadd(li, n_ent) <= last && !marker);
-    const bool remote = found && xdev >= 0 && xdev != a.me;
-    const bool routable = v && remote && mt != MT_PROPOSE;
-    const bool deliverable = routable && ring_ok;
-    if (deliverable) {
-      for (int p = 0; p < P; ++p)
-        if (pid[p] == to && to != 0 && pid[p] != 0) ++cnt[p];
-    }
-    const bool in_b = b < B;
-    const bool sendable = deliverable && in_b;
-    if (!write) {
-      if (deliverable && !in_b) s[0] += 1;
-      if (routable && !ring_ok) s[1] += 1;
-      if (sendable) s[2] += 1;
-    }
-    // a device outside [0, D) has no lane: counted as dropped_xlane
-    if (!sendable || xdev >= D) continue;
-    const int q = nd[xdev]++;
-    if (!write || q >= a.XB) continue;
-    int* row = a.xbuf + ((long long)xdev * a.XB + q) * KT;
-    for (int i = 0; i < XN_WIRE; ++i) row[i] = m[xwire_col(i)];
-    row[XI_FROM] = a.replica_id[g];
-    row[XI_LOC] = xloc;
-    row[XI_RANK] = xrank;
-    row[XI_B] = b;
-    row[XI_FOUND] = 1;
-    for (int e = 0; e < E; ++e) {
-      const bool has_e = carries && e < n_ent;
-      const int pos = imax(wadd(wadd(li, 1), e), 0) & (W - 1);
-      row[X_KF + e] = has_e ? a.ring_term[(long long)g * W + pos] : 0;
-      row[X_KF + E + e] = has_e ? a.ring_cc[(long long)g * W + pos] : 0;
-    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < E) {
+        row[X_KF + e] = t[e];
+        row[X_KF + E + e] = c[e];
+      }
+    return;
   }
-  if (!write) {
-    for (int d = 0; d < D; ++d) a.scan[(long long)g * D + d] = nd[d];
-    if (sup) s[3] += 1;
+  for (int e = 0; e < E; ++e) {
+    const bool has_e = is_repl && e < f.n_ent;
+    const int pos = imax(wadd(wadd(f.li, 1), e), 0) & (a.W - 1);
+    row[X_KF + e] = has_e ? a.ring_term[rw + pos] : 0;
+    row[X_KF + E + e] = has_e ? a.ring_cc[rw + pos] : 0;
   }
 }
 
-// The stats row once the counts are in: stats[3] holds the sendable
-// count and stats[5] the suppressed rows; tot[d] is device d's total.
-DBT_HD void xlane_finish_stats(const XPackArgs& a, const int* tot) {
+// The stats row from the device totals and the summed partial stats.
+DBT_HD void xlane_finish_stats(const XPackArgs& a, const int* tot,
+                               const int* st) {
   int sent = 0;
   for (int d = 0; d < a.D; ++d) sent += imin(tot[d], a.XB);
   a.stats[0] = sent;
-  a.stats[3] -= sent;
-  a.stats[6] = a.G - a.stats[5];
+  a.stats[1] = 0;  // delivered: the scatter's
+  a.stats[2] = st[0];
+  a.stats[3] = st[2] - sent;  // sendable, less sent: dropped_xlane
+  a.stats[4] = st[1];
+  a.stats[5] = st[3];
+  a.stats[6] = a.G - st[3];
 }
 
-// xbuf word t is zero when its row lies past its device's total
-DBT_HD void xlane_zero_word(const XPackArgs& a, long long t) {
-  const long long per = (long long)a.XB * (X_KF + 2 * a.E);
-  const int d = (int)(t / per);
-  const long long q = (t % per) / (X_KF + 2 * a.E);
-  if (q >= a.scan[(long long)a.G * a.D + d]) a.xbuf[t] = 0;
+// The packed rows a block of the write pass can stage: as many as its R
+// rows can send, or as many as XL_STAGE_BYTES hold.
+DBT_HD int xlane_stage_rows(int R, int O, int E) {
+  const long long most = (long long)R * O;
+  const int fit = XL_STAGE_BYTES / (4 * (X_KF + 2 * E));
+  return most < fit ? (int)most : fit;
 }
 
-// The scan on the host (plain C++ builds): counts -> exclusive offsets
-// in row order, the totals after them.
-DBT_HD void xlane_scan_host(const XPackArgs& a) {
-  int tot[XDMAX];
-  for (int d = 0; d < a.D; ++d) tot[d] = 0;
-  for (int g = 0; g < a.G; ++g)
-    for (int d = 0; d < a.D; ++d) {
-      int* c = a.scan + (long long)g * a.D + d;
-      const int n = *c;
-      *c = tot[d];
-      tot[d] += n;
-    }
-  for (int d = 0; d < a.D; ++d) a.scan[(long long)a.G * a.D + d] = tot[d];
-  xlane_finish_stats(a, tot);
+// Where block blk stages its rows toward each device: seg[d] = the rows
+// toward the devices before d; returns the block's sendable rows.
+DBT_HD int xlane_block_segs(const XPackArgs& a, int blk, int* seg) {
+  int n = 0;
+  for (int d = 0; d < a.D; ++d) {
+    seg[d] = n;
+    n += a.btot[(long long)blk * a.D + d];
+  }
+  return n;
+}
+
+// Of block blk's rows toward device d, those that get a lane slot (the
+// slot q = boff + j of its j-th row is below XB).
+DBT_HD int xlane_flush_rows(const XPackArgs& a, int blk, int d) {
+  const long long at = (long long)blk * a.D + d;
+  return imin(a.btot[at], imax(0, a.XB - a.boff[at]));
+}
+
+// The xbuf words of device d's block past its last packed row:
+// [*lo, *hi), rows [min(total, XB), XB).
+DBT_HD void xlane_zero_range(const XPackArgs& a, int d, int total,
+                             long long* lo, long long* hi) {
+  const long long KT = X_KF + 2 * a.E;
+  *lo = ((long long)d * a.XB + imin(total, a.XB)) * KT;
+  *hi = ((long long)d + 1) * a.XB * KT;
 }
 
 struct XScatArgs {
@@ -253,82 +383,271 @@ DBT_HD int xlane_scatter_row(const XScatArgs& a, long long r) {
 #ifdef __CUDACC__
 namespace {
 
-constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_THREADS = 512;
 
 __device__ void warp_add(int* dst, int v, bool active) {
   const int s = __reduce_add_sync(0xffffffffu, active ? v : 0);
   if ((threadIdx.x & 31) == 0 && s) atomicAdd(dst, s);
 }
 
-__global__ void xlane_count_kernel(const dbt::XPackArgs a) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  int s[4] = {0, 0, 0, 0};
-  const bool active = g < a.G;
-  if (active) dbt::xlane_row(a, g, s, false);
-  warp_add(a.stats + 2, s[0], active);  // dropped_budget
-  warp_add(a.stats + 4, s[1], active);  // dropped_ring
-  warp_add(a.stats + 3, s[2], active);  // sendable (less sent: dropped_xlane)
-  warp_add(a.stats + 5, s[3], active);  // suppressed rows
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-xlane_scan_kernel(const dbt::XPackArgs a) {
-  __shared__ int wsum[SCAN_THREADS / 32][dbt::XDMAX];
-  __shared__ int carry[dbt::XDMAX];
-  __shared__ int chunk[dbt::XDMAX];
-  const unsigned full = 0xffffffffu;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = a.D;
-  if (tid < D) carry[tid] = 0;
-  __syncthreads();
-  for (int base = 0; base < a.G; base += SCAN_THREADS) {
-    const int g = base + tid;
-    const bool in = g < a.G;
-    int v[dbt::XDMAX], inc[dbt::XDMAX];
-    for (int d = 0; d < D; ++d) {
-      v[d] = in ? a.scan[(long long)g * D + d] : 0;
-      int x = v[d];
-      for (int off = 1; off < 32; off <<= 1) {
-        const int n = __shfl_up_sync(full, x, off);
-        if (lane >= off) x += n;
-      }
-      inc[d] = x;
-      if (lane == 31) wsum[warp][d] = x;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      for (int d = 0; d < D; ++d) {
-        const int w = wsum[lane][d];
-        int x = w;
-        for (int off = 1; off < 32; off <<= 1) {
-          const int n = __shfl_up_sync(full, x, off);
-          if (lane >= off) x += n;
-        }
-        wsum[lane][d] = x - w;
-        if (lane == 31) chunk[d] = x;
-      }
-    }
-    __syncthreads();
-    if (in)
-      for (int d = 0; d < D; ++d)
-        a.scan[(long long)g * D + d] = carry[d] + wsum[warp][d] + inc[d] - v[d];
-    __syncthreads();
-    if (tid < D) carry[tid] += chunk[tid];
-    __syncthreads();
+// inclusive sum of v over the warp's lanes 0..lane
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += n;
   }
-  if (tid < D) a.scan[(long long)a.G * D + tid] = carry[tid];
-  if (tid == 0) dbt::xlane_finish_stats(a, carry);
+  return v;
 }
 
-__global__ void xlane_write_kernel(const dbt::XPackArgs a) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  int s[4];
-  if (g < a.G) dbt::xlane_row(a, g, s, true);
+// A row's peer slots, lane-parallel: slot p in lane p % WALK_LANES.
+__device__ __forceinline__ void xlane_load_slots(const dbt::XPackArgs& a,
+                                                 const dbt::XRow& r,
+                                                 bool row_ok, int sub,
+                                                 dbt::XSlots& sl) {
+  constexpr int L = dbt::WALK_LANES;
+  if (row_ok && sub < a.P) {
+    const dbt::XSlot x = dbt::xlane_slot(a, r.g, sub);
+    sl.pid.lo = x.pid, sl.dev.lo = x.dev, sl.loc.lo = x.loc;
+    sl.rank.lo = x.rank;
+  }
+  if (row_ok && sub + L < a.P) {
+    const dbt::XSlot x = dbt::xlane_slot(a, r.g, sub + L);
+    sl.pid.hi = x.pid, sl.dev.hi = x.dev, sl.loc.hi = x.loc;
+    sl.rank.hi = x.rank;
+  }
 }
 
-__global__ void xlane_zero_kernel(const dbt::XPackArgs a, long long total) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < total) dbt::xlane_zero_word(a, t);
+// One row's walk by its sub-warp, as many chunks of WALK_LANES messages as
+// the longest live outbox among the warp's rows needs.  dcnt: the row's
+// sendable messages toward each device so far.  Count pass: the stats go
+// to s.  Write pass: the j-th of block blk's sendable messages toward
+// device d (j = rowoff[d], the row's offset in the block, plus its rank
+// in the row) is packed at `xlane_row_at`.
+template <bool WRITE>
+__device__ __forceinline__ void xlane_walk(const dbt::XPackArgs& a,
+                                           const dbt::XRow& r, int sub,
+                                           int blk, const dbt::XSlots& sl,
+                                           const dbt::LaneWords& rowoff,
+                                           int* stage, const int* seg,
+                                           int* s, dbt::LaneWords& dcnt) {
+  constexpr int L = dbt::WALK_LANES;
+  const int n_live =
+      __reduce_max_sync(0xffffffffu, dbt::xlane_row_live(a, r));
+  const auto ballot = [](int, bool pred) { return dbt::sub_ballot(pred); };
+  dbt::LaneWords carry;  // deliverable messages toward each peer slot
+  for (int c = 0; c * L < n_live; ++c) {
+    dbt::XMsg f;
+    dbt::xlane_lane_facts(a, r, c * L + sub, sl, f);
+    const int bx = dbt::lane_rank(a.P, f.deliverable ? f.hits : 0u, sub,
+                                  ballot, carry);
+    const bool ok = dbt::xlane_lane_tally(a, f, bx, s);
+    const int q = dbt::lane_rank(a.D, ok ? 1u << f.xdev : 0u, sub, ballot,
+                                 dcnt);
+    if (WRITE) {
+      const int j = q + rowoff.pick(ok ? f.xdev : 0);
+      int* row = ok ? dbt::xlane_row_at(a, blk, f.xdev, j, stage, seg)
+                    : nullptr;
+      if (row) dbt::xlane_pack_row(a, r, f, row);
+    }
+  }
+}
+
+// The count pass: XL_THREADS / WALK_LANES rows at a time, R rows a block.
+__global__ void __launch_bounds__(dbt::XL_THREADS)
+    xlane_count_kernel(const __grid_constant__ dbt::XPackArgs a) {
+  constexpr int L = dbt::WALK_LANES;
+  __shared__ int rc[dbt::XL_RMAX][dbt::XDMAX];
+  __shared__ int wsum[dbt::XL_THREADS / 32][dbt::XL_NPART];
+  const unsigned full = 0xffffffffu;
+  const int sub = threadIdx.x & (L - 1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int blk = blockIdx.x;
+  int s[dbt::XL_NPART] = {0, 0, 0, 0};
+  const dbt::LaneWords none;
+  for (int r0 = 0; r0 < a.R; r0 += dbt::XL_THREADS / L) {
+    const int rr = r0 + threadIdx.x / L;
+    const int g = blk * a.R + rr;
+    const bool row_ok = g < a.G && rr < a.R;
+    dbt::XRow r;
+    if (row_ok)
+      dbt::xlane_row_scalars(a, g, r);
+    else
+      dbt::xlane_row_empty(r);
+    dbt::XSlots sl;
+    xlane_load_slots(a, r, row_ok, sub, sl);
+    dbt::LaneWords dcnt;
+    xlane_walk<false>(a, r, sub, blk, sl, none, nullptr, nullptr, s, dcnt);
+    if (r.sup && sub == 0) s[3] += 1;
+    if (rr < a.R)
+      for (int d = sub; d < a.D; d += L) rc[rr][d] = dcnt.held(d);
+  }
+  __syncthreads();
+  // the block's rows in row order, a warp a device: `per` rows a lane
+  const int per = (a.R + 31) / 32;
+  for (int d = warp; d < a.D; d += dbt::XL_THREADS / 32) {
+    int v[dbt::XL_RMAX / 32], sum = 0;
+#pragma unroll
+    for (int i = 0; i < dbt::XL_RMAX / 32; ++i) {
+      const int rr = lane * per + i;
+      v[i] = i < per && rr < a.R ? rc[rr][d] : 0;
+      sum += v[i];
+    }
+    const int incl = warp_incl_scan(sum);
+    int run = incl - sum;
+#pragma unroll
+    for (int i = 0; i < dbt::XL_RMAX / 32; ++i) {
+      const int rr = lane * per + i;
+      const int g = blk * a.R + rr;
+      if (i < per && rr < a.R && g < a.G)
+        a.rowoff[(long long)g * a.D + d] = run;
+      run += v[i];
+    }
+    if (lane == 31) a.btot[(long long)blk * a.D + d] = incl;
+  }
+#pragma unroll
+  for (int i = 0; i < dbt::XL_NPART; ++i) {
+    const int v = __reduce_add_sync(full, s[i]);
+    if (lane == 0) wsum[warp][i] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < dbt::XL_NPART) {
+    int t = 0;
+    for (int w = 0; w < dbt::XL_THREADS / 32; ++w) t += wsum[w][threadIdx.x];
+    a.part[(long long)blk * dbt::XL_NPART + threadIdx.x] = t;
+  }
+}
+
+// The scan: one block of SCAN_THREADS threads, one pass.  Thread t sums
+// `per` consecutive blocks' totals toward each device and their partial
+// stats; a block-wide scan of those sums (a warp scan, then a scan of the
+// warps' sums) gives each block's offsets, and the totals.
+__global__ void __launch_bounds__(SCAN_THREADS)
+    xlane_scan_kernel(const __grid_constant__ dbt::XPackArgs a) {
+  constexpr int NV = dbt::XDMAX + dbt::XL_NPART;
+  constexpr int NW = SCAN_THREADS / 32;
+  __shared__ int wsum[NW][NV];
+  __shared__ int total[NV];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int D = a.D, n = a.nblk;
+  const int per = (n + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int lo = dbt::imin((int)threadIdx.x * per, n);
+  const int hi = dbt::imin(lo + per, n);
+  int v[NV], incl[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) v[k] = 0;
+  for (int i = lo; i < hi; ++i) {
+#pragma unroll
+    for (int d = 0; d < dbt::XDMAX; ++d)
+      if (d < D) v[d] += a.btot[(long long)i * D + d];
+#pragma unroll
+    for (int k = 0; k < dbt::XL_NPART; ++k)
+      v[dbt::XDMAX + k] += a.part[(long long)i * dbt::XL_NPART + k];
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    incl[k] = warp_incl_scan(v[k]);
+    if (lane == 31) wsum[warp][k] = incl[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int x = lane < NW ? wsum[lane][k] : 0;
+      const int xi = warp_incl_scan(x);
+      if (lane < NW) wsum[lane][k] = xi - x;
+      if (lane == 31) total[k] = xi;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int d = 0; d < dbt::XDMAX; ++d) {
+    if (d >= D) continue;
+    int run = wsum[warp][d] + incl[d] - v[d];
+    for (int i = lo; i < hi; ++i) {
+      a.boff[(long long)i * D + d] = run;
+      run += a.btot[(long long)i * D + d];
+    }
+  }
+  if (threadIdx.x < D) a.tot[threadIdx.x] = total[threadIdx.x];
+  if (threadIdx.x == 0)
+    dbt::xlane_finish_stats(a, total, total + dbt::XDMAX);
+}
+
+// p[0, n) = 0 by the grid's threads (t of `stride`), 16 bytes a store
+// between the first and the last 16-byte boundary
+__device__ __forceinline__ void zero_words(int* p, long long n, long long t,
+                                           long long stride) {
+  // words up to the first 16-byte boundary
+  const long long mis = ((16 - ((unsigned long long)p & 15)) & 15) / 4;
+  const long long head = mis < n ? mis : n;
+  if (t < head) p[t] = 0;
+  int4* q = reinterpret_cast<int4*>(p + head);
+  const long long n4 = (n - head) / 4;
+  const int4 z = make_int4(0, 0, 0, 0);
+  for (long long i = t; i < n4; i += stride) q[i] = z;
+  const long long rest = head + n4 * 4;
+  if (t < n - rest) p[rest + t] = 0;
+}
+
+// The write pass: first the grid's share of the zero rows (they need only
+// the device totals, so their stores go out while the walks wait on their
+// loads), then the count pass's walk again.  A block whose sendable rows
+// fit its stage packs them there, in lane-slot order a device, and then
+// writes each device's run of rows out whole (its rows toward a device
+// have consecutive slots); a block with more packs each row in place.
+__global__ void __launch_bounds__(dbt::XL_THREADS)
+    xlane_write_kernel(const __grid_constant__ dbt::XPackArgs a) {
+  constexpr int L = dbt::WALK_LANES;
+  extern __shared__ int stage[];
+  __shared__ int seg[dbt::XDMAX];
+  __shared__ int staged;
+  const long long t = (long long)blockIdx.x * dbt::XL_THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * dbt::XL_THREADS;
+  for (int d = 0; d < a.D; ++d) {
+    long long lo, hi;
+    dbt::xlane_zero_range(a, d, a.tot[d], &lo, &hi);
+    zero_words(a.xbuf + lo, hi - lo, t, stride);
+  }
+  const int blk = blockIdx.x;
+  if (blk >= a.nblk) return;  // a block of the zero fill only
+  if (threadIdx.x == 0)
+    staged = dbt::xlane_block_segs(a, blk, seg) <= a.stage_rows;
+  __syncthreads();
+  const int sub = threadIdx.x & (L - 1);
+  int s[dbt::XL_NPART] = {0, 0, 0, 0};
+  for (int r0 = 0; r0 < a.R; r0 += dbt::XL_THREADS / L) {
+    const int rr = r0 + threadIdx.x / L;
+    const int g = blk * a.R + rr;
+    const bool row_ok = g < a.G && rr < a.R;
+    dbt::XRow r;
+    if (row_ok)
+      dbt::xlane_row_scalars(a, g, r);
+    else
+      dbt::xlane_row_empty(r);
+    dbt::XSlots sl;
+    xlane_load_slots(a, r, row_ok, sub, sl);
+    // the row's offset in the block toward each device
+    dbt::LaneWords rowoff;
+    if (row_ok && sub < a.D)
+      rowoff.lo = a.rowoff[(long long)g * a.D + sub];
+    if (row_ok && sub + L < a.D)
+      rowoff.hi = a.rowoff[(long long)g * a.D + sub + L];
+    dbt::LaneWords dcnt;
+    xlane_walk<true>(a, r, sub, blk, sl, rowoff, staged ? stage : nullptr,
+                     seg, s, dcnt);
+  }
+  if (!staged) return;
+  __syncthreads();
+  const int KT = dbt::X_KF + 2 * a.E;
+  for (int d = 0; d < a.D; ++d) {
+    const int n = dbt::xlane_flush_rows(a, blk, d) * KT;
+    const int* src = stage + (long long)seg[d] * KT;
+    int* dst = a.xbuf + ((long long)d * a.XB +
+                         a.boff[(long long)blk * a.D + d]) * KT;
+    for (int w = threadIdx.x; w < n; w += dbt::XL_THREADS) dst[w] = src[w];
+  }
 }
 
 __global__ void xlane_scatter_kernel(const dbt::XScatArgs a) {
@@ -338,14 +657,20 @@ __global__ void xlane_scatter_kernel(const dbt::XScatArgs a) {
   warp_add(a.stats + 1, hit, active);
 }
 
+// at least a block an SM for the write pass's zero fill
+constexpr int N_SM = 132;
+
 }  // namespace
 
 void dbt::xlane_pack_launch(const int* const* st, const int* buf,
                             const int* count, const int* suppress,
                             const int* dest_local, const int* dest_dev,
-                            const int* rank, int* xbuf, int* scan,
-                            int* stats, int G, int P, int W, int O, int E,
-                            int D, int XB, int B, int me, void* stream) {
+                            const int* rank, int* xbuf, int* rowoff,
+                            int* btot, int* boff, int* part, int* tot,
+                            int* stats,
+                            int G, int P, int W, int O, int E, int D, int XB,
+                            int B, int me, int rows_per_block,
+                            void* stream) {
   dbt::XPackArgs a;
   a.peer_id = st[0];
   a.replica_id = st[1];
@@ -360,7 +685,11 @@ void dbt::xlane_pack_launch(const int* const* st, const int* buf,
   a.dest_dev = dest_dev;
   a.rank = rank;
   a.xbuf = xbuf;
-  a.scan = scan;
+  a.rowoff = rowoff;
+  a.btot = btot;
+  a.boff = boff;
+  a.part = part;
+  a.tot = tot;
   a.stats = stats;
   a.G = G;
   a.P = P;
@@ -371,17 +700,16 @@ void dbt::xlane_pack_launch(const int* const* st, const int* buf,
   a.XB = XB;
   a.B = B;
   a.me = me;
+  a.R = rows_per_block;
+  a.nblk = (G + rows_per_block - 1) / rows_per_block;
+  a.stage_rows = dbt::xlane_stage_rows(a.R, O, E);
+  const size_t smem = (size_t)a.stage_rows * 4 * (dbt::X_KF + 2 * E);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(stats, 0, dbt::N_LANE_STATS * sizeof(int), s);
-  const int threads = 256;
-  const unsigned rows = (unsigned)((G + threads - 1) / threads);
-  if (G > 0) xlane_count_kernel<<<rows, threads, 0, s>>>(a);
+  const int T = dbt::XL_THREADS;
+  const unsigned wgrid = (unsigned)(a.nblk > N_SM ? a.nblk : N_SM);
+  if (a.nblk) xlane_count_kernel<<<a.nblk, T, 0, s>>>(a);
   xlane_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(a);
-  if (G > 0) xlane_write_kernel<<<rows, threads, 0, s>>>(a);
-  const long long total = (long long)D * XB * (dbt::X_KF + 2 * E);
-  if (total > 0)
-    xlane_zero_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                        0, s>>>(a, total);
+  xlane_write_kernel<<<wgrid, T, smem, s>>>(a);
 }
 
 void dbt::xlane_scatter_launch(int* const* inbox, const int* recv,

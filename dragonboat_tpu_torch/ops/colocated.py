@@ -232,7 +232,7 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
     ))
     packed = torch.empty((G, (O + 31) // 32), dtype=I32, device=dev)
     undeliv = torch.empty((G,), dtype=I32, device=dev)
-    regions, kstats = route_cuda(
+    regions, kstats, _ = route_cuda(
         merged, out, dest, rank, M=PB, E=E, budget=budget, base=0,
         suppress=out.escalate, alive=combo, alive_stride=4,
         packed=packed, undeliv=undeliv,

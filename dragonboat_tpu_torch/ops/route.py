@@ -21,8 +21,11 @@ and the ``[0, base)`` prefix, copied from ``base_inbox`` or generated as
 ``merge_and_route``, ``routed_round`` and ``fused_rounds`` are then
 compositions of kernels only — ``raft_step``, the escalation merge
 (``place_rows``) and ``route`` — with no plain-torch compute between
-them.  On CPU tensors every function runs its plain version
-(``route_ref.py``).  Any other device raises.
+them.  The router and the lane pack (``csrc/xlane.cu``) walk a row's
+outbox with a sub-warp of 8 lanes, one a message (``csrc/walk.cuh``);
+the pack counts in blocks of ``lane_rows_per_block`` rows.  On CPU tensors
+every function runs its plain version (``route_ref.py``).  Any other
+device raises.
 
 Static tables (host-precomputed, see ``build_route_tables``):
   dest_row[g, p]      device row hosting (shard_id[g], peer_id[g, p]),
@@ -62,6 +65,27 @@ _ROUTE_STATE = ("peer_id", "replica_id", "first_index", "last_index",
                 "role", "ring_term", "ring_cc")
 # route.cu's stats vector: the six RouteStats, then the suppressed rows
 _N_KSTATS = 7
+
+# rows a block of xlane.cu's count and write passes may walk
+LANE_ROWS = (32, 64, 128)
+# most mesh devices the pack kernel counts per row (xlane.cu XDMAX)
+_XLANE_DMAX = 16
+
+
+def lane_rows_per_block(G: int, D: int) -> int:
+    """Rows a block of ``xlane_pack``'s count and write passes walks: the
+    largest of ``LANE_ROWS`` that still gives every SM a block, else the
+    smallest (fewer blocks make the one-block scan of their totals
+    shorter; ``scripts/route_ab.py --sweep`` times each on the H100).
+    Raises ``ValueError`` outside 1 to ``_XLANE_DMAX`` devices (the
+    kernel's per-row counters)."""
+    if not 1 <= D <= _XLANE_DMAX:
+        raise ValueError(f"xlane_pack: n_dev={D}: at most {_XLANE_DMAX} "
+                         "devices")
+    for R in reversed(LANE_ROWS):
+        if -(-G // R) >= K.N_SM:
+            return R
+    return LANE_ROWS[0]
 
 
 class RouteStats(NamedTuple):
@@ -155,18 +179,19 @@ def route_cuda(
     stats: Optional[torch.Tensor] = None,
     packed: Optional[torch.Tensor] = None,
     undeliv: Optional[torch.Tensor] = None,
-    delivered: Optional[torch.Tensor] = None,
-) -> Tuple[Inbox, torch.Tensor]:
-    """Launch ``csrc/route.cu``.  Returns ``(inbox, stats)`` with
-    ``stats`` the kernel's [7] vector (RouteStats, then the suppressed
-    row count), written into ``stats`` when given.  ``suppress`` is a
-    [G] int32 word (nonzero = suppressed row); ``alive`` is read at
-    ``alive[g * alive_stride]`` (the colocated combo's alive lane);
-    ``prefill`` = (tick, propose_leaders, propose_n) generates the
-    ``[0, base)`` prefix when there is no ``base_inbox``.  ``packed``,
-    ``undeliv`` and ``delivered`` are optional outputs the kernel fills:
-    the [G, ceil(O/32)] delivered bits, the [G] undelivered-row word and
-    the [G, O] bool delivered mask."""
+    delivered: bool = False,
+) -> Tuple[Inbox, torch.Tensor, Optional[torch.Tensor]]:
+    """Launch ``csrc/route.cu``.  Returns ``(inbox, stats, delivered)``
+    with ``stats`` the kernel's [7] vector (RouteStats, then the
+    suppressed row count), written into ``stats`` when given.
+    ``suppress`` is a [G] int32 word (nonzero = suppressed row);
+    ``alive`` is read at ``alive[g * alive_stride]`` (the colocated
+    combo's alive lane); ``prefill`` = (tick, propose_leaders,
+    propose_n) generates the ``[0, base)`` prefix when there is no
+    ``base_inbox``.  ``packed`` and ``undeliv`` are optional outputs the
+    kernel fills: the [G, ceil(O/32)] delivered bits and the [G]
+    undelivered-row word; with ``delivered`` it also fills the [G, O]
+    bool delivered mask it returns (else None)."""
     G, O, nf = out.buf.shape
     P = state.peer_id.shape[1]
     W = state.ring_term.shape[1]
@@ -186,24 +211,42 @@ def route_cuda(
         or base_inbox.ent_term.shape[2] != E
     ):
         raise ValueError("route: base_inbox does not cover the prefix")
-    dev = out.buf.device
-
-    def e(*shape):
-        return torch.empty(shape, dtype=I32, device=dev)
-
-    inbox = Inbox(*(e(G, M) for _ in range(10)), e(G, M, E), e(G, M, E))
+    inbox, scratch, cnt, own_stats, deliv = _route_buffers(
+        G, P, O, M, E, B, out.buf.device, stats is None, delivered)
     if stats is None:
-        stats = e(_N_KSTATS)
-    scratch = e(G * P * B * (N_FIELDS + 2 * E))
+        stats = own_stats
     tick, propose_leaders, propose_n = prefill
     _native.launch(
         "route", [getattr(state, f) for f in _ROUTE_STATE], out.buf,
         out.count, dest_row, rank_in_dest, _int32(suppress), _int32(alive),
         alive_stride, list(base_inbox) if base_inbox is not None else [],
-        list(inbox), stats, packed, undeliv, delivered, scratch, B, base,
-        int(tick), int(propose_leaders), int(propose_n),
+        list(inbox), stats, packed, undeliv, deliv, scratch, cnt, B,
+        base, int(tick), int(propose_leaders), int(propose_n),
     )
-    return inbox, stats
+    return inbox, stats, deliv
+
+
+def _route_buffers(G: int, P: int, O: int, M: int, E: int, B: int, dev,
+                   with_stats: bool, with_delivered: bool):
+    """``route_cuda``'s allocations: the 12 inbox fields as views of one
+    buffer, and the walk's workspace (the scratch words [G, P, B], cnt
+    [G, P], the [7] stats when the caller gives none and the [G, O] bool
+    delivered mask when asked) as views of another, each view 16-byte
+    aligned.  Returns (inbox, scratch, cnt, stats or None, delivered or
+    None)."""
+    inbox = Inbox(*K._views(((G, M),) * 10 + ((G, M, E),) * 2, dev))
+    shapes = [(G * P * B,), (G * P,)]
+    if with_stats:
+        shapes.append((_N_KSTATS,))
+    if with_delivered:
+        shapes.append((-(-G * O // 4),))  # G * O bytes in int32 words
+    work = K._views(tuple(shapes), dev)
+    stats = work[2] if with_stats else None
+    delivered = None
+    if with_delivered:
+        delivered = work[-1].view(torch.uint8)[:G * O].view(
+            torch.bool).view(G, O)
+    return inbox, work[0], work[1], stats, delivered
 
 
 def route(
@@ -235,12 +278,10 @@ def route(
             dest_alive=dest_alive,
         )
         return inbox, RouteStats(*stats), delivered
-    G, O = out.buf.shape[:2]
-    delivered = torch.empty((G, O), dtype=torch.bool, device=out.buf.device)
-    inbox, stats = route_cuda(
+    inbox, stats, delivered = route_cuda(
         state, out, dest_row, rank_in_dest, M=M, E=E, budget=budget,
         base=base, base_inbox=base_inbox, suppress=suppress,
-        alive=dest_alive, delivered=delivered,
+        alive=dest_alive, delivered=True,
     )
     return inbox, RouteStats(*stats[:6]), delivered
 
@@ -276,7 +317,7 @@ def merge_and_route(
     state = DeviceState(*plumbing.select_escalated(
         out.escalate, list(old_state), list(new_state)
     ))
-    inbox, stats = route_cuda(
+    inbox, stats, _ = route_cuda(
         state, out, dest_row, rank_in_dest, M=M, E=E, budget=budget,
         base=base, suppress=out.escalate,
         prefill=(True, propose_leaders, propose_n), stats=stats_out,
@@ -420,8 +461,6 @@ def xbudget_for(tables: MeshTables, budget: int, n_devices: int) -> int:
 # the state fields the lane pack reads, in csrc/xlane.cu's order
 _LANE_STATE = ("peer_id", "replica_id", "first_index", "last_index",
                "ring_term", "ring_cc")
-# most mesh devices the pack kernel counts per row (xlane.cu XDMAX)
-_XLANE_DMAX = 16
 
 
 def xlane_pack(
@@ -457,9 +496,9 @@ def xlane_pack(
     P = state.peer_id.shape[1]
     if nf != N_FIELDS or not 1 <= P <= K.PMAX:
         raise ValueError("xlane_pack: bad outbox or peer width")
-    if not 1 <= n_dev <= _XLANE_DMAX or not 0 <= me < n_dev:
-        raise ValueError(f"xlane_pack: me={me} of n_dev={n_dev}: at most "
-                         f"{_XLANE_DMAX} devices")
+    R = lane_rows_per_block(G, n_dev)
+    if not 0 <= me < n_dev:
+        raise ValueError(f"xlane_pack: me={me} of n_dev={n_dev}")
     for t in (dest_local, dest_dev, rank_in_dest):
         if tuple(t.shape) != (G, P):
             raise ValueError("xlane_pack: the tables must be [G, P]")
@@ -468,13 +507,21 @@ def xlane_pack(
                        device=dev)
     if stats is None:
         stats = torch.empty((N_LANE_STATS,), dtype=I32, device=dev)
-    scan = torch.empty((G * n_dev + n_dev,), dtype=I32, device=dev)
     _native.launch(
         "xlane_pack", [getattr(state, f) for f in _LANE_STATE], out.buf,
         out.count, _int32(suppress), dest_local, dest_dev, rank_in_dest,
-        xbuf, scan, stats, me, n_dev, budget,
+        xbuf, *_lane_work(G, n_dev, R, dev), stats, me, n_dev, budget, R,
     )
     return xbuf, stats
+
+
+def _lane_work(G: int, D: int, R: int, dev) -> list:
+    """``xlane_pack``'s workspace as views of one allocation, each 16-byte
+    aligned: the rows' in-block offsets [G, D], the blocks' totals and
+    offsets [nblk, D], their partial stats [nblk, 4] and the device
+    totals [D], for blocks of R rows."""
+    nblk = -(-G // R)
+    return K._views(((G, D), (nblk, D), (nblk, D), (nblk, 4), (D,)), dev)
 
 
 

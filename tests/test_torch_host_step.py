@@ -3,8 +3,11 @@
 ``csrc/raft_step.cu`` and ``csrc/xlane.cu`` compile as plain C++ when
 there is no CUDA compiler: then the raft step's block phases
 (``dbt::step_load``, ``step_prefill``, ``step_rows``, ``step_store``, for
-either layout) and the lane's per-row logic (``dbt::xlane_row``,
-``dbt::xlane_scatter_row``) are host functions.
+either layout) and the lane's per-slot, per-row and per-message steps
+(``dbt::xlane_slot``, ``xlane_row_scalars``, ``xlane_lane_facts``,
+``lane_rank``, ``xlane_lane_tally``, ``xlane_row_at``, ``xlane_pack_row``,
+``xlane_finish_stats``, ``xlane_zero_range``, ``xlane_scatter_row``) are
+host functions.
 This file builds a small ``extern "C"`` shim around that logic with g++
 into ``tmp_path``, calls it through ``ctypes`` and holds it against the
 plain PyTorch versions on seeded inputs:
@@ -19,10 +22,19 @@ plain PyTorch versions on seeded inputs:
   of 4 and P up to 16;
 * the quorum index counted without an array against the insertion sort
   it replaces, exhaustively over small P;
-* the lane's pack (the count pass, the scan, the write pass and the
-  zero fill, in the kernel's order) against ``route_ref.lane_pack`` and
-  its scatter against ``route_ref.lane_scatter``, on the lane fuzz of
-  ``test_torch_mesh.py`` with a sized and an undersized ``xbudget``.
+* the lane's pack in its three passes, in the kernels' order (the count
+  pass block by block, each row's sub-warp lane by lane with the masks
+  made from the lanes' predicates (``dbt::host_lane_ranks``, where the
+  card takes a ballot) and the block's row-order scan; the
+  scan over the blocks; the zero fill and the write pass), against
+  ``route_ref.lane_pack``, and its scatter against
+  ``route_ref.lane_scatter``, on the lane fuzz of ``test_torch_mesh.py``
+  at 2 to 16 devices, outboxes of 8 to 40 messages, blocks of 32 and 128
+  rows with ragged last blocks, and a sized and an undersized
+  ``xbudget``;
+* the lane kernels' rows a block (``route.lane_rows_per_block``) at the
+  main paths' shapes, and the route and lane wrappers'
+  allocations (views of one buffer each, 16-byte aligned, disjoint).
 
 It checks the arithmetic and the layouts' addressing the kernels share
 with the card; the CUDA launch itself runs only on the card
@@ -133,31 +145,129 @@ void host_quorum(const int* peer_id, const int* kind, const int* match,
   }
 }
 
-// xlane_pack_launch's four passes, in order, on the host
+// xlane_pack's three passes on the host, in the kernels' order: the count
+// pass block by block (each row's sub-warp lane by lane, the masks made
+// from the lanes' predicates, then the block's row-order scan), the scan
+// over the blocks, then the write pass and the zero fill
+static void lane_walk(const dbt::XPackArgs& a, const dbt::XRow& r, int blk,
+                      bool write, int* s, dbt::LaneWords& dcnt, int* stage,
+                      const int* seg) {
+  constexpr int L = dbt::WALK_LANES;
+  dbt::XSlots sl;
+  for (int p = 0; p < a.P; ++p) {
+    const dbt::XSlot x = dbt::xlane_slot(a, r.g, p);
+    sl.pid.v[p] = x.pid; sl.dev.v[p] = x.dev; sl.loc.v[p] = x.loc;
+    sl.rank.v[p] = x.rank;
+  }
+  dbt::LaneWords rowoff;
+  for (int d = 0; write && d < a.D; ++d)
+    rowoff.v[d] = a.rowoff[(long long)r.g * a.D + d];
+  dbt::LaneWords carry;  // per peer slot
+  for (int c = 0; c * L < a.O; ++c) {
+    dbt::XMsg f[L];
+    uint32_t in[L];
+    int bx[L], q[L];
+    bool ok[L];
+    for (int l = 0; l < L; ++l) {
+      dbt::xlane_lane_facts(a, r, c * L + l, sl, f[l]);
+      in[l] = f[l].deliverable ? f[l].hits : 0u;
+    }
+    dbt::host_lane_ranks(a.P, in, carry, bx);
+    for (int l = 0; l < L; ++l) {
+      ok[l] = dbt::xlane_lane_tally(a, f[l], bx[l], s);
+      in[l] = ok[l] ? 1u << f[l].xdev : 0u;
+    }
+    dbt::host_lane_ranks(a.D, in, dcnt, q);
+    for (int l = 0; write && l < L; ++l) {
+      if (!ok[l]) continue;
+      const int x = f[l].xdev;
+      int* row = dbt::xlane_row_at(a, blk, x, q[l] + rowoff.pick(x), stage,
+                                   seg);
+      if (row) dbt::xlane_pack_row(a, r, f[l], row);
+    }
+  }
+}
+
 void host_xlane_pack(const int* const* st, const int* buf, const int* count,
                      const int* suppress, const int* dest_local,
                      const int* dest_dev, const int* rank, int* xbuf,
-                     int* scan, int* stats, int G, int P, int W, int O,
-                     int E, int D, int XB, int B, int me) {
+                     int* rowoff, int* btot, int* boff, int* part, int* tot,
+                     int* stats, int G, int P, int W, int O, int E, int D,
+                     int XB, int B, int me, int R, int stage_rows) {
   dbt::XPackArgs a;
   a.peer_id = st[0]; a.replica_id = st[1]; a.first_index = st[2];
   a.last_index = st[3]; a.ring_term = st[4]; a.ring_cc = st[5];
   a.buf = buf; a.count = count; a.suppress = suppress;
   a.dest_local = dest_local; a.dest_dev = dest_dev; a.rank = rank;
-  a.xbuf = xbuf; a.scan = scan; a.stats = stats;
+  a.xbuf = xbuf; a.rowoff = rowoff; a.btot = btot; a.boff = boff;
+  a.part = part; a.tot = tot; a.stats = stats;
   a.G = G; a.P = P; a.W = W; a.O = O; a.E = E; a.D = D; a.XB = XB;
-  a.B = B; a.me = me;
-  for (int i = 0; i < dbt::N_LANE_STATS; ++i) stats[i] = 0;
-  int s[4] = {0, 0, 0, 0};
-  for (int g = 0; g < G; ++g) dbt::xlane_row(a, g, s, false);
-  stats[2] = s[0];
-  stats[4] = s[1];
-  stats[3] = s[2];
-  stats[5] = s[3];
-  dbt::xlane_scan_host(a);
-  for (int g = 0; g < G; ++g) dbt::xlane_row(a, g, s, true);
-  const long long total = (long long)D * XB * (dbt::X_KF + 2 * E);
-  for (long long t = 0; t < total; ++t) dbt::xlane_zero_word(a, t);
+  a.B = B; a.me = me; a.R = R; a.nblk = (G + R - 1) / R;
+  a.stage_rows = stage_rows;
+  auto row = [&](int g, dbt::XRow& r) {
+    if (g < G) dbt::xlane_row_scalars(a, g, r); else dbt::xlane_row_empty(r);
+  };
+  // count: per block, its rows' counts, then their row-order scan
+  for (int k = 0; k < a.nblk; ++k) {
+    std::vector<int> rc((size_t)R * D, 0);
+    int s[dbt::XL_NPART] = {0, 0, 0, 0};
+    for (int rr = 0; rr < R; ++rr) {
+      dbt::XRow r;
+      row(k * R + rr, r);
+      dbt::LaneWords dcnt;
+      lane_walk(a, r, k, false, s, dcnt, nullptr, nullptr);
+      if (r.sup) s[3] += 1;
+      for (int d = 0; d < D; ++d) rc[(size_t)rr * D + d] = dcnt.held(d);
+    }
+    for (int d = 0; d < D; ++d) {
+      int run = 0;
+      for (int rr = 0; rr < R; ++rr) {
+        if (k * R + rr < G) rowoff[(long long)(k * R + rr) * D + d] = run;
+        run += rc[(size_t)rr * D + d];
+      }
+      btot[k * D + d] = run;
+    }
+    for (int i = 0; i < dbt::XL_NPART; ++i) part[k * dbt::XL_NPART + i] = s[i];
+  }
+  // scan
+  int st_sum[dbt::XL_NPART] = {0, 0, 0, 0};
+  for (int d = 0; d < D; ++d) {
+    int run = 0;
+    for (int k = 0; k < a.nblk; ++k) {
+      boff[k * D + d] = run;
+      run += btot[k * D + d];
+    }
+    tot[d] = run;
+  }
+  for (int k = 0; k < a.nblk; ++k)
+    for (int i = 0; i < dbt::XL_NPART; ++i)
+      st_sum[i] += part[k * dbt::XL_NPART + i];
+  dbt::xlane_finish_stats(a, tot, st_sum);
+  // write: the zero fill, then each block's rows, staged when they fit
+  for (int d = 0; d < D; ++d) {
+    long long lo, hi;
+    dbt::xlane_zero_range(a, d, tot[d], &lo, &hi);
+    for (long long w = lo; w < hi; ++w) xbuf[w] = 0;
+  }
+  const int KT = dbt::X_KF + 2 * E;
+  for (int k = 0; k < a.nblk; ++k) {
+    int seg[dbt::XDMAX];
+    const bool staged = dbt::xlane_block_segs(a, k, seg) <= stage_rows;
+    std::vector<int> stage((size_t)stage_rows * KT + 1, -0x5EED);
+    for (int rr = 0; rr < R; ++rr) {
+      dbt::XRow r;
+      row(k * R + rr, r);
+      dbt::LaneWords dcnt;
+      int s[dbt::XL_NPART];
+      lane_walk(a, r, k, true, s, dcnt, staged ? stage.data() : nullptr, seg);
+    }
+    if (!staged) continue;
+    for (int d = 0; d < D; ++d) {
+      const int n = dbt::xlane_flush_rows(a, k, d) * KT;
+      int* dst = xbuf + ((long long)d * XB + boff[k * D + d]) * KT;
+      for (int w = 0; w < n; ++w) dst[w] = stage[(size_t)seg[d] * KT + w];
+    }
+  }
 }
 
 void host_xlane_scatter(int* const* inbox, const int* recv, int* stats,
@@ -403,15 +513,19 @@ def test_output_views_are_aligned_and_disjoint(G):
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
-def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB):
+def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB, R, stage):
+    """The shim's three-pass lane pack in blocks of R rows, a block
+    staging up to ``stage`` packed rows; xbuf and the workspace start
+    poisoned, so a word the passes leave unwritten shows."""
     G, O, _ = out["buf"].shape
     P, W = st["peer_id"].shape[1], st["ring_term"].shape[1]
     srcs = [np.ascontiguousarray(st[f]) for f in (
         "peer_id", "replica_id", "first_index", "last_index", "ring_term",
         "ring_cc")]
-    xbuf = np.full((D, XB, route_ref.X_KF + 2 * E), -7, np.int32)
-    scan = np.empty((G * D + D,), np.int32)
-    stats = np.empty((route_ref.N_LANE_STATS,), np.int32)
+    xbuf = np.full((D, XB, route_ref.X_KF + 2 * E), POISON, np.int32)
+    work = [np.full(tuple(v.shape), POISON, np.int32)
+            for v in PRt._lane_work(G, D, R, "cpu")]
+    stats = np.full((route_ref.N_LANE_STATS,), POISON, np.int32)
     supw = np.ascontiguousarray(sup, np.int32)
     tabs = [np.ascontiguousarray(t, np.int32) for t in tabs]
     so.host_xlane_pack(
@@ -419,21 +533,33 @@ def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB):
         ctypes.c_void_p(out["count"].ctypes.data),
         ctypes.c_void_p(supw.ctypes.data),
         *[ctypes.c_void_p(t.ctypes.data) for t in tabs],
-        ctypes.c_void_p(xbuf.ctypes.data), ctypes.c_void_p(scan.ctypes.data),
+        ctypes.c_void_p(xbuf.ctypes.data),
+        *[ctypes.c_void_p(w.ctypes.data) for w in work],
         ctypes.c_void_p(stats.ctypes.data),
-        *_ints(G, P, W, O, E, D, XB, B, me))
+        *_ints(G, P, W, O, E, D, XB, B, me, R, stage))
     return xbuf, stats
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_lane_rows_match_plain_versions(shim, n_dev):
-    rng = np.random.default_rng(SEED + 10 + n_dev)
-    st, out, ib, tabs, sup, c = TM.lane_fuzz_inputs(rng, n_dev)
+# (n_dev, groups, outbox capacity): the first two at the lane fuzz's own
+# size (one ragged block of 12 or 6 rows); 75 rows a device in blocks of
+# 32 (two full, one ragged) with O = 40, walked in five chunks of 8; 16
+# devices of 33 rows with O = 8 (one chunk)
+LANE_CASES = [(2, 8, 12), (4, 8, 12), (4, 100, 40), (16, 176, 8)]
+
+
+@pytest.mark.parametrize("n_dev,groups,O", LANE_CASES,
+                         ids=["2", "4", "4-G300-O40", "16-G528-O8"])
+def test_lane_rows_match_plain_versions(shim, n_dev, groups, O):
+    rng = np.random.default_rng(SEED + 10 + n_dev + groups - 8)
+    st, out, ib, tabs, sup, c = TM.lane_fuzz_inputs(rng, n_dev, groups, O=O)
     G, E, B, base = c["G"], c["E"], c["B"], c["base"]
     gl = G // n_dev
     sized = PRt.xbudget_for(tabs, B, n_dev)
     hit = np.zeros((route_ref.N_LANE_STATS,), np.int64)
-    for xb in (sized, max(1, sized // 8)):
+    # blocks of 32 and 128 rows; every block's rows staged, none, and
+    # some blocks' (a stage of 8 rows)
+    for xb, R, stage in ((sized, 32, 32 * O), (sized, 128, 0),
+                         (max(1, sized // 8), 32, 8)):
         for me in range(n_dev):
             rows = slice(me * gl, (me + 1) * gl)
             st_d = {k: np.ascontiguousarray(v[rows]) for k, v in st.items()}
@@ -441,14 +567,14 @@ def test_lane_rows_match_plain_versions(shim, n_dev):
             tabs_d = [np.ascontiguousarray(t[rows]) for t in tabs]
             xbuf, stats = host_lane_pack(
                 shim, st_d, out_d, tabs_d, sup[rows], me=me, D=n_dev, E=E,
-                B=B, XB=xb)
+                B=B, XB=xb, R=R, stage=stage)
             w_xbuf, w_stats = route_ref.lane_pack(
                 convert.state_from_numpy(st_d, "cpu"),
                 convert.out_from_numpy(out_d, "cpu"),
                 *(TM._t(t) for t in tabs_d), me=me, n_dev=n_dev, E=E,
                 budget=B, xbudget=xb, suppress=torch.from_numpy(sup[rows]))
-            assert np.array_equal(xbuf, w_xbuf.numpy()), (me, xb)
-            assert np.array_equal(stats, w_stats.numpy()), (me, xb, stats,
+            assert np.array_equal(xbuf, w_xbuf.numpy()), (me, xb, R, stage)
+            assert np.array_equal(stats, w_stats.numpy()), (me, xb, R, stats,
                                                             w_stats)
             hit += stats
             # scatter what the other devices packed for ``me`` into its
@@ -472,3 +598,72 @@ def test_lane_rows_match_plain_versions(shim, n_dev):
             hit[1] += sst[1]
     # every counter was reached
     assert (hit > 0).all(), hit
+
+
+# (G, n_dev) -> rows a block of the lane's passes: the geometries the
+# main paths launch the lane kernels' walk at
+LANE_GEOMETRIES = {
+    "C30000": ((30_000, 1), 128),   # colocated kernels: route's inputs
+    "G4096": ((4096, 1), 32),       # the colocated engine's capacity
+    "X37500": ((37_500, 4), 128),   # multichip leg 2, a block of 4
+    "G8448": ((8_448, 4), 64),      # 132 blocks of 64 rows exactly
+    "G100000": ((100_000, 4), 128),  # phase A's rows on four devices
+}
+
+
+@pytest.mark.parametrize("geom,want", LANE_GEOMETRIES.values(),
+                         ids=LANE_GEOMETRIES.keys())
+def test_lane_geometry_at_the_main_paths(geom, want):
+    G, D = geom
+    assert PRt.lane_rows_per_block(G, D) == want
+    assert want in PRt.LANE_ROWS
+    # every SM gets a block, unless the smallest blocks cannot give it one
+    assert -(-G // want) >= PK.N_SM or want == PRt.LANE_ROWS[0]
+
+
+def test_lane_geometry_raises_at_the_limits():
+    with pytest.raises(ValueError, match="at most 16 devices"):
+        PRt.lane_rows_per_block(37_500, 17)
+    with pytest.raises(ValueError, match="at most 16 devices"):
+        PRt.lane_rows_per_block(37_500, 0)
+    # a grid too small for every SM takes the smallest blocks
+    assert PRt.lane_rows_per_block(1, 16) == PRt.LANE_ROWS[0]
+
+
+def _assert_one_aligned_allocation(views):
+    """Every view lies in one allocation, starts on a 16-byte boundary
+    and overlaps no other."""
+    base = views[0].untyped_storage().data_ptr()
+    spans = []
+    for v in views:
+        assert v.is_contiguous()
+        assert v.untyped_storage().data_ptr() == base
+        off = v.storage_offset() * v.element_size()
+        assert off % 16 == 0
+        spans.append((off, off + v.numel() * v.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("G", [0, 1, 7, 48])
+def test_route_and_lane_views_are_aligned_and_disjoint(G):
+    P, O, M, E, B = 5, 33, 22, 3, 4
+    inbox, scratch, cnt, stats, deliv = PRt._route_buffers(
+        G, P, O, M, E, B, "cpu", True, True)
+    assert [tuple(t.shape) for t in inbox] == [(G, M)] * 10 + [(G, M, E)] * 2
+    assert all(t.dtype == torch.int32 for t in inbox)
+    _assert_one_aligned_allocation(list(inbox))
+    assert scratch.numel() == G * P * B
+    assert tuple(cnt.shape) == (G * P,) and tuple(stats.shape) == (7,)
+    assert tuple(deliv.shape) == (G, O) and deliv.dtype == torch.bool
+    _assert_one_aligned_allocation([scratch, cnt, stats, deliv])
+    # without the optional outputs: scratch and cnt alone
+    rest = PRt._route_buffers(G, P, O, M, E, B, "cpu", False, False)
+    assert rest[3] is None and rest[4] is None
+    _assert_one_aligned_allocation([rest[1], rest[2]])
+    for D, R in ((4, 32), (16, 128)):
+        work = PRt._lane_work(G, D, R, "cpu")
+        nblk = -(-G // R)
+        assert [tuple(w.shape) for w in work] == [
+            (G, D), (nblk, D), (nblk, D), (nblk, 4), (D,)]
+        _assert_one_aligned_allocation(work)
