@@ -19,7 +19,13 @@ Phases, each printing one JSON line:
                raft_step also at the engines' small grids: G = 512 (the
                NodeHost engine's capacity, the same widths) and G = 4096
                (the colocated engine's; P=3, W=16, assembled M=20, E=4,
-               O=32), bit-exact and timed the same way.
+               O=32), bit-exact and timed the same way.  place_rows in
+               every mode (scatter with a dst, gather without one,
+               select, the escalation select as a select, the snapshot
+               store) and the in-place escalation merge (merge_escalated,
+               at 0, 3 and about 10% escalated rows) bit-exact at 30,000,
+               512 and multichip leg 2's block of 37,500 rows, each mode
+               timed with its device split and its bound.
 3. colo_kernels — route, the three inbox entry points (assemble,
                from_ticks, zero_rows) and select_and_blob, bit-exact
                against their plain versions at G = 30,000 rows (P=5, W=32,
@@ -28,7 +34,11 @@ Phases, each printing one JSON line:
                fused_rounds over build_route_tables of the 10k x 3 layout;
                then timed the same way; route also at the colocated
                engine's capacity (G = 4096, P=3, W=16), each with its
-               kernels' device split (the profiler's time by kernel).
+               kernels' device split (the profiler's time by kernel);
+               select_and_blob also on a storm (every row selected in
+               every section, the counts past the first tiers' caps) and
+               at G = 4096, at every tier, with its count / scan / write
+               split.
 4. mesh_kernels — raft_step_internal (raft_step.cu's G-last kernel)
                bit-exact against its plain version at bench phase A's
                geometry, G = 300,000 rows (100k groups x 3;
@@ -274,6 +284,14 @@ KERNEL_INFO = {
     ),
 }
 
+# the in-place escalation merge (csrc/place_rows.cu): the jnp.where of
+# the colocated and routed rounds' tails
+MERGE_INFO = dict(
+    source="dragonboat_tpu_torch/csrc/place_rows.cu",
+    replaces="dragonboat_tpu/ops/colocated.py:215",
+    also_replaces=["dragonboat_tpu/ops/route.py:431"],
+)
+
 # the colocated path's kernels (csrc/inbox.cu has three entry points;
 # its row in the result line is the per-round work of the main path,
 # from_ticks + assemble, with each entry's numbers beside it)
@@ -362,9 +380,11 @@ def ptxas_report(log: str) -> dict:
     report."""
     names = ("raft_step_internal_kernel", "raft_step_kernel",
              "summarize_flags_kernel", "gather_pack_kernel",
-             "place_rows_kernel", "place_snapshot_kernel",
+             "place_rows_kernel", "merge_escalated_kernel",
+             "place_snapshot_kernel",
              "route_walk_kernel", "route_recv_kernel", "inbox_kernel",
-             "select_rows_kernel", "blob_kernel", "xlane_count_kernel",
+             "select_count_kernel", "select_scan_kernel",
+             "select_write_kernel", "xlane_count_kernel",
              "xlane_scan_kernel", "xlane_write_kernel",
              "xlane_scatter_kernel")
     rep, cur = {}, None
@@ -610,11 +630,17 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
     for v in small.values():
         errs["raft_step"] = max(errs["raft_step"], v["max_abs_err"])
         checks["raft_step"] += v["checks"]
+    place = place_rows_modes(dev)
+    errs["place_rows"] = max(errs["place_rows"],
+                             place["max_abs_err"]["place_rows"])
+    checks["place_rows"] += place["checks"]["place_rows"]
+    errs["merge_escalated"] = place["max_abs_err"]["merge_escalated"]
+    checks["merge_escalated"] = place["checks"]["merge_escalated"]
     result = dict(routed_steps=n_routed, fuzz_steps=n_fuzz, rows=G,
                   routed=routed, fuzz_escalations=fuzz_esc,
                   checks=checks, max_abs_err=errs,
                   rows_per_block=K.rows_per_block(G, P, W, M, E, O),
-                  small_grids=small)
+                  small_grids=small, place_modes=place["timed"])
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -674,9 +700,134 @@ def kernels_phase(dev, G: int = G_KERNELS, n_routed: int = 40,
         "place_rows": device_ms(
             lambda: plumbing.place_rows(list(st0), sub, pos)),
     }
+    place_split = kernel_split(
+        lambda: plumbing.place_rows(list(st0), sub, pos))
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                  library_ms=lib_ms, gather_rows=[b, b2], scatter_rows=n)
+                  library_ms=lib_ms, gather_rows=[b, b2], scatter_rows=n,
+                  place_rows_split=place_split)
     return result
+
+
+# place_rows' modes and the in-place merge: the kernels phase's 30,000
+# rows, the NodeHost engine's capacity, and multichip leg 2's block
+# (150,000 rows on 4 blocks)
+PLACE_GEOMS = {
+    "C30000": (30_000, 5, 32),
+    "G512": (512, 5, 32),
+    "X37500": (37_500, 3, 16),
+}
+
+
+def place_rows_modes(dev) -> dict:
+    """Every mode of ``place_rows`` and the in-place escalation merge
+    bit-exact against the plain versions on seeded state-shaped fields
+    at each of ``PLACE_GEOMS``: scatter with a dst, gather without one,
+    select, the escalation select (rows mode keeping old where escalate
+    is nonzero), the in-place merge at 0, 3 and about 10% escalated rows,
+    and the snapshot store.  Then, at
+    30,000 rows and at leg 2's block, each mode timed (CUDA events, the
+    profiler's device time and split by kernel) beside its bound."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import engine_ref, plumbing
+    from dragonboat_tpu_torch.ops import types as T
+
+    err = {"place_rows": 0, "merge_escalated": 0}
+    checks = {"place_rows": 0, "merge_escalated": 0}
+
+    def check(name, got, want):
+        err[name] = max(err[name], _max_err(got, want))
+        checks[name] += 1
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    timed = {}
+    for gname, (G, P_, W_) in PLACE_GEOMS.items():
+        rng = np.random.default_rng([SEED, G, 6])
+        shapes = [tuple(t.shape)
+                  for t in T.make_state(G, P_, W_, device="cpu")]
+
+        def fields(n):
+            return [put(rng.integers(-999, 999, (n,) + s[1:]))
+                    for s in shapes]
+
+        old, new = fields(G), fields(G)
+        width = sum(int(np.prod(s[1:])) for s in shapes)
+        n_sub = min(G, 1024)
+        sub = fields(n_sub)
+        rows = rng.choice(G, size=n_sub, replace=False)
+        pos_np = np.full(G, -1, np.int32)
+        pos_np[np.sort(rows)] = np.arange(n_sub)
+        pos = put(pos_np)
+        check("place_rows", plumbing.place_rows(old, sub, pos),
+              engine_ref.place_rows(old, sub, pos))
+        idx = put(rng.integers(0, G + 2, n_sub))
+        check("place_rows", plumbing.place_rows(None, new, idx),
+              engine_ref.place_rows(None, new, idx))
+        keep = put(np.where(rng.random(G) < 0.9, np.arange(G), -1))
+        check("place_rows", plumbing.place_rows(old, new, keep),
+              engine_ref.place_rows(old, new, keep))
+        escs = {}
+        for ename, frac in (("0", 0.0), ("3", None), ("10pct", 0.1)):
+            e = np.where(rng.random(G) < (frac or 0.0),
+                         rng.integers(1, 16, G), 0)
+            if frac is None:
+                e[rng.choice(G, size=3, replace=False)] = 4
+            escs[ename] = put(e)
+        for ename, esc in escs.items():
+            # the escalation select in rows mode: old where escalate != 0
+            esc_pos = torch.where(esc != 0, -1, torch.arange(
+                G, dtype=torch.int32, device=dev))
+            check("place_rows", plumbing.place_rows(old, new, esc_pos),
+                  engine_ref.select_escalated(esc, old, new))
+            merged = [t.clone() for t in new]
+            got = plumbing.merge_escalated(esc, old, merged)
+            check("merge_escalated", got,
+                  engine_ref.select_escalated(esc, old, new))
+        pairs = rng.choice(G, size=3, replace=False).tolist()
+        gi, pi = put(pairs), put(rng.integers(0, P_, 3))
+        si = put(rng.integers(1, 99, 3))
+        rstate = new[T.DeviceState._fields.index("rstate")]
+        snap_index = new[T.DeviceState._fields.index("snap_index")]
+        check("place_rows",
+              plumbing.set_remote_snapshot(rstate, snap_index, gi, pi, si),
+              engine_ref.set_remote_snapshot(rstate, snap_index, gi, pi, si))
+        if gname == "G512":
+            continue
+        # the modes timed: rows mode as the engine scatters a sub-batch,
+        # gathers and selects, and the in-place merge (on a scratch
+        # copy of new: a merge leaves it merged, and the next call finds
+        # the same escalated rows to copy)
+        scratch = [t.clone() for t in new]
+        modes = {
+            "scatter": (lambda: plumbing.place_rows(old, sub, pos),
+                        4 * (2 * G * width + G)),
+            "gather": (lambda: plumbing.place_rows(None, new, idx),
+                       4 * (2 * n_sub * width + n_sub)),
+            "select": (lambda: plumbing.place_rows(old, new, keep),
+                       4 * (2 * G * width + G)),
+        }
+        for ename, esc in escs.items():
+            n_esc = int((esc != 0).sum())
+            modes[f"merge_{ename}"] = (
+                lambda esc=esc: plumbing.merge_escalated(esc, old, scratch),
+                4 * (G + 2 * n_esc * width))
+        res = {}
+        for mname, (fn, nbytes) in modes.items():
+            res[mname] = dict(
+                ms=time_ms(fn, 50), device_ms=device_ms(fn),
+                split=kernel_split(fn), bound_ms=bound_ms(nbytes))
+        res["merge_0"]["plain_ms"] = time_ms(
+            lambda: engine_ref.merge_escalated(escs["0"], old, scratch), 5)
+        res["scatter"]["plain_ms"] = time_ms(
+            lambda: engine_ref.place_rows(old, sub, pos), 5)
+        timed[gname] = dict(rows=G, P=P_, W=W_, row_words=width,
+                            n_sub=n_sub,
+                            escalated={k: int((v != 0).sum())
+                                       for k, v in escs.items()},
+                            modes=res)
+    return dict(max_abs_err=err, checks=checks, timed=timed)
 
 
 # the engines' small grids: the NodeHost engine's capacity at its widths,
@@ -813,9 +964,12 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
     check("assemble_inbox", list(full),
           list(CR.assemble_inbox(host, pending, combo)))
     new, out = K.step(st, full, O)
+    # _route_step consumes new (the in-place merge): the plain version
+    # gets a copy
+    new_ref = T.DeviceState(*(t.clone() for t in new))
     tail = C._route_step(st, new, out, dest, rank, combo, PB=PB, E=E,
                          budget=B)
-    want = CR.route_step(st, new, out, dest, rank, combo, PB=PB, E=E,
+    want = CR.route_step(st, new_ref, out, dest, rank, combo, PB=PB, E=E,
                          budget=B)
     check("route_step", C._tensors(tail), C._tensors(want))
     merged, regions, stats6, packed, flags = tail
@@ -843,11 +997,43 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
             sel_counts = dict(zip(
                 ("buf", "slot", "need", "append", "sum"),
                 got[0][G + G * nw + 6:G + G * nw + 11].tolist()))
+    # a storm: every row live and selected in every section, so that the
+    # counts exceed the first tiers' capacities; and the colocated
+    # engine's capacity (G = 4,096, P=3, W=16) on random flags and lanes
+    storm_flags = torch.full_like(flags, T.F_ANY_LIVE)
+    storm_combo = combo.clone()
+    storm_combo[:, :3] = 1
+    sel_cases = {"storm": (merged, out, stats6, packed, storm_flags,
+                           storm_combo, PB)}
+    c4s = colo_route_case(dev, 4096, 3, 16)
+    r4 = np.random.default_rng(SEED + 4)
+    G4 = 4096
+    sel_cases["G4096"] = (
+        c4s["merged"], c4s["out"], put(r4.integers(-99, 99, 6)),
+        put(r4.integers(-2**31, 2**31 - 1, (G4, (O + 31) // 32))),
+        put(r4.integers(0, 128, G4)),
+        put(np.concatenate([r4.random((G4, 3)) < (0.9, 0.4, 0.15),
+                            r4.integers(0, 4, (G4, 1))], axis=1)),
+        c4s["PB"])
+    for cname, (m_, o_, s_, p_, f_, c_, hoff) in sel_cases.items():
+        Gc = f_.shape[0]
+        for t in range(len(C._SEL_TIERS)):
+            caps = {k: min(Gc, v) for k, v in C._SEL_TIERS[t].items()}
+            kw = dict(CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
+                      CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=hoff)
+            check("select_and_blob",
+                  list(C._select_and_blob(m_, o_, s_, p_, f_, c_, **kw)),
+                  list(CR.select_and_blob(m_, o_, s_, p_, f_, c_, **kw)))
+    storm_counts = C._select_and_blob(
+        *sel_cases["storm"][:6], CAP_B=16, CAP_SL=64, CAP_N=8, CAP_A=64,
+        CAP_S=1024, HOST_OFF=PB)[0][G + G * ((O + 31) // 32) + 6:
+                                     G + G * ((O + 31) // 32) + 11].tolist()
     mask = put(rng.random(G) < 0.05)
     check("zero_inbox_rows", list(C._zero_inbox_rows(regions, mask)),
           list(CR.zero_inbox_rows(regions, mask)))
     result = dict(rows=G, budget=B, assembled_M=PB + MH, cluster=cluster,
-                  selected=sel_counts, checks=checks, max_abs_err=errs)
+                  selected=sel_counts, storm_selected=storm_counts,
+                  checks=checks, max_abs_err=errs)
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(
@@ -900,11 +1086,31 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
         G, O, out.slot_base.shape[1], E, P, W,
         (caps["b"], caps["sl"], caps["n"], caps["a"], caps["s"]), PB)
     # flags, combo lanes, bits and stats in; the head and detail out (the
-    # detail's gathered rows are read once and written once)
+    # detail's gathered rows are read once and written once); the
+    # scratch: a mask byte a row written and read, the block totals
+    # written and read twice, the block offsets written and read
+    nb = -(-G // C._SEL_BLOCK_ROWS)
     bound["select_and_blob"] = bound_ms(4 * (
         G * (1 + 3 + (O + 31) // 32) + 6 + n_head + 2 * n_detail
-        + caps["s"] * T.N_VALS))
+        + caps["s"] * T.N_VALS) + 2 * G + 4 * 5 * nb * 5)
     lib_ms["select_and_blob"] = None
+
+    def sel_call(case, tier=0):
+        m_, o_, s_, p_, f_, c_, hoff = sel_cases[case] if case else (
+            merged, out, stats6, packed, flags, combo, PB)
+        cp = {k: min(f_.shape[0], v) for k, v in C._SEL_TIERS[tier].items()}
+        return lambda: C._select_and_blob(
+            m_, o_, s_, p_, f_, c_, CAP_B=cp["b"], CAP_SL=cp["sl"],
+            CAP_N=cp["n"], CAP_A=cp["a"], CAP_S=cp["s"], HOST_OFF=hoff)
+
+    sel_geoms = {"C30000": dict(split=kernel_split(sel_call(None)))}
+    for cname in sel_cases:
+        fn = sel_call(cname)
+        sel_geoms[cname] = dict(ms=time_ms(fn, 50), device_ms=device_ms(fn),
+                                split=kernel_split(fn))
+    for t in range(1, len(C._SEL_TIERS)):
+        sel_geoms[f"C30000_tier{t}"] = dict(device_ms=device_ms(
+            sel_call(None, t)))
     dev_ms = {
         "route": device_ms(lambda: R.route_cuda(
             merged, out, dest, rank, M=PB, E=E, budget=B, base=0,
@@ -940,7 +1146,8 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
         raise AssertionError(f"route at G = 4096 disagrees: {c4_err}")
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                   library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0,
-                  route_geometries=geoms, max_abs_err=errs, checks=checks)
+                  route_geometries=geoms, select_geometries=sel_geoms,
+                  max_abs_err=errs, checks=checks)
     return result
 
 
@@ -976,7 +1183,7 @@ def colo_route_case(dev, G: int, P_: int, W_: int, waves: int = 6) -> dict:
             st, inbox, dest, rank, rounds=3, out_capacity=O, budget=B,
             base=MH, propose_leaders=w >= waves // 2)
     new, out = K.step(st, inbox, O)
-    merged = T.DeviceState(*plumbing.select_escalated(
+    merged = T.DeviceState(*plumbing.merge_escalated(
         out.escalate, list(st), list(new)))
     rng = np.random.default_rng(SEED + G + 5)
     combo = np.zeros((G, 4), np.int32)
@@ -1043,6 +1250,9 @@ X_DEVICES = 4
 # slowest of those classes elects only by round ~54 (195 of 50k groups
 # had no leader after 48 rounds)
 X_ROUNDS, X_WAVES, X_WAVE_ROUNDS = 40, 8, 3
+# the kernels of leg 2's sharded round
+X_PATH_KERNELS = ("raft_step", "merge_escalated", "route", "xlane_pack",
+                  "xlane_scatter")
 
 MESH_KERNEL_INFO = {
     "raft_step_internal": dict(
@@ -1145,7 +1355,7 @@ def leg2_lane_case(dev, warm_rounds: int = 20) -> dict:
             xs, xi, x["dest"], x["rank"], out_capacity=X_O, budget=X_BUD,
             base=X_BASE, propose_leaders=True)
     new, out = K.step(xs, xi, X_O)
-    merged = T.DeviceState(*plumbing.select_escalated(
+    merged = T.DeviceState(*plumbing.merge_escalated(
         out.escalate, list(xs), list(new)))
     mesh = GroupsMesh([dev] * X_DEVICES)
     return dict(
@@ -1438,7 +1648,8 @@ def _equal(a, b) -> bool:
                for x, y in zip(a, b, strict=True))
 
 
-def multichip_phase(dev, devices, launches: int = 12) -> dict:
+def multichip_phase(dev, devices, launches: int = 12,
+                    path_kernels: tuple = X_PATH_KERNELS) -> dict:
     """The reference's phase_multichip legs 1 and 2 (bench.py:2735-2880)
     on ``GroupsMesh(devices)``.  Leg 1: ``make_step_sharded(internal=True)``
     over phase A's state at 300,000 rows against ``step_internal``, bit-
@@ -1447,7 +1658,8 @@ def multichip_phase(dev, devices, launches: int = 12) -> dict:
     single-device ``routed_round`` and 8 waves of 3 rounds against
     ``fused_rounds``, state and inbox bit-exact.  The sharded runs come
     first, with the launch counts reset before them and read after; the
-    single-device runs are timed the same way beside them."""
+    single-device runs are timed the same way beside them.  Every kernel
+    of ``path_kernels`` must have launched on leg 2."""
     import torch
 
     from dragonboat_tpu_torch.ops import _native
@@ -1611,8 +1823,7 @@ def multichip_phase(dev, devices, launches: int = 12) -> dict:
         fails.append(f"{groups - leg2['groups_committing']} groups never "
                      "committed")
     idle = [k for k in ("raft_step_internal",) if launches_leg1[k] < 1]
-    idle += [k for k in ("raft_step", "place_rows", "route", "xlane_pack",
-                         "xlane_scatter") if launches_leg2[k] < 1]
+    idle += [k for k in path_kernels if launches_leg2[k] < 1]
     if idle:
         fails.append(f"kernels never launched on the sharded path: {idle}")
     if fails:
@@ -1905,7 +2116,9 @@ COLO_INFLIGHT = 8
 COLO_RTT_MS, COLO_ELECTION_RTT, COLO_HEARTBEAT_RTT = 20, 20, 2
 COLO_PARITY_EVERY = 20
 COLO_PARITY_KERNELS = ("raft_step", "summarize_flags", "gather_pack",
-                       "place_rows", "route", "inbox", "select_and_blob")
+                       "merge_escalated", "route", "inbox",
+                       "select_and_blob")
+
 
 
 class UtilizationSampler:
@@ -2042,7 +2255,8 @@ def device_busy_share(seconds: float) -> dict:
 
 def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                     window_s: float = COLO_WINDOW_S,
-                    profile_s: float = 0.0) -> dict:
+                    profile_s: float = 0.0,
+                    parity_kernels: tuple = COLO_PARITY_KERNELS) -> dict:
     """1,000 shards x 3 replicas on three NodeHosts in one process (the
     in-proc transport), all stepped by ONE ``ColocatedEngineGroup`` on
     the card with the tan WAL; phase C's drive: ``COLO_WORKERS`` workers
@@ -2320,7 +2534,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                         if k.startswith("t_")}
     res["parity"] = {
         k: [st[f"parity_attempts_{k}"], st[f"parity_checks_{k}"]]
-        for k in COLO_PARITY_KERNELS
+        for k in parity_kernels
     }
     res["kernel_launches"] = launches
     res["entry_launches"] = entry_launches
@@ -2345,7 +2559,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
         if passed < 1 or passed != begun:
             raise AssertionError(
                 f"parity of {k}: {passed} of {begun} checks passed")
-    idle = [k for k in COLO_PARITY_KERNELS if launches[k] < 1]
+    idle = [k for k in parity_kernels if launches[k] < 1]
     if idle:
         raise AssertionError(
             f"kernels never launched on the colocated path: {idle}")
@@ -2461,6 +2675,13 @@ def main(argv) -> int:
             bound_ms=kern["bound_ms"][k], bound_by="bytes",
             library_ms=kern["library_ms"][k],
         ))
+        if k == "place_rows":
+            rows[-1].update(
+                launches_multichip=mc["leg2"]["kernel_launches"][k],
+                split=kern["place_rows_split"], modes=kern["place_modes"],
+                ptxas={n: ptxas_numbers(v) for n, v in ptxas.items()
+                       if n in ("place_rows_kernel",
+                                "place_snapshot_kernel")})
         if k == "raft_step":
             rows[-1]["block"] = block("raft_step_kernel",
                                       kern["rows_per_block"],
@@ -2469,6 +2690,23 @@ def main(argv) -> int:
                 g: dict(v["routed"], rows_per_block=v["rows_per_block"],
                         fuzz_device_ms=v["fuzz"]["device_ms"])
                 for g, v in kern["small_grids"].items()}
+    # the in-place escalation merge of the routed rounds: its numbers at
+    # 30,000 rows with no escalated row (the main paths' usual round)
+    m0 = kern["place_modes"]["C30000"]["modes"]["merge_0"]
+    rows.append(dict(
+        name="merge_escalated", route="cuda", source=MERGE_INFO["source"],
+        replaces=MERGE_INFO["replaces"],
+        also_replaces=MERGE_INFO["also_replaces"],
+        launches=colo["kernel_launches"]["merge_escalated"],
+        launches_multichip=mc["leg2"]["kernel_launches"]["merge_escalated"],
+        max_abs_err=kern["max_abs_err"]["merge_escalated"],
+        ms=m0["ms"], device_ms=m0["device_ms"], plain_ms=m0["plain_ms"],
+        bound_ms=m0["bound_ms"], bound_by="bytes", library_ms=None,
+        geometries={g: {m: v["modes"][m] for m in v["modes"]
+                        if m.startswith("merge_")}
+                    for g, v in kern["place_modes"].items()},
+        ptxas=ptxas_numbers(ptxas.get("merge_escalated_kernel")),
+    ))
     for k, info in COLO_KERNEL_INFO.items():
         ents = info["entries"]
 
@@ -2492,6 +2730,10 @@ def main(argv) -> int:
                                      X37500=mkern["route_X37500"])
             row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
                             if n.startswith("route_")}
+        if k == "select_and_blob":
+            row["geometries"] = ckern["select_geometries"]
+            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+                            if n.startswith("select_")}
         if k == "inbox":
             row["entries"] = {
                 e: dict(launches=colo["entry_launches"].get(e, 0),

@@ -152,8 +152,48 @@ void gather_pack(const Tensors& detail, const Tensors& vals,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// the words a row of each field of `ts` (G rows), checking that each has
+// G rows
+std::vector<int> row_widths(const Tensors& ts, int64_t G, const char* name) {
+  std::vector<int> width(ts.size());
+  for (size_t f = 0; f < ts.size(); ++f) {
+    TORCH_CHECK(ts[f].dim() >= 1 && ts[f].size(0) == G, name, ": field ", f,
+                " row count differs");
+    width[f] = dim(G ? ts[f].numel() / G : 0, name);
+  }
+  return width;
+}
+
+// field f's output at word off[f] of `out`: a multiple of 4 words, inside
+// `out`, after field f - 1's
+std::vector<long long> out_offsets(const at::Tensor& out,
+                                   const std::vector<int64_t>& off,
+                                   const std::vector<int>& width,
+                                   int64_t G_out, const char* name) {
+  TORCH_CHECK(off.size() == width.size(), name, ": one offset a field");
+  std::vector<long long> o(off.size());
+  int64_t end = 0;
+  for (size_t f = 0; f < off.size(); ++f) {
+    TORCH_CHECK(off[f] >= end && off[f] % 4 == 0, name, ": field ", f,
+                " output offset ", off[f], " overlaps or is not 16-byte "
+                "aligned");
+    end = off[f] + G_out * width[f];
+    TORCH_CHECK(end <= out.numel(), name, ": field ", f,
+                " output past the buffer");
+    o[f] = off[f];
+  }
+  return o;
+}
+
+void launched(int rc, const char* name) {
+  TORCH_CHECK(rc != 1, name, ": the output buffer is not 16-byte aligned");
+  TORCH_CHECK(rc == 0, name, ": rows too wide for 32-bit offsets");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void place_rows(const at::Tensor& pos, const Tensors& dst,
-                const Tensors& src, const Tensors& outs_) {
+                const Tensors& src, const at::Tensor& out_buf,
+                const std::vector<int64_t>& off) {
   const char* name = "place_rows";
   const at::Device dev = pos.device();
   const size_t n = src.size();
@@ -163,33 +203,28 @@ void place_rows(const at::Tensor& pos, const Tensors& dst,
               ": dst and src field counts differ");
   const int* p = in(pos, dev, name);
   auto s = ins(src, n, dev, name);
-  auto o = outs(outs_, n, dev, name);
-  std::vector<const int*> d(n, nullptr);
+  std::vector<const int*> d;
   if (!dst.empty()) d = ins(dst, n, dev, name);
+  int* o = out(out_buf, dev, name);
   const int64_t G_out = pos.numel(), G_src = src[0].size(0);
   TORCH_CHECK(G_src > 0 || G_out == 0, name, ": the source has no rows");
-  std::vector<int> width(n);
-  for (size_t f = 0; f < n; ++f) {
-    TORCH_CHECK(src[f].dim() >= 1 && src[f].size(0) == G_src, name,
-                ": source row counts differ");
-    const int64_t w = G_src ? src[f].numel() / G_src : 0;
-    TORCH_CHECK(outs_[f].numel() == G_out * w, name, ": field ", f,
-                " output size differs");
-    TORCH_CHECK(dst.empty() || dst[f].numel() == G_out * w, name,
-                ": field ", f, " dst size differs");
-    width[f] = dim(w, name);
-  }
+  auto width = row_widths(src, G_src, name);
+  for (size_t f = 0; f < n && !dst.empty(); ++f)
+    TORCH_CHECK(dst[f].numel() == G_out * width[f], name, ": field ", f,
+                " dst size differs");
+  auto offs = out_offsets(out_buf, off, width, G_out, name);
   if (G_out == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
-  dbt::place_rows_launch(p, d.data(), s.data(), o.data(), width.data(),
-                         (int)n, dim(G_out, name), dim(G_src, name),
-                         stream_of(dev));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  launched(dbt::place_rows_launch(p, d.empty() ? nullptr : d.data(), s.data(),
+                                  o, offs.data(), width.data(), (int)n,
+                                  dim(G_out, name), dim(G_src, name),
+                                  stream_of(dev)),
+           name);
 }
 
-void select_escalated(const at::Tensor& escalate, const Tensors& old_,
-                      const Tensors& new_, const Tensors& outs_) {
-  const char* name = "select_escalated";
+void merge_escalated(const at::Tensor& escalate, const Tensors& old_,
+                     const Tensors& new_) {
+  const char* name = "merge_escalated";
   const at::Device dev = escalate.device();
   const size_t n = new_.size();
   TORCH_CHECK(n >= 1 && n <= (size_t)dbt::MAX_FIELDS, name,
@@ -197,22 +232,16 @@ void select_escalated(const at::Tensor& escalate, const Tensors& old_,
   const int64_t G = escalate.numel();
   const int* e = in(escalate, dev, name);
   auto o_ = ins(old_, n, dev, name);
-  auto n_ = ins(new_, n, dev, name);
-  auto o = outs(outs_, n, dev, name);
-  std::vector<int> width(n);
-  for (size_t f = 0; f < n; ++f) {
-    TORCH_CHECK(new_[f].dim() >= 1 && new_[f].size(0) == G, name,
-                ": field ", f, " row count differs from escalate");
-    TORCH_CHECK(old_[f].sizes() == new_[f].sizes() &&
-                    outs_[f].sizes() == new_[f].sizes(),
-                name, ": field ", f, " shapes differ");
-    width[f] = dim(G ? new_[f].numel() / G : 0, name);
-  }
+  auto n_ = outs(new_, n, dev, name);
+  auto width = row_widths(new_, G, name);
+  for (size_t f = 0; f < n; ++f)
+    TORCH_CHECK(old_[f].sizes() == new_[f].sizes(), name, ": field ", f,
+                " shapes differ");
   if (G == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
-  dbt::select_escalated_launch(e, o_.data(), n_.data(), o.data(), width.data(),
-                               (int)n, dim(G, name), stream_of(dev));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  launched(dbt::merge_escalated_launch(e, o_.data(), n_.data(), width.data(),
+                                       (int)n, dim(G, name), stream_of(dev)),
+           name);
 }
 
 void set_remote_snapshot(const at::Tensor& rstate,
@@ -494,8 +523,8 @@ void zero_inbox_rows(const Tensors& src, const at::Tensor& mask,
 void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
                      const at::Tensor& packed, const at::Tensor& stats,
                      const Tensors& detail_srcs, const at::Tensor& head,
-                     const at::Tensor& detail, const std::vector<int64_t>& caps,
-                     int64_t host_off) {
+                     const at::Tensor& detail, const at::Tensor& scratch,
+                     const std::vector<int64_t>& caps, int64_t host_off) {
   const char* name = "select_and_blob";
   const at::Device dev = flags.device();
   auto d = ins(detail_srcs, dbt::N_DETAIL_SRCS, dev, name);
@@ -527,19 +556,26 @@ void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
                                     caps[1] * Mh * E + caps[2] * P +
                                     2 * caps[3] * W,
               name, ": detail has the wrong size");
+  // scratch: block totals and offsets [nb, 5] each, then a mask byte a row
+  const int64_t nb = (G + 255) / 256;
+  TORCH_CHECK(scratch.numel() == 10 * nb + (G + 3) / 4, name,
+              ": scratch must be 10 * ceil(G / 256) + ceil(G / 4) words");
   const int* f = in(flags, dev, name);
   const int* c = in(combo, dev, name);
   const int* pk = in(packed, dev, name);
   const int* st = in(stats, dev, name);
   int* h = out(head, dev, name);
   int* dt = out(detail, dev, name);
+  int* sc = out(scratch, dev, name);
   if (G == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
-  dbt::select_blob_launch(f, c, pk, st, d.data(), h, dt, cap, dim(G, name),
-                          dim(nw, name), dim(O, name), dim(Mo, name),
-                          dim(E, name), dim(P, name), dim(W, name),
-                          dim(host_off, name), stream_of(dev));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  launched(dbt::select_blob_launch(
+               f, c, pk, st, d.data(), h, dt,
+               reinterpret_cast<unsigned char*>(sc + 10 * nb), sc,
+               sc + 5 * nb, cap, dim(G, name), dim(nw, name), dim(O, name),
+               dim(Mo, name), dim(E, name), dim(P, name), dim(W, name),
+               dim(host_off, name), stream_of(dev)),
+           name);
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -549,8 +585,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("summarize_flags", &summarize_flags, "csrc/flags.cu");
   m.def("gather_pack", &gather_pack, "csrc/gather_pack.cu");
   m.def("place_rows", &place_rows, "csrc/place_rows.cu, rows mode");
-  m.def("select_escalated", &select_escalated,
-        "csrc/place_rows.cu, escalation-select mode");
+  m.def("merge_escalated", &merge_escalated,
+        "csrc/place_rows.cu, the in-place escalation merge");
   m.def("set_remote_snapshot", &set_remote_snapshot,
         "csrc/place_rows.cu, snapshot mode");
   m.def("route", &route, "csrc/route.cu");

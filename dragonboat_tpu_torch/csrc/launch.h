@@ -56,19 +56,21 @@ void gather_pack_launch(const int* const* detail, const int* const* vals,
                         int G, int O, int M, int E, int P, int W, int b,
                         int b2, void* stream);
 
-// place_rows.cu, rows mode — dst[f] may be null (a gather); width[f] is
-// field f's words per row
-void place_rows_launch(const int* pos, const int* const* dst,
-                       const int* const* src, int* const* out,
-                       const int* width, int n_fields, int G_out, int G_src,
-                       void* stream);
+// place_rows.cu, rows mode — dst may be null (a gather) and dst[f] may be
+// null; width[f] is field f's words per row; every output is a view of
+// one 16-byte aligned allocation `out`, field f at out + off[f] (a
+// multiple of 4 words).  Returns 0, 1 (a misaligned output) or 2 (a tile
+// too wide for int offsets); launches nothing but on 0
+int place_rows_launch(const int* pos, const int* const* dst,
+                      const int* const* src, int* out, const long long* off,
+                      const int* width, int n_fields, int G_out, int G_src,
+                      void* stream);
 
-// place_rows.cu, escalation-select mode: out_f[g] = old_f[g] where
-// escalate[g] != 0, else new_f[g]
-void select_escalated_launch(const int* escalate, const int* const* old_,
-                             const int* const* new_, int* const* out,
-                             const int* width, int n_fields, int G,
-                             void* stream);
+// place_rows.cu, in-place merge: new_f[g] = old_f[g] where escalate[g] !=
+// 0; returns 0, or 2 (rows too wide for int offsets)
+int merge_escalated_launch(const int* escalate, const int* const* old_,
+                           int* const* new_, const int* width, int n_fields,
+                           int G, void* stream);
 
 // place_rows.cu, snapshot mode
 void set_remote_snapshot_launch(const int* rstate, const int* snap_index,
@@ -97,13 +99,15 @@ void inbox_launch(int mode, const int* const* a, const int* const* b,
                   int M, int E, int PB, void* stream);
 
 // select_blob.cu — detail_srcs: buf, slot_base, slot_term, ent_drop,
-// need_snapshot, ring_term, ring_cc; caps: buf, slot, need, append, sum
-void select_blob_launch(const int* flags, const int* combo,
-                        const int* packed, const int* stats,
-                        const int* const* detail_srcs, int* head,
-                        int* detail, const int* caps, int G, int nw, int O,
-                        int Mo, int E, int P, int W, int host_off,
-                        void* stream);
+// need_snapshot, ring_term, ring_cc; caps: buf, slot, need, append, sum;
+// mask [G] bytes, btot and boff [ceil(G / 256), 5] are scratch.  Returns 0,
+// or 2 (a detail row too wide for int offsets)
+int select_blob_launch(const int* flags, const int* combo, const int* packed,
+                       const int* stats, const int* const* detail_srcs,
+                       int* head, int* detail, unsigned char* mask, int* btot,
+                       int* boff, const int* caps, int G, int nw, int O,
+                       int Mo, int E, int P, int W, int host_off,
+                       void* stream);
 
 // xlane.cu, pack — st: N_LANE_STATE sources; suppress may be null;
 // xbuf [D, XB, 14 + 2E] and stats [7] are written whole; rowoff [G, D],

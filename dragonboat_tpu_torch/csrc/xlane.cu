@@ -67,6 +67,7 @@
 // `xlane_zero_range`, `xlane_scatter_row`) are host functions, and a host
 // loop that runs them lane by lane and block by block, with the masks
 // made from the lanes' predicates, checks the three passes without a card.
+#include "blocks.cuh"
 #include "common.cuh"
 #include "launch.h"
 #include "walk.cuh"
@@ -390,17 +391,6 @@ __device__ void warp_add(int* dst, int v, bool active) {
   if ((threadIdx.x & 31) == 0 && s) atomicAdd(dst, s);
 }
 
-// inclusive sum of v over the warp's lanes 0..lane
-__device__ __forceinline__ int warp_incl_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += n;
-  }
-  return v;
-}
-
 // A row's peer slots, lane-parallel: slot p in lane p % WALK_LANES.
 __device__ __forceinline__ void xlane_load_slots(const dbt::XPackArgs& a,
                                                  const dbt::XRow& r,
@@ -494,7 +484,7 @@ __global__ void __launch_bounds__(dbt::XL_THREADS)
       v[i] = i < per && rr < a.R ? rc[rr][d] : 0;
       sum += v[i];
     }
-    const int incl = warp_incl_scan(sum);
+    const int incl = dbt::warp_incl_scan(sum);
     int run = incl - sum;
 #pragma unroll
     for (int i = 0; i < dbt::XL_RMAX / 32; ++i) {
@@ -547,7 +537,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   }
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    incl[k] = warp_incl_scan(v[k]);
+    incl[k] = dbt::warp_incl_scan(v[k]);
     if (lane == 31) wsum[warp][k] = incl[k];
   }
   __syncthreads();
@@ -555,7 +545,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int x = lane < NW ? wsum[lane][k] : 0;
-      const int xi = warp_incl_scan(x);
+      const int xi = dbt::warp_incl_scan(x);
       if (lane < NW) wsum[lane][k] = xi - x;
       if (lane == 31) total[k] = xi;
     }

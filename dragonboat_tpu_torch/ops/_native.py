@@ -24,13 +24,15 @@ BUILD = Path(__file__).resolve().parent.parent / "_build"
 MODULE = "dragonboat_tpu_torch_kernels"
 
 # kernel -> its source; bindings.cpp binds each kernel's entry points
-# (raft_step.cu holds both layouts' kernels around one row logic)
+# (raft_step.cu holds both layouts' kernels around one row logic;
+# place_rows.cu the row moves and the in-place escalation merge)
 KERNELS = {
     "raft_step": "raft_step.cu",
     "raft_step_internal": "raft_step.cu",
     "summarize_flags": "flags.cu",
     "gather_pack": "gather_pack.cu",
     "place_rows": "place_rows.cu",
+    "merge_escalated": "place_rows.cu",
     "route": "route.cu",
     "inbox": "inbox.cu",
     "select_and_blob": "select_blob.cu",

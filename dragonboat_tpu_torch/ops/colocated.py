@@ -24,9 +24,9 @@ mask tells the host which messages it still owns).
 The device programs of a launch (top of this module) each dispatch to
 their plain version (``colocated_ref.py``) for CPU tensors and to their
 kernels for CUDA tensors: ``_assemble_and_step`` = CUDA ``inbox``
-(assemble) + ``raft_step``; ``_route_step`` = ``place_rows``
-(escalation select) + ``route`` (with the delivered bit-pack fused) +
-``summarize_flags`` (with the undelivered override);
+(assemble) + ``raft_step``; ``_route_step`` = ``merge_escalated``
+(the in-place escalation merge) + ``route`` (with the delivered
+bit-pack fused) + ``summarize_flags`` (with the undelivered override);
 ``_select_and_blob`` = ``select_and_blob`` + ``gather_pack`` (values);
 ``_host_inbox_from_ticks`` / ``_zero_inbox_rows`` = ``inbox``;
 ``_scatter_inbox_rows`` = ``place_rows``.
@@ -217,9 +217,11 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
     the per-row flag word + bit-packed delivered mask so the host reads
     back O(1)-width arrays instead of the full summary/delivered
     matrices.  Returns (merged, regions, stats [6], packed [G, nw] int32
-    words of uint32 bits, flags).  On CUDA: ``place_rows`` (escalation
-    select), ``route`` (bit-pack and undelivered word fused), then
-    ``summarize_flags`` with the undelivered F_COUNT override."""
+    words of uint32 bits, flags).  Consumes ``new_state`` (the
+    reference donates it): merged is new_state with the escalated rows
+    put back in place.  On CUDA: ``merge_escalated`` (the in-place
+    escalation merge), ``route`` (bit-pack and undelivered word fused),
+    then ``summarize_flags`` with the undelivered F_COUNT override."""
     if _on_cpu(combo):
         return colocated_ref.route_step(
             old_state, new_state, out, dest, rank, combo,
@@ -227,7 +229,7 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
         )
     G, O = out.buf.shape[:2]
     dev = combo.device
-    merged = DeviceState(*plumbing.select_escalated(
+    merged = DeviceState(*plumbing.merge_escalated(
         out.escalate, list(old_state), list(new_state)
     ))
     packed = torch.empty((G, (O + 31) // 32), dtype=I32, device=dev)
@@ -267,6 +269,17 @@ def _blob_sizes(G: int, O: int, Mo: int, E: int, P: int, W: int,
     return head, detail
 
 
+# rows a block of csrc/select_blob.cu's count and write passes
+# (SB_THREADS there)
+_SEL_BLOCK_ROWS = 256
+
+
+def _sel_scratch_words(G: int) -> int:
+    """Words of select_and_blob's scratch: the block totals and offsets
+    ([ceil(G / 256), 5] each), then a mask byte a row."""
+    return 10 * -(-G // _SEL_BLOCK_ROWS) + (G + 3) // 4
+
+
 def _select_and_blob(merged, out, stats, packed, flags, combo,
                      *, CAP_B: int, CAP_SL: int, CAP_N: int, CAP_A: int,
                      CAP_S: int, HOST_OFF: int):
@@ -284,7 +297,9 @@ def _select_and_blob(merged, out, stats, packed, flags, combo,
     Counts above the capacities are reported so the host can fall back
     to an exact gather.  The slot sections ship only the HOST-region
     columns (HOST_OFF = P*budget onward).  On CUDA: ``select_and_blob``
-    then ``gather_pack`` (the values block, into the head)."""
+    (count, scan and write; the head, the detail and the kernels' scratch
+    are views of one allocation) then ``gather_pack`` (the values block,
+    into the head)."""
     caps = (CAP_B, CAP_SL, CAP_N, CAP_A, CAP_S)
     if _on_cpu(combo):
         return colocated_ref.select_and_blob(
@@ -299,14 +314,13 @@ def _select_and_blob(merged, out, stats, packed, flags, combo,
     if any(not 0 <= c <= G for c in caps):
         raise ValueError("select_and_blob: capacities must lie in [0, G]")
     n_head, n_detail = _blob_sizes(G, O, Mo, E, P, W, caps, HOST_OFF)
-    dev = flags.device
-    head = torch.empty((n_head,), dtype=I32, device=dev)
-    detail = torch.empty((n_detail,), dtype=I32, device=dev)
+    head, detail, scratch = K._views(
+        ((n_head,), (n_detail,), (_sel_scratch_words(G),)), flags.device)
     _native.launch(
         "select_and_blob", flags, combo, packed, stats,
         [out.buf, out.slot_base, out.slot_term, out.ent_drop,
          out.need_snapshot, merged.ring_term, merged.ring_cc],
-        head, detail, list(caps), HOST_OFF,
+        head, detail, scratch, list(caps), HOST_OFF,
     )
     nw = (O + 31) // 32
     off_sum = G + G * nw + 11 + CAP_B + CAP_SL + CAP_N + CAP_A
@@ -353,12 +367,18 @@ def _scatter_inbox_rows(host: Inbox, pos, sub: Inbox) -> Inbox:
 # self-check counts its checks per kernel)
 PROGRAM_KERNELS: Dict[str, Tuple[str, ...]] = {
     "assemble_and_step": ("inbox", "raft_step"),
-    "route_step": ("place_rows", "route", "summarize_flags"),
+    "route_step": ("merge_escalated", "route", "summarize_flags"),
     "select_and_blob": ("select_and_blob", "gather_pack"),
     "zero_inbox_rows": ("inbox",),
     "host_inbox_from_ticks": ("inbox",),
     "scatter_inbox_rows": ("place_rows",),
 }
+
+
+# the positional argument a device program consumes (updates in place):
+# the parity self-check hands its plain version a copy taken before the
+# kernels ran
+PROGRAM_CONSUMES: Dict[str, int] = {"route_step": 1}
 
 
 def _tensors(x):
@@ -643,14 +663,21 @@ class ColocatedTorchEngine(TorchStepEngine):
         ``parity_attempts_<kernel>`` for every kernel the program
         launches on CUDA, and one ``parity_checks_<kernel>`` once it has
         passed; a mismatch is counted, latched and raised
-        (``_parity_fail``)."""
-        got = fn(*args, **kw)
+        (``_parity_fail``).  The argument a program consumes
+        (``PROGRAM_CONSUMES``) reaches the plain version as a copy taken
+        before the kernels ran."""
         if not parity:
-            return got
+            return fn(*args, **kw)
+        ref_args = args
+        i = PROGRAM_CONSUMES.get(name)
+        if i is not None:
+            ref_args = list(args)
+            ref_args[i] = type(args[i])(*(t.clone() for t in args[i]))
+        got = fn(*args, **kw)
         kernels = PROGRAM_KERNELS[name]
         for k in kernels:
             self.stats[f"parity_attempts_{k}"] += 1
-        want = colocated_ref.PROGRAMS[name](*args, **kw)
+        want = colocated_ref.PROGRAMS[name](*ref_args, **kw)
         for i, (a, b) in enumerate(zip(_tensors(got), _tensors(want))):
             if not torch.equal(a, b):
                 self._parity_fail(f"{name} output {i}")

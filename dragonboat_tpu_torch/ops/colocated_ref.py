@@ -73,8 +73,11 @@ def route_step(old_state: DeviceState, new_state: DeviceState,
     """Post-launch tail: discard escalated rows' effects, route the
     outboxes into the next launch's pending regions (width PB, base 0),
     the flag word with the colocated F_COUNT override, and the packed
-    delivered bits.  Returns (merged, regions, stats [6], packed, flags)."""
-    merged = route_ref.select_escalated(out.escalate, old_state, new_state)
+    delivered bits.  Returns (merged, regions, stats [6], packed, flags).
+    Consumes ``new_state``: merged is new_state with the escalated rows
+    put back in place (the reference donates it, colocated.py:213)."""
+    merged = DeviceState(*engine_ref.merge_escalated(
+        out.escalate, old_state, new_state))
     regions, stats, delivered = route_ref.route(
         merged, out, dest, rank, M=PB, E=E, budget=budget, base=0,
         suppress=out.escalate != 0, dest_alive=combo[:, C_ALIVE] != 0,

@@ -2,8 +2,9 @@
 
 References for the CUDA kernels ``flags.cu`` (``summarize_flags``),
 ``gather_pack.cu`` (``gather_pack``) and ``place_rows.cu``
-(``place_rows`` / ``set_remote_snapshot``); ``ops/plumbing.py`` runs
-these for CPU tensors.  Each is the function the reference computes in
+(``place_rows`` / ``merge_escalated`` / ``set_remote_snapshot``);
+``ops/plumbing.py`` runs these for CPU tensors.  ``select_escalated``
+is the out-of-place merge that ``merge_escalated`` is held against.  Each is the function the reference computes in
 ``dragonboat_tpu/ops/engine.py`` (``_summarize_flags``, the
 ``_gather_*`` programs, ``_scatter_rows`` / ``_select_rows`` /
 ``_gather_rows`` / ``_set_remote_snapshot``), written in eager torch.
@@ -198,3 +199,16 @@ def select_escalated(
         torch.where(keep.reshape((-1,) + (1,) * (b.dim() - 1)), b, a)
         for a, b in zip(old, new)
     ]
+
+
+def merge_escalated(
+    escalate: torch.Tensor,
+    old: Sequence[torch.Tensor],
+    new: Sequence[torch.Tensor],
+) -> List[torch.Tensor]:
+    """In place: per field, new[escalate != 0] = old[escalate != 0];
+    returns ``new``."""
+    esc = escalate != 0
+    for a, b in zip(old, new):
+        b[esc] = a[esc]
+    return list(new)

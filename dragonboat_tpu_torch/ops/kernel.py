@@ -121,26 +121,35 @@ def step_internal(
 def _views(shapes: tuple, dev) -> list:
     """One int32 allocation cut into contiguous views of ``shapes``, each
     starting on a 16-byte boundary."""
-    sizes, total, cut = _view_plan(shapes)
-    parts = torch.empty(total, dtype=torch.int32, device=dev).split(sizes)
+    return _alloc_views(shapes, dev)[1]
+
+
+def _alloc_views(shapes: tuple, dev):
+    """``_views`` with the allocation itself and each view's word offset
+    in it: (flat, views, offsets)."""
+    sizes, total, cut, offs = _view_plan(shapes)
+    flat = torch.empty(total, dtype=torch.int32, device=dev)
     views = []
-    for p, s, n in zip(parts, shapes, cut):
+    for p, s, n in zip(flat.split(sizes), shapes, cut):
         if n:
             p = p[:n]
         views.append(p if len(s) == 1 else p.view(s))
-    return views
+    return flat, views, offs
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _view_plan(shapes: tuple):
     """(each view's words rounded up to 4, their sum, each view's words
-    where it was rounded up, else 0)"""
-    sizes, cut = [], []
+    where it was rounded up, else 0, each view's first word)"""
+    sizes, cut, offs = [], [], []
+    total = 0
     for s in shapes:
         n = math.prod(s)
+        offs.append(total)
         sizes.append(n + -n % 4)
         cut.append(n if n % 4 else 0)
-    return tuple(sizes), sum(sizes), tuple(cut)
+        total += sizes[-1]
+    return tuple(sizes), total, tuple(cut), tuple(offs)
 
 
 def _step_cuda(state: DeviceState, inbox: Inbox, O: int,

@@ -9,17 +9,20 @@ stream and checks the launch.
 
 * ``summarize_flags`` — csrc/flags.cu
 * ``gather_pack``     — csrc/gather_pack.cu
-* ``place_rows`` / ``select_escalated`` / ``set_remote_snapshot`` —
-  csrc/place_rows.cu
+* ``place_rows`` / ``merge_escalated`` / ``set_remote_snapshot`` —
+  csrc/place_rows.cu (every call's outputs are views of one allocation:
+  ``kernel._alloc_views``)
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _native
 from . import engine_ref
+from . import kernel as K
 from .engine_ref import VALS_OUT, VALS_STATE, detail_width
 from .types import DeviceOut, DeviceState
 
@@ -107,6 +110,33 @@ def gather_pack(
     return flat
 
 
+@functools.lru_cache(maxsize=256)
+def _row_shapes(name: str, G_out: int, src: tuple, dst: Optional[tuple],
+                same_rows: bool) -> tuple:
+    """The output shapes of a row move of fields shaped ``src`` (a tuple
+    of torch.Size) into ``G_out`` rows; ``dst``: the dst fields' shapes,
+    which must be the outputs'; ``same_rows``: the sources must have
+    ``G_out`` rows (a merge).  Raises on a mismatch; cached, as a path
+    moves the same shapes call after call."""
+    if not 1 <= len(src) <= 32:
+        raise ValueError(f"{name}: 1..32 fields")
+    G_src = src[0][0] if src[0] else 0
+    if any(not s or s[0] != G_src for s in src):
+        raise ValueError(f"{name}: source row counts differ")
+    if same_rows and G_src != G_out:
+        raise ValueError(f"{name}: escalate [G] and the fields' rows differ")
+    engine_ref.check_place_source(G_out, G_src)
+    shapes = tuple((G_out,) + tuple(s[1:]) for s in src)
+    if dst is not None and (len(dst) != len(src) or any(
+            tuple(d) != s for d, s in zip(dst, shapes))):
+        raise ValueError(f"{name}: field shapes differ")
+    return shapes
+
+
+def _shapes(ts) -> tuple:
+    return tuple(t.shape for t in ts)
+
+
 def place_rows(
     dst: Optional[Sequence[torch.Tensor]],
     src: Sequence[torch.Tensor],
@@ -120,44 +150,34 @@ def place_rows(
         return engine_ref.place_rows(dst, src, pos)
     if pos.dim() != 1:
         raise ValueError("place_rows: pos must be [G]")
-    if not 1 <= len(src) <= 32:
-        raise ValueError("place_rows: 1..32 fields")
-    G_out = pos.shape[0]
-    G_src = src[0].shape[0]
-    engine_ref.check_place_source(G_out, G_src)
-    outs = []
-    for k, s in enumerate(src):
-        if s.shape[0] != G_src:
-            raise ValueError("place_rows: source row counts differ")
-        shape = (G_out,) + tuple(s.shape[1:])
-        if dst is not None and tuple(dst[k].shape) != shape:
-            raise ValueError(f"place_rows: field {k} shapes differ")
-        outs.append(torch.empty(shape, dtype=torch.int32, device=pos.device))
-    if G_out:
-        _native.launch("place_rows", pos, list(dst or ()), list(src), outs)
+    shapes = _row_shapes("place_rows", pos.shape[0], _shapes(src),
+                         None if dst is None else _shapes(dst), False)
+    flat, outs, offs = K._alloc_views(shapes, pos.device)
+    if pos.shape[0]:
+        _native.launch("place_rows", pos, list(dst or ()), list(src), flat,
+                       offs)
     return outs
 
 
-def select_escalated(
+def merge_escalated(
     escalate: torch.Tensor,
     old: Sequence[torch.Tensor],
     new: Sequence[torch.Tensor],
 ) -> List[torch.Tensor]:
-    """Per field: old's row where ``escalate`` ([G] int32) is nonzero,
-    else new's — the escalation merge of a routed round."""
+    """In place: every field of ``new`` takes old's row where
+    ``escalate`` ([G] int32) is nonzero; returns ``new``.  For callers
+    whose ``new`` is the step's fresh output that nothing reads after the
+    merge (the routed rounds' tail); the result equals
+    ``engine_ref.select_escalated``'s."""
     if _device(escalate) == "cpu":
-        return engine_ref.select_escalated(escalate, old, new)
+        return engine_ref.merge_escalated(escalate, old, new)
+    if escalate.dim() != 1:
+        raise ValueError("merge_escalated: escalate must be [G]")
     G = escalate.shape[0]
-    if escalate.dim() != 1 or not 1 <= len(new) <= 32 or len(old) != len(new):
-        raise ValueError("select_escalated: escalate [G], 1..32 fields")
-    for a, b in zip(old, new):
-        if a.shape != b.shape or b.shape[0] != G:
-            raise ValueError("select_escalated: field shapes differ")
-    outs = [torch.empty_like(b) for b in new]
+    _row_shapes("merge_escalated", G, _shapes(new), _shapes(old), True)
     if G:
-        _native.launch("place_rows", escalate, list(old), list(new), outs,
-                       entry="select_escalated")
-    return outs
+        _native.launch("merge_escalated", escalate, list(old), list(new))
+    return list(new)
 
 
 def set_remote_snapshot(
@@ -179,8 +199,7 @@ def set_remote_snapshot(
         t.dim() != 1 or t.shape[0] != n for t in (g_idx, p_idx, snap)
     ):
         raise ValueError("set_remote_snapshot: bad shapes")
-    rs = torch.empty_like(rstate)
-    sn = torch.empty_like(snap_index)
+    rs, sn = K._views(((G, P), (G, P)), rstate.device)
     if G * P:
         _native.launch("place_rows", rstate, snap_index, g_idx, p_idx, snap,
                        rs, sn, entry="set_remote_snapshot")

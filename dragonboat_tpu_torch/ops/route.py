@@ -19,10 +19,11 @@ On CUDA tensors ``route`` launches the hand-written kernel
 and the ``[0, base)`` prefix, copied from ``base_inbox`` or generated as
 ``make_prefill``'s tick / propose_leaders / propose_n slots.
 ``merge_and_route``, ``routed_round`` and ``fused_rounds`` are then
-compositions of kernels only — ``raft_step``, the escalation merge
-(``place_rows``) and ``route`` — with no plain-torch compute between
-them.  The router and the lane pack (``csrc/xlane.cu``) walk a row's
-outbox with a sub-warp of 8 lanes, one a message (``csrc/walk.cuh``);
+compositions of kernels only — ``raft_step``, the in-place escalation
+merge (``merge_escalated``, csrc/place_rows.cu) and ``route`` — with no
+plain-torch compute between them.  The router and the lane pack
+(``csrc/xlane.cu``) walk a row's outbox with a sub-warp of 8 lanes, one
+a message (``csrc/walk.cuh``);
 the pack counts in blocks of ``lane_rows_per_block`` rows.  On CPU tensors
 every function runs its plain version (``route_ref.py``).  Any other
 device raises.
@@ -305,8 +306,11 @@ def merge_and_route(
     (their device effects are discarded — raft-safe message loss), then
     route the outboxes into the next round's inbox on top of a fresh
     tick/proposal prefill.  Returns (state', inbox', stats,
-    escalated_row_count).  On CUDA: ``place_rows`` (escalation select)
-    then ``route``; ``stats_out`` is the [7] vector the kernel fills."""
+    escalated_row_count).  Consumes ``new_state``: the escalated rows
+    are merged into it in place and state' is that tree, so a caller
+    that still reads ``new_state`` afterwards passes a copy.  On CUDA:
+    ``merge_escalated`` (the in-place escalation merge) then ``route``;
+    ``stats_out`` is the [7] vector the kernel fills."""
     if _device(out.buf) == "cpu":
         state, inbox, stats, n_esc = route_ref.merge_and_route(
             old_state, new_state, out, dest_row, rank_in_dest, M=M, E=E,
@@ -314,7 +318,7 @@ def merge_and_route(
             propose_n=propose_n,
         )
         return state, inbox, RouteStats(*stats), n_esc
-    state = DeviceState(*plumbing.select_escalated(
+    state = DeviceState(*plumbing.merge_escalated(
         out.escalate, list(old_state), list(new_state)
     ))
     inbox, stats, _ = route_cuda(
@@ -683,7 +687,7 @@ def make_sharded_round(
     (``cross_exchange``'s pack, shifts and scatter).  With ``rounds > 1``
     the lane fires BETWEEN fused rounds, so cross-device traffic sent in
     round k is in round k+1's inbox.  On CUDA every step of that is a
-    kernel (``raft_step``, ``place_rows``, ``route``, ``xlane_pack``,
+    kernel (``raft_step``, ``merge_escalated``, ``route``, ``xlane_pack``,
     ``xlane_scatter``) or a device copy, with no plain torch between
     them; on a CPU mesh every step is its plain version.
 

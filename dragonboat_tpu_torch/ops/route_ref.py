@@ -291,12 +291,6 @@ def make_prefill(
     )
 
 
-def select_escalated(escalate: torch.Tensor, old: DeviceState,
-                     new: DeviceState) -> DeviceState:
-    """Per row: old's row where ``escalate`` is nonzero, else new's."""
-    return DeviceState(*engine_ref.select_escalated(escalate, old, new))
-
-
 def merge_and_route(
     old_state: DeviceState,
     new_state: DeviceState,
@@ -313,10 +307,13 @@ def merge_and_route(
 ) -> Tuple[DeviceState, Inbox, torch.Tensor, torch.Tensor]:
     """Undo escalated rows, then route the outboxes into the next
     round's inbox on top of a fresh tick/proposal prefill.  Returns
-    (state', inbox', stats [6], escalated_row_count)."""
+    (state', inbox', stats [6], escalated_row_count).  Consumes
+    ``new_state``: the escalated rows are merged into it in place, and
+    state' is that tree."""
     esc = out.escalate != 0
     n_esc = esc.sum(dtype=I32)
-    state = select_escalated(out.escalate, old_state, new_state)
+    state = DeviceState(*engine_ref.merge_escalated(
+        out.escalate, old_state, new_state))
     prefill = make_prefill(
         state, M, E, propose_leaders=propose_leaders, propose_n=propose_n,
     )

@@ -205,6 +205,41 @@ def test_programs_match_reference_round_by_round():
     assert (seen["sel"][[0, 1, 3, 4]] > 0).all(), seen
 
 
+def test_route_step_in_place_matches_reference_with_escalated_rows():
+    """The port's ``_route_step`` consumes new_state (the reference
+    donates it): the escalated rows are merged into it in place and
+    merged is that tree.  With a seeded quarter of the rows marked
+    escalated in the step's outbox, every output equals the reference's
+    ``_route_step`` on the same inputs, round after round (tolerance:
+    zero)."""
+    st, dest, rank = _cluster()
+    G = dest.shape[0]
+    rng = np.random.default_rng(SEED + 3)
+    pending = to_np(JT.make_inbox(G, PB, E))
+    n_esc = 0
+    for rnd in range(12):
+        combo = np.zeros((G, 4), np.int32)
+        combo[:, JC._C_ALIVE] = rng.random(G) < 0.92
+        combo[:, JC._C_TICKS] = rng.integers(0, 4, G)
+        host = to_np(JC._host_inbox_from_ticks(jnp.asarray(combo), M=MH, E=E))
+        new_st, out = JC._assemble_and_step(
+            *to_jax((st, host, pending, combo)), out_capacity=O)
+        new_np, out_np = to_np(new_st), to_np(out)
+        esc = np.where(rng.random(G) < 0.25, rng.integers(1, 16, G), 0)
+        out_np[1]["escalate"] = esc.astype(np.int32)
+        n_esc += int((esc != 0).sum())
+        args = (st, new_np, out_np, dest, rank, combo)
+        kw = dict(PB=PB, E=E, budget=B)
+        want = JC._route_step(*to_jax(args), **kw)
+        p_args = to_port(args)
+        got = PC._route_step(*p_args, **kw)
+        assert all(a is b for a, b in zip(got[0], p_args[1]))  # in place
+        assert_same(want, got, f"route_step round {rnd}")
+        st = to_np(want[0])
+        pending = to_np(want[1])
+    assert n_esc > 0
+
+
 # --------------------------------------------------------------------------
 # capture and replay: a port colocated cluster's real program calls
 # --------------------------------------------------------------------------

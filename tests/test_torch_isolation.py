@@ -29,7 +29,7 @@ CARRIED = (
     "pb", "settings", "logger", "raftio", "config", "client", "id",
     "invariants", "events", "metrics", "statemachine", "request", "env",
     "node", "nodehost",
-    "obs/trace", "obs/recorder",
+    "obs/trace", "obs/recorder", "obs/slo", "obs/fleetscope", "obs/__init__",
     "readplane/consistency", "readplane/router", "readplane/__init__",
     "engine/execengine", "engine/__init__",
     "utils/stopper", "utils/__init__",
@@ -40,7 +40,8 @@ CARRIED = (
     "storage/logdb", "storage/snapshotio", "storage/snapshotter",
     "storage/tan", "storage/journal", "storage/vfs", "storage/__init__",
     "transport/inproc", "transport/registry", "transport/transport",
-    "transport/chunk", "transport/wire", "transport/__init__",
+    "transport/chunk", "transport/wire", "transport/tcp", "transport/gossip",
+    "transport/__init__",
     "bigstate/pacing", "bigstate/dr", "bigstate/__init__", "tools",
     "ops/hostplane",
     "native/__init__",

@@ -328,6 +328,49 @@ def test_routed_round_matches_reference_on_routed_cluster():
     assert int((np.asarray(st.role) == JT.ROLE_LEADER).sum()) == 3
 
 
+def test_merge_and_route_in_place_matches_reference_with_escalated_rows():
+    """merge_and_route on the port consumes new_state: the escalated rows
+    are merged into it in place (engine_ref.merge_escalated) and state'
+    is that tree.  On every round of the routed cluster, with a seeded
+    fifth of the rows marked escalated in the outbox both packages get,
+    state', inbox', the stats and the escalated count equal the
+    reference's ``route.merge_and_route`` (tolerance: zero), and the
+    plain in-place merge equals the reference's select."""
+    from dragonboat_tpu.ops import kernel as JK
+
+    st, inbox, dest, rank = _cluster({1: [1, 2, 3], 2: [1, 2, 3],
+                                      3: [1, 2, 3, 4, 5]})
+    G = len(dest)
+    rng = np.random.default_rng(SEED + 11)
+    n_esc = 0
+    for rnd in range(24):
+        new, out = JK.step(st, inbox, out_capacity=O)
+        out_np = _np(out)
+        esc = np.where(rng.random(G) < 0.2, rng.integers(1, 16, G), 0)
+        out_np["escalate"] = esc.astype(np.int32)
+        n_esc += int((esc != 0).sum())
+        out_j = JT.DeviceOut(**{k: jnp.asarray(v) for k, v in out_np.items()})
+        propose = rnd >= 12
+        j_st, j_ib, j_stats, j_esc = JR.merge_and_route(
+            st, new, out_j, jnp.asarray(dest), jnp.asarray(rank), M=M, E=E,
+            budget=BUDGET, base=BASE, propose_leaders=propose)
+        p_old = convert.state_from_numpy(_np(st), "cpu")
+        p_new = convert.state_from_numpy(_np(new), "cpu")
+        p_out = convert.out_from_numpy(out_np, "cpu")
+        p_st, p_ib, p_stats, p_esc = PRoute.merge_and_route(
+            p_old, p_new, p_out, _t(dest), _t(rank), M=M, E=E,
+            budget=BUDGET, base=BASE, propose_leaders=propose)
+        assert all(a is b for a, b in zip(p_st, p_new))  # merged in place
+        assert_fields_equal(_np(j_st), convert.to_numpy(p_st),
+                            f"state round {rnd}")
+        assert_fields_equal(_np(j_ib), convert.to_numpy(p_ib),
+                            f"inbox round {rnd}")
+        assert [int(x) for x in p_stats] == [int(x) for x in j_stats]
+        assert int(p_esc) == int(j_esc)
+        st, inbox = j_st, j_ib
+    assert n_esc > 0
+
+
 def test_fused_rounds_matches_reference_and_serial_rounds():
     """fused_rounds(3) equals the reference's, and equals three of the
     port's own routed_round calls, on a drop-forcing budget=1 layout."""
