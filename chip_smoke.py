@@ -38,7 +38,14 @@ Phases, each printing one JSON line:
                select_and_blob also on a storm (every row selected in
                every section, the counts past the first tiers' caps) and
                at G = 4096, at every tier, with its count / scan / write
-               split.
+               split.  The three inbox entry points also at a geometry
+               off the 16-byte path (odd P*B = 5, 3 host slots, E = 3,
+               4,099 rows: a ragged last tile), with sources at aligned
+               and unaligned addresses; assemble at 0, about 10 and 100%
+               dead rows and on the fused wave's all-zero combo; each
+               beside a library yardstick (from_ticks: one zero_() over a
+               buffer of the same bytes; assemble: 12 torch.cat of the
+               two regions).
 4. mesh_kernels — raft_step_internal (raft_step.cu's G-last kernel)
                bit-exact against its plain version at bench phase A's
                geometry, G = 300,000 rows (100k groups x 3;
@@ -382,7 +389,8 @@ def ptxas_report(log: str) -> dict:
              "summarize_flags_kernel", "gather_pack_kernel",
              "place_rows_kernel", "merge_escalated_kernel",
              "place_snapshot_kernel",
-             "route_walk_kernel", "route_recv_kernel", "inbox_kernel",
+             "route_walk_kernel", "route_recv_kernel", "inbox_fill_kernel",
+             "inbox_copy_kernel",
              "select_count_kernel", "select_scan_kernel",
              "select_write_kernel", "xlane_count_kernel",
              "xlane_scan_kernel", "xlane_write_kernel",
@@ -1031,6 +1039,7 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
     mask = put(rng.random(G) < 0.05)
     check("zero_inbox_rows", list(C._zero_inbox_rows(regions, mask)),
           list(CR.zero_inbox_rows(regions, mask)))
+    inbox_cases = inbox_geometry_checks(dev, check, host, pending, combo, rng)
     result = dict(rows=G, budget=B, assembled_M=PB + MH, cluster=cluster,
                   selected=sel_counts, storm_selected=storm_counts,
                   checks=checks, max_abs_err=errs)
@@ -1061,19 +1070,24 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
         lambda: C._assemble_inbox(host, pending, combo), 50)
     plain_ms["assemble_inbox"] = time_ms(
         lambda: CR.assemble_inbox(host, pending, combo), 5)
-    bound["assemble_inbox"] = bound_ms(4 * (2 * G * (PB + MH) * row_w + G))
-    lib_ms["assemble_inbox"] = None
+    bound["assemble_inbox"] = inbox_copy_bound_ms(combo[:, C._C_ALIVE] != 0,
+                                                  PB + MH, E)
+    # yardstick: the 12 concatenations without the dead rows' zeroing
+    lib_ms["assemble_inbox"] = time_ms(lambda: [
+        torch.cat([p, h], dim=1) for h, p in zip(host, pending)], 50)
     ms["host_inbox_from_ticks"] = time_ms(
         lambda: C._host_inbox_from_ticks(combo, M=MH, E=E), 50)
     plain_ms["host_inbox_from_ticks"] = time_ms(
         lambda: CR.host_inbox_from_ticks(combo, M=MH, E=E), 5)
     bound["host_inbox_from_ticks"] = bound_ms(4 * (G + G * MH * row_w))
-    lib_ms["host_inbox_from_ticks"] = None
+    # yardstick: one zero_() over a buffer of the same bytes
+    zbuf = torch.empty(G * MH * row_w, dtype=torch.int32, device=dev)
+    lib_ms["host_inbox_from_ticks"] = time_ms(zbuf.zero_, 50)
     ms["zero_inbox_rows"] = time_ms(
         lambda: C._zero_inbox_rows(regions, mask), 50)
     plain_ms["zero_inbox_rows"] = time_ms(
         lambda: CR.zero_inbox_rows(regions, mask), 5)
-    bound["zero_inbox_rows"] = bound_ms(4 * (2 * G * PB * row_w + G))
+    bound["zero_inbox_rows"] = inbox_copy_bound_ms(mask == 0, PB, E)
     lib_ms["zero_inbox_rows"] = None
     caps = {k: min(G, v) for k, v in C._SEL_TIERS[0].items()}
     kw = dict(CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
@@ -1125,6 +1139,22 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
         "select_and_blob": device_ms(lambda: C._select_and_blob(
             merged, out, stats6, packed, flags, combo, **kw)),
     }
+    # the inbox entry points: each entry's kernel split, each case's device
+    # time and bound, the yardsticks' device time
+    for e, fn in (("host_inbox_from_ticks",
+                   lambda: C._host_inbox_from_ticks(combo, M=MH, E=E)),
+                  ("assemble_inbox",
+                   lambda: C._assemble_inbox(host, pending, combo)),
+                  ("zero_inbox_rows",
+                   lambda: C._zero_inbox_rows(regions, mask))):
+        inbox_cases[e] = dict(split=kernel_split(fn))
+    inbox_cases["library_device_ms"] = dict(
+        host_inbox_from_ticks=device_ms(zbuf.zero_),
+        assemble_inbox=device_ms(lambda: [
+            torch.cat([p, h], dim=1) for h, p in zip(host, pending)]))
+    for case in inbox_cases["timed"]:
+        fn = case.pop("fn")
+        case.update(ms=time_ms(fn, 50), device_ms=device_ms(fn))
     # route at the colocated engine's capacity beside these 30,000 rows,
     # each with its kernels' device split
     geoms = {"C30000": dict(
@@ -1147,8 +1177,88 @@ def colocated_kernels_phase(dev, G: int = G_KERNELS, waves: int = 12) -> dict:
     result.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                   library_ms=lib_ms, timed_messages=n_msgs, timed_tier=0,
                   route_geometries=geoms, select_geometries=sel_geoms,
-                  max_abs_err=errs, checks=checks)
+                  inbox_cases=inbox_cases, max_abs_err=errs, checks=checks)
     return result
+
+
+def inbox_copy_bound_ms(alive, M_: int, E_: int) -> float:
+    """The bound of an inbox copy (assemble, zero_rows) at this run's rows:
+    every output word written, the live rows' words read, one lane word a
+    row read."""
+    G_ = alive.numel()
+    words_row = M_ * (10 + 2 * E_)
+    return bound_ms(4 * ((G_ + int(alive.sum())) * words_row + G_))
+
+
+INBOX_ODD = dict(G=4099, PB=5, MH=3, E=3)
+
+
+def inbox_geometry_checks(dev, check, host, pending, combo, rng) -> dict:
+    """The three inbox entry points off the 16-byte path (``INBOX_ODD``:
+    odd P*B, 3 host slots, E = 3, a row count that leaves a ragged last
+    tile) with their sources at aligned and at unaligned addresses, and
+    assemble at 30,000 rows with 0, about 10 and 100% dead rows and on
+    the fused wave's all-zero combo, each against its plain version
+    through ``check``.  Returns the cases to time: {"timed": [{case,
+    rows, alive_rows, bound_ms, fn}, ...]}."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import colocated as C
+    from dragonboat_tpu_torch.ops import colocated_ref as CR
+    from dragonboat_tpu_torch.ops import types as T
+
+    r = np.random.default_rng(SEED + 5)
+    Go, PBo, MHo, Eo = (INBOX_ODD[k] for k in ("G", "PB", "MH", "E"))
+
+    def plane(shape, unaligned):
+        vals = torch.from_numpy(
+            r.integers(-999, 999, shape).astype(np.int32)).to(dev)
+        if not unaligned:
+            return vals
+        n = vals.numel()
+        buf = torch.empty(n + 4, dtype=torch.int32, device=dev)
+        buf[1:n + 1].copy_(vals.reshape(-1))
+        return buf[1:n + 1].view(shape)
+
+    def inbox(S, unaligned=False):
+        return T.Inbox(*(plane((Go, S) + ((Eo,) if f >= 10 else ()),
+                               unaligned) for f in range(12)))
+
+    lanes = np.concatenate([r.random((Go, 1)) < 0.9, r.random((Go, 2)) < 0.5,
+                            r.integers(0, 4, (Go, 1))], axis=1)
+    combo_o = torch.from_numpy(lanes.astype(np.int32)).to(dev)
+    host_o = C._host_inbox_from_ticks(combo_o, M=MHo, E=Eo)
+    check("host_inbox_from_ticks", list(host_o),
+          list(CR.host_inbox_from_ticks(combo_o, M=MHo, E=Eo)))
+    mask_o = torch.from_numpy(
+        (r.random(Go) < 0.1).astype(np.int32)).to(dev)
+    for unaligned in (False, True):
+        for h in (host_o, inbox(MHo, unaligned)):
+            pend = inbox(PBo, unaligned)
+            check("assemble_inbox", list(C._assemble_inbox(h, pend, combo_o)),
+                  list(CR.assemble_inbox(h, pend, combo_o)))
+        full = inbox(PBo + MHo, unaligned)
+        check("zero_inbox_rows", list(C._zero_inbox_rows(full, mask_o)),
+              list(CR.zero_inbox_rows(full, mask_o)))
+    G, M_ = combo.shape[0], pending.mtype.shape[1] + host.mtype.shape[1]
+    E_ = host.ent_term.shape[2]
+    timed = []
+    for case, share in (("dead0", 0.0), ("dead10", 0.1), ("dead100", 1.0),
+                        ("zero_combo", None)):
+        c = combo.clone()
+        if share is None:
+            c.zero_()
+        else:
+            c[:, 0] = torch.from_numpy(
+                (r.random(G) >= share).astype(np.int32)).to(dev)
+        check("assemble_inbox", list(C._assemble_inbox(host, pending, c)),
+              list(CR.assemble_inbox(host, pending, c)))
+        alive = c[:, 0] != 0
+        timed.append(dict(
+            case=case, rows=G, alive_rows=int(alive.sum()),
+            bound_ms=inbox_copy_bound_ms(alive, M_, E_),
+            fn=lambda c=c: C._assemble_inbox(host, pending, c)))
+    return dict(odd_geometry=INBOX_ODD, timed=timed)
 
 
 def colo_route_case(dev, G: int, P_: int, W_: int, waves: int = 6) -> dict:
@@ -2740,12 +2850,16 @@ def main(argv) -> int:
                         max_abs_err=ckern["max_abs_err"][e],
                         ms=ckern["ms"][e], device_ms=ckern["device_ms"][e],
                         plain_ms=ckern["plain_ms"][e],
-                        bound_ms=ckern["bound_ms"][e])
+                        bound_ms=ckern["bound_ms"][e],
+                        library_ms=ckern["library_ms"][e])
                 for e in ("host_inbox_from_ticks", "assemble_inbox",
                           "zero_inbox_rows")
             }
             row["max_abs_err"] = max(ckern["max_abs_err"][e]
                                      for e in row["entries"])
+            row["cases"] = ckern["inbox_cases"]
+            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+                            if n.startswith("inbox_")}
         rows.append(row)
     for k, info in MESH_KERNEL_INFO.items():
         step = k == "raft_step_internal"

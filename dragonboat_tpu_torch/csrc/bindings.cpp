@@ -449,75 +449,90 @@ void xlane_scatter(const Tensors& inbox, const at::Tensor& recv,
 
 namespace {
 
-void inbox(int64_t mode, const Tensors& a, const Tensors& b,
-           const std::optional<at::Tensor>& combo,
-           const std::optional<at::Tensor>& mask, const Tensors& outs_,
-           int64_t PB) {
-  const char* name = "inbox";
-  TORCH_CHECK(mode >= 0 && mode <= 2, name, ": unknown mode");
-  TORCH_CHECK(outs_.size() == (size_t)dbt::N_INBOX && outs_[0].dim() == 2 &&
-                  outs_[10].dim() == 3,
-              name, ": bad output shapes");
-  const at::Device dev = outs_[0].device();
-  const int64_t G = outs_[0].size(0), M = outs_[0].size(1);
-  const int64_t E = outs_[10].size(2);
-  auto o = outs(outs_, dbt::N_INBOX, dev, name);
+// an inbox's 12 planes as the copy's source region: [G, S] and [G, S, E]
+// planes of width S; returns S
+int64_t inbox_region(const Tensors& ts, std::vector<const int*>& p,
+                     int64_t G, const at::Device& dev, const char* name,
+                     const char* what) {
+  p = ins(ts, dbt::N_INBOX, dev, name);
+  TORCH_CHECK(ts[0].dim() == 2 && ts[10].dim() == 3 && ts[0].size(0) == G,
+              name, ": ", what, " must be [G, S] and [G, S, E] planes");
+  const int64_t S = ts[0].size(1), E = ts[10].size(2);
   for (int f = 0; f < dbt::N_INBOX; ++f)
-    TORCH_CHECK(outs_[f].numel() == G * M * (f >= 10 ? E : 1), name,
-                ": output field ", f, " has the wrong size");
-  std::vector<const int*> pa, pb;
-  if (!a.empty()) pa = ins(a, dbt::N_INBOX, dev, name);
-  if (!b.empty()) pb = ins(b, dbt::N_INBOX, dev, name);
-  const int* c = nullptr;
-  const int* mk = nullptr;
-  if (mode == 0) {
-    TORCH_CHECK(!a.empty() && !b.empty() && combo, name,
-                ": assemble needs host, pending and combo");
-    TORCH_CHECK(PB >= 0 && PB <= M, name, ": bad pending width");
-    for (int f = 0; f < dbt::N_INBOX; ++f) {
-      const int64_t w = f >= 10 ? E : 1;
-      TORCH_CHECK(b[f].numel() == G * PB * w &&
-                      a[f].numel() == G * (M - PB) * w,
-                  name, ": assemble field ", f, " has the wrong size");
-    }
-  } else if (mode == 1) {
-    TORCH_CHECK(combo.has_value(), name, ": from_ticks needs combo");
-  } else {
-    TORCH_CHECK(!a.empty() && mask && mask->numel() == G, name,
-                ": zero_rows needs the inbox and a [G] mask");
-    for (int f = 0; f < dbt::N_INBOX; ++f)
-      TORCH_CHECK(a[f].numel() == outs_[f].numel(), name,
-                  ": zero_rows field ", f, " has the wrong size");
-    mk = in(*mask, dev, name);
-  }
-  if (combo) {
-    TORCH_CHECK(combo->numel() == G * 4, name, ": combo must be [G, 4]");
-    c = in(*combo, dev, name);
-  }
-  if (G * M == 0) return;
-  const c10::cuda::CUDAGuard guard(dev);
-  dbt::inbox_launch((int)mode, pa.empty() ? nullptr : pa.data(),
-                    pb.empty() ? nullptr : pb.data(), c, mk, o.data(),
-                    dim(G, name), dim(M, name), dim(E, name), dim(PB, name),
-                    stream_of(dev));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+    TORCH_CHECK(ts[f].numel() == G * S * (f >= 10 ? E : 1), name, ": ",
+                what, " plane ", f, " has the wrong size");
+  return S;
+}
+
+// the output allocation of a [G, M, E] inbox (inbox_layout)
+int* inbox_out(const at::Tensor& out_buf, int64_t G, int64_t M, int64_t E,
+               const at::Device& dev, const char* name) {
+  long long off[dbt::N_INBOX];
+  const long long words =
+      dbt::inbox_layout(dim(G, name), dim(M, name), dim(E, name), off);
+  TORCH_CHECK(out_buf.dim() == 1 && out_buf.numel() == words, name,
+              ": the output buffer must hold ", words, " words");
+  return out(out_buf, dev, name);
 }
 
 }  // namespace
 
 void assemble_inbox(const Tensors& host, const Tensors& pending,
-                    const at::Tensor& combo, const Tensors& outs_,
-                    int64_t PB) {
-  inbox(0, host, pending, combo, std::nullopt, outs_, PB);
+                    const at::Tensor& combo, const at::Tensor& out_buf) {
+  const char* name = "assemble_inbox";
+  const at::Device dev = combo.device();
+  TORCH_CHECK(combo.dim() == 2 && combo.size(1) == 4, name,
+              ": combo must be [G, 4]");
+  const int64_t G = combo.size(0);
+  const int* c = in(combo, dev, name);
+  std::vector<const int*> ph, pp;
+  const int64_t Mh = inbox_region(host, ph, G, dev, name, "host");
+  const int64_t PB = inbox_region(pending, pp, G, dev, name, "pending");
+  const int64_t E = host[10].size(2);
+  TORCH_CHECK(pending[10].size(2) == E, name, ": entry widths differ");
+  int* o = inbox_out(out_buf, G, PB + Mh, E, dev, name);
+  if (G * (PB + Mh) == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  launched(dbt::inbox_copy_launch(pp.data(), ph.data(), c, 4, 1, o,
+                                        dim(G, name), dim(PB + Mh, name),
+                                        dim(E, name), dim(PB, name),
+                                        stream_of(dev)),
+                 name);
 }
 
-void host_inbox_from_ticks(const at::Tensor& combo, const Tensors& outs_) {
-  inbox(1, {}, {}, combo, std::nullopt, outs_, 0);
+void host_inbox_from_ticks(const at::Tensor& combo, const at::Tensor& out_buf,
+                           int64_t M, int64_t E) {
+  const char* name = "host_inbox_from_ticks";
+  const at::Device dev = combo.device();
+  TORCH_CHECK(combo.dim() == 2 && combo.size(1) == 4, name,
+              ": combo must be [G, 4]");
+  TORCH_CHECK(M >= 0 && E >= 0, name, ": negative width");
+  const int64_t G = combo.size(0);
+  const int* c = in(combo, dev, name);
+  int* o = inbox_out(out_buf, G, M, E, dev, name);
+  if (G * M == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  launched(dbt::inbox_fill_launch(c, o, dim(G, name), dim(M, name),
+                                        dim(E, name), stream_of(dev)),
+                 name);
 }
 
 void zero_inbox_rows(const Tensors& src, const at::Tensor& mask,
-                     const Tensors& outs_) {
-  inbox(2, src, {}, std::nullopt, mask, outs_, 0);
+                     const at::Tensor& out_buf) {
+  const char* name = "zero_inbox_rows";
+  const at::Device dev = mask.device();
+  const int64_t G = mask.numel();
+  const int* mk = in(mask, dev, name);
+  std::vector<const int*> ps;
+  const int64_t M = inbox_region(src, ps, G, dev, name, "inbox");
+  const int64_t E = src[10].size(2);
+  int* o = inbox_out(out_buf, G, M, E, dev, name);
+  if (G * M == 0) return;
+  const c10::cuda::CUDAGuard guard(dev);
+  launched(dbt::inbox_copy_launch(nullptr, ps.data(), mk, 1, 0, o,
+                                        dim(G, name), dim(M, name),
+                                        dim(E, name), 0, stream_of(dev)),
+                 name);
 }
 
 void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
@@ -590,10 +605,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("set_remote_snapshot", &set_remote_snapshot,
         "csrc/place_rows.cu, snapshot mode");
   m.def("route", &route, "csrc/route.cu");
-  m.def("assemble_inbox", &assemble_inbox, "csrc/inbox.cu, assemble mode");
+  m.def("assemble_inbox", &assemble_inbox, "csrc/inbox.cu, copy (assemble)");
   m.def("host_inbox_from_ticks", &host_inbox_from_ticks,
-        "csrc/inbox.cu, from_ticks mode");
-  m.def("zero_inbox_rows", &zero_inbox_rows, "csrc/inbox.cu, zero_rows mode");
+        "csrc/inbox.cu, fill (from_ticks)");
+  m.def("zero_inbox_rows", &zero_inbox_rows,
+        "csrc/inbox.cu, copy (zero_rows)");
   m.def("select_and_blob", &select_and_blob, "csrc/select_blob.cu");
   m.def("xlane_pack", &xlane_pack, "csrc/xlane.cu, pack");
   m.def("xlane_scatter", &xlane_scatter, "csrc/xlane.cu, scatter");

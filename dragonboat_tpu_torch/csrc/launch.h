@@ -92,11 +92,32 @@ void route_launch(const int* const* st, const int* buf, const int* count,
                   int tick, int propose_leaders, int propose_n,
                   void* stream);
 
-// inbox.cu — mode 0 assemble (a = host, b = pending, combo), 1 from_ticks
-// (combo), 2 zero_rows (a = inbox, mask); out is [G, M(, E)]
-void inbox_launch(int mode, const int* const* a, const int* const* b,
-                  const int* combo, const int* mask, int* const* out, int G,
-                  int M, int E, int PB, void* stream);
+// inbox.cu — every output inbox is one int32 allocation `out` laid out
+// by inbox_layout.  Fill (from_ticks): every word 0 but slot 0 of mtype
+// (MT_TICK where combo[g, 3] > 0) and of log_index (combo[g, 3]).  Copy
+// (assemble, zero_rows): an output row is PA slots of region a then
+// M - PA of region b (a may be null when PA = 0), zeroed where the row's
+// lane word lane[g * lane_stride] is nonzero (alive_if = 0) or zero
+// (alive_if = 1).  Each returns 0, 1 (out is not 16-byte aligned) or 2
+// (too large for 32-bit word indexes) and launches nothing but on 0
+int inbox_fill_launch(const int* combo, int* out, int G, int M, int E,
+                      void* stream);
+int inbox_copy_launch(const int* const* a, const int* const* b,
+                      const int* lane, int lane_stride, int alive_if,
+                      int* out, int G, int M, int E, int PA, void* stream);
+
+// the word offset of each inbox plane in one allocation (field-major:
+// the ten [G, M] planes, then the two [G, M, E]; each starts on a
+// 16-byte boundary); returns the allocation's words
+inline long long inbox_layout(int G, int M, int E, long long* off) {
+  long long t = 0;
+  for (int f = 0; f < N_INBOX; ++f) {
+    off[f] = t;
+    const long long n = (long long)G * M * (f >= 10 ? E : 1);
+    t += (n + 3) & ~3LL;
+  }
+  return t;
+}
 
 // select_blob.cu — detail_srcs: buf, slot_base, slot_term, ent_drop,
 // need_snapshot, ring_term, ring_cc; caps: buf, slot, need, append, sum;

@@ -58,6 +58,7 @@ messages are dispatched (the reference's save -> send -> apply order).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -178,11 +179,25 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _empty_inbox(G: int, M: int, E: int, dev) -> Inbox:
-    def e(*shape):
-        return torch.empty(shape, dtype=I32, device=dev)
+@functools.lru_cache(maxsize=64)
+def _inbox_plan(G: int, M: int, E: int):
+    """(the words of one inbox allocation, each plane's (shape, strides,
+    first word)): field-major, each plane on a 16-byte boundary — the
+    layout ``inbox_layout`` (csrc/launch.h) gives the kernels."""
+    shapes = ((G, M),) * 10 + ((G, M, E),) * 2
+    _sizes, total, _cut, offs = K._view_plan(shapes)
+    return total, tuple(
+        (s, (M, 1) if len(s) == 2 else (M * E, E, 1), o)
+        for s, o in zip(shapes, offs))
 
-    return Inbox(*(e(G, M) for _ in range(10)), e(G, M, E), e(G, M, E))
+
+def _inbox_alloc(G: int, M: int, E: int, dev):
+    """One int32 allocation and the inbox's 12 planes as contiguous views
+    of it: (flat, inbox)."""
+    total, planes = _inbox_plan(G, M, E)
+    flat = torch.empty(total, dtype=I32, device=dev)
+    cut = flat.as_strided
+    return flat, Inbox(*(cut(s, st, o) for s, st, o in planes))
 
 
 def _assemble_inbox(host: Inbox, pending: Inbox, combo) -> Inbox:
@@ -195,9 +210,8 @@ def _assemble_inbox(host: Inbox, pending: Inbox, combo) -> Inbox:
         return colocated_ref.assemble_inbox(host, pending, combo)
     G, PB = pending.mtype.shape
     Mh, E = host.mtype.shape[1], host.ent_term.shape[2]
-    full = _empty_inbox(G, PB + Mh, E, combo.device)
-    _native.launch("inbox", list(host), list(pending), combo, list(full), PB,
-                   entry="assemble_inbox")
+    flat, full = _inbox_alloc(G, PB + Mh, E, combo.device)
+    _native.launch("inbox", host, pending, combo, flat, entry="assemble_inbox")
     return full
 
 
@@ -337,9 +351,8 @@ def _zero_inbox_rows(inbox: Inbox, mask) -> Inbox:
     if _on_cpu(mask):
         return colocated_ref.zero_inbox_rows(inbox, mask)
     G, M = inbox.mtype.shape
-    res = _empty_inbox(G, M, inbox.ent_term.shape[2], mask.device)
-    _native.launch("inbox", list(inbox), mask.to(I32), list(res),
-                   entry="zero_inbox_rows")
+    flat, res = _inbox_alloc(G, M, inbox.ent_term.shape[2], mask.device)
+    _native.launch("inbox", inbox, mask.to(I32), flat, entry="zero_inbox_rows")
     return res
 
 
@@ -352,8 +365,8 @@ def _host_inbox_from_ticks(combo, *, M: int, E: int) -> Inbox:
     _scatter_inbox_rows.  CUDA ``inbox`` (from_ticks)."""
     if _on_cpu(combo):
         return colocated_ref.host_inbox_from_ticks(combo, M=M, E=E)
-    res = _empty_inbox(combo.shape[0], M, E, combo.device)
-    _native.launch("inbox", combo, list(res), entry="host_inbox_from_ticks")
+    flat, res = _inbox_alloc(combo.shape[0], M, E, combo.device)
+    _native.launch("inbox", combo, flat, M, E, entry="host_inbox_from_ticks")
     return res
 
 

@@ -38,11 +38,13 @@ CARRIED = (
     "rsm/managed", "rsm/membership", "rsm/session", "rsm/statemachine",
     "rsm/__init__",
     "storage/logdb", "storage/snapshotio", "storage/snapshotter",
-    "storage/tan", "storage/journal", "storage/vfs", "storage/__init__",
+    "storage/tan", "storage/journal", "storage/vfs", "storage/kvstore",
+    "storage/kvlogdb", "storage/__init__",
     "transport/inproc", "transport/registry", "transport/transport",
     "transport/chunk", "transport/wire", "transport/tcp", "transport/gossip",
     "transport/__init__",
-    "bigstate/pacing", "bigstate/dr", "bigstate/__init__", "tools",
+    "bigstate/pacing", "bigstate/dr", "bigstate/ondisk", "bigstate/__init__",
+    "tools",
     "ops/hostplane",
     "native/__init__",
 )
