@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
     python3 chip_smoke.py --only colo_kernels,colocated   # some phases, no result
     python3 chip_smoke.py --only mesh_kernels,phase_a,multichip
+    python3 chip_smoke.py --only mesh_engines
 
 Phases, each printing one JSON line:
 
@@ -88,6 +89,17 @@ Phases, each printing one JSON line:
                8 workers keep 8 proposals in flight per shard through the
                asynchronous ``propose`` future for 30 s; every
                acknowledged write is read back from all three replicas.
+9. mesh_engines — both engines' ``mesh=`` modes on ``GroupsMesh([cuda:0]
+               * 4)``: (a) the colocated phase's drive for 10 s; (b) the
+               same engine at 1,365 shards x 3 = 4,095 rows for 5 s, shards
+               straddling the blocks, with the lane's gates (sent and
+               delivered above 0, no lane drop); (c) the nodehost layout on
+               ``torch_step_engine_factory(mesh=...)``, the writes begun in
+               10 s; (d) the lane pack with the colocated operands (alive
+               lane, delivered bits, undelivered word) bit-exact against its
+               plain version at leg 2's geometry, timed beside the pack
+               without them (``--only mesh_pack`` runs (d) alone).  On four
+               visible cards (a) runs again, a block a card.
 Each path's kernel launch counts are reset just before it and read just
 after; every kernel of the path must have run.  The engines re-run some
 launches (and every row move) through the plain versions: every such
@@ -1685,6 +1697,101 @@ def mesh_kernels_phase(dev, n_ticks: int = 3, n_fuzz: int = 2,
     return result
 
 
+def mesh_pack_case(dev, warm_rounds: int = 20,
+                   dead_share: float = 0.05) -> dict:
+    """The colocated pack (``xlane_pack`` with ``dest_alive``, ``packed``
+    and ``undeliv``, as a mesh-mode colocated route step runs it) at leg
+    2's geometry: each block's route on its local tables with the alive
+    lane of a seeded combo that kills about ``dead_share`` of the rows
+    gives the delivered bits and undelivered words, then the pack holds
+    every cross-block message to its receiver's alive word, sets the
+    bits of what it carried and rewrites the undelivered words; bit-exact
+    against the plain version on every block, then block 0 timed beside
+    the pack without the new operands on the same rows."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import route_ref
+
+    lc = leg2_lane_case(dev, warm_rounds)
+    Gx, xb = lc["G"], lc["xbudget"]
+    st_b, out_b, tab_b = lc["st_b"], lc["out_b"], lc["tab_b"]
+    gl = Gx // X_DEVICES
+    rng = np.random.default_rng(SEED + 8)
+    combo_np = np.zeros((Gx, 4), np.int32)
+    combo_np[:, 0] = rng.random(Gx) >= dead_share
+    combo = torch.from_numpy(combo_np).to(dev)
+    PB, nw = X_P * X_BUD, (X_O + 31) // 32
+    err, refused, carried, routed = 0, 0, 0, []
+    for d in range(X_DEVICES):
+        local = torch.where(tab_b[d][1] == d, tab_b[d][0], -1).to(
+            torch.int32)
+        packed = torch.empty((gl, nw), dtype=torch.int32, device=dev)
+        und = torch.empty((gl,), dtype=torch.int32, device=dev)
+        R.route_cuda(st_b[d], out_b[d], local, tab_b[d][2], M=PB, E=X_E,
+                     budget=X_BUD, base=0, suppress=out_b[d].escalate,
+                     alive=combo[d * gl:(d + 1) * gl], alive_stride=4,
+                     packed=packed, undeliv=und)
+        kw = dict(me=d, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
+                  suppress=out_b[d].escalate, dest_alive=combo,
+                  alive_stride=4)
+        gp, gu, wp, wu = (packed.clone(), und.clone(), packed.clone(),
+                          und.clone())
+        got = R.xlane_pack(st_b[d], out_b[d], *tab_b[d], **kw, packed=gp,
+                           undeliv=gu)
+        want = route_ref.lane_pack(st_b[d], out_b[d], *tab_b[d], **kw,
+                                   packed=wp, undeliv=wu)
+        err = max(err, _max_err(list(got) + [gp, gu],
+                                list(want) + [wp, wu]))
+        refused += int(got[1][7])
+        carried += int(got[1][0])
+        routed.append((local, packed, und))
+    if err:
+        raise AssertionError(f"the colocated pack disagrees with its plain "
+                             f"version: max abs error {err}")
+    if refused < 1 or carried < 1:
+        raise AssertionError(f"the colocated pack refused {refused} and "
+                             f"carried {carried} messages: the case does "
+                             f"not exercise it")
+    d0 = 0
+    _local, packed, und = routed[d0]
+    kw = dict(me=d0, n_dev=X_DEVICES, E=X_E, budget=X_BUD, xbudget=xb,
+              suppress=out_b[d0].escalate)
+    work = (packed.clone(), und.clone())
+
+    def colo():
+        return R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw,
+                            dest_alive=combo, alive_stride=4,
+                            packed=work[0], undeliv=work[1])
+
+    def parent():
+        return R.xlane_pack(st_b[d0], out_b[d0], *tab_b[d0], **kw)
+
+    xbuf = colo()[0]
+    # the bound: the pack's (lane_pack_bound_ms) and, with the colocated
+    # operands, each live row's delivered words read and written and its
+    # undelivered word written, and each cross-block message's receiver
+    # alive word read
+    live = int(((out_b[d0].escalate == 0) & (out_b[d0].count > 0)).sum())
+    remote = int(xbuf[:, :, route_ref.XI_FOUND].sum()) + int(
+        colo()[1][7]) + int(colo()[1][2]) + int(colo()[1][4])
+    extra = bound_ms(4 * (live * (2 * nw + 1) + remote))
+    return dict(
+        rows=Gx, blocks=X_DEVICES, xbudget=xb, dead_share=dead_share,
+        dead_rows=int((combo_np[:, 0] == 0).sum()), refused=refused,
+        carried=carried, max_abs_err=err,
+        ms=time_ms(colo, 50), device_ms=device_ms(colo),
+        split=kernel_split(colo),
+        plain_ms=time_ms(lambda: route_ref.lane_pack(
+            st_b[d0], out_b[d0], *tab_b[d0], **kw, dest_alive=combo,
+            alive_stride=4, packed=packed.clone(), undeliv=und.clone()), 5),
+        bound_ms=lane_pack_bound_ms(out_b[d0], xbuf, X_P) + extra,
+        without_operands=dict(
+            ms=time_ms(parent, 50), device_ms=device_ms(parent),
+            bound_ms=lane_pack_bound_ms(out_b[d0], parent()[0], X_P)),
+        library_ms=None)
+
+
 def phase_a_phase(dev, iters: int = 100, windows: int = 3) -> dict:
     """Bench phase A on ``step_internal``: 100k groups x 3 replicas stay
     on the card in the G-last layout; every launch advances 12 slots of
@@ -1980,7 +2087,15 @@ class ErrorRecords(logging.Handler):
 
 
 def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
-                   writes: int = WRITES_PER_SHARD) -> dict:
+                   writes: int = WRITES_PER_SHARD, mesh=None,
+                   window_s: float = 0.0) -> dict:
+    """300 shards x 3 replicas on three NodeHosts, each stepping its
+    replicas through ``torch_step_engine_factory`` on ``dev`` (or, with
+    ``mesh``, on the mesh's row blocks); every shard takes ``writes``
+    writes through ``sync_propose`` from 64 client threads (with
+    ``window_s``: the writes begun in that many seconds), and every
+    acknowledged write is read back linearizably and from each
+    replica."""
     import pickle
     import shutil
     import threading
@@ -2027,10 +2142,13 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
     engine_log = get_logger("engine")
     engine_log.addHandler(errors_logged)
     res = dict(shards=shards, replicas=3, writes_per_shard=writes,
+               window_s=window_s or None,
                value_bytes=VALUE_BYTES, capacity=cap, rtt_ms=RTT_MS,
                election_rtt=ELECTION_RTT, heartbeat_rtt=HEARTBEAT_RTT,
                parity_every=PARITY_EVERY,
+               mesh=None if mesh is None else [str(d) for d in mesh.devices],
                reduced=[f"shards 1000 -> {shards}"] if shards < 1000 else [])
+    where = dict(device=dev) if mesh is None else dict(mesh=mesh)
     try:
         for rid, addr in addrs.items():
             nhs[rid] = NodeHost(NodeHostConfig(
@@ -2041,7 +2159,7 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
                     engine=EngineConfig(exec_shards=1, apply_shards=4),
                     logdb_factory=in_mem_logdb_factory,
                     step_engine_factory=torch_step_engine_factory(
-                        capacity=cap, device=dev, parity_every=PARITY_EVERY,
+                        capacity=cap, parity_every=PARITY_EVERY, **where,
                     ),
                 ),
             ))
@@ -2083,8 +2201,12 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
         errors = [0]
         lock = threading.Lock()
 
+        t_stop = float("inf")  # with window_s: the window's end
+
         def write(job):
             s, i = job
+            if time.perf_counter() > t_stop:
+                return  # past the window: not begun
             key = f"k{i}"
             cmd = pickle.dumps((key, bytes(vals[s - 1, i])))
             t_first = time.perf_counter()
@@ -2107,9 +2229,15 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
 
         jobs = [(s, i) for i in range(writes) for s in range(1, shards + 1)]
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(CLIENT_THREADS) as ex:
+        if window_s:
+            t_stop = t0 + window_s
+        with StackSampler() as stacks, \
+                ThreadPoolExecutor(CLIENT_THREADS) as ex:
             list(ex.map(write, jobs))
         dt = time.perf_counter() - t0
+        # where the host threads spent the writes (the step workers'
+        # frames: the engine's launch stages)
+        res["host_stacks"] = stacks.summary()
         res["propose_s"] = dt
         res["committed_proposals"] = len(acked)
         res["committed_proposals_per_s"] = len(acked) / dt
@@ -2187,6 +2315,9 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
     for k in ("device_steps", "device_rows_stepped", "host_rows_stepped",
               "escalations", "divergence_halts") + PARITY_STATS:
         res[k] = sum(x[k] for x in st)
+    # the engines' cumulative wall-time breakdown of a launch (ms)
+    res["engine_ms"] = {k: sum(x.get(k, 0) for x in st) for k in sorted(
+        {k for x in st for k in x if k.startswith("t_")})}
     res["launches"] = launches
     res["engine_errors"] = len(engine_errors)
     if parity_failure is not None or res["parity_failures"]:
@@ -2209,7 +2340,7 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
     idle = [k for k in KERNEL_INFO if launches[k] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
-    if len(acked) != shards * writes:
+    if len(acked) < 1 or (not window_s and len(acked) != shards * writes):
         raise AssertionError(f"acked {len(acked)} of {shards * writes}")
     return res
 
@@ -2366,7 +2497,8 @@ def device_busy_share(seconds: float) -> dict:
 def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                     window_s: float = COLO_WINDOW_S,
                     profile_s: float = 0.0,
-                    parity_kernels: tuple = COLO_PARITY_KERNELS) -> dict:
+                    parity_kernels: tuple = COLO_PARITY_KERNELS,
+                    mesh=None, need_lane: bool = False) -> dict:
     """1,000 shards x 3 replicas on three NodeHosts in one process (the
     in-proc transport), all stepped by ONE ``ColocatedEngineGroup`` on
     the card with the tan WAL; phase C's drive: ``COLO_WORKERS`` workers
@@ -2376,7 +2508,12 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
     write is then read back from all three replicas' state machines.
     The card's utilization is sampled through the window, and so are
     the host threads' stacks; ``profile_s`` > 0 also records the
-    device's activity with torch.profiler for that many seconds."""
+    device's activity with torch.profiler for that many seconds.
+
+    ``mesh`` (a ``GroupsMesh``) runs the engine in mesh mode: its rows
+    cut into the mesh's blocks, cross-block traffic on the lane (whose
+    two kernels join the parity and launch checks); ``need_lane``
+    requires that the lane carried messages and dropped none."""
     import pickle
     import shutil
     import threading
@@ -2418,8 +2555,11 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
     reset_inproc_network()
     shutil.rmtree(workdir, ignore_errors=True)
     geom = dict(capacity=cap, P=3, W=16, M=8, E=4, O=32, budget=4)
-    group = ColocatedEngineGroup(**geom, device=dev,
-                                 parity_every=COLO_PARITY_EVERY)
+    if mesh is not None:
+        parity_kernels = parity_kernels + ("xlane_pack", "xlane_scatter")
+    group = ColocatedEngineGroup(
+        **geom, parity_every=COLO_PARITY_EVERY,
+        **(dict(device=dev) if mesh is None else dict(mesh=mesh)))
     errors_logged = ErrorRecords()
     engine_log = get_logger("engine")
     engine_log.addHandler(errors_logged)
@@ -2429,7 +2569,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                heartbeat_rtt=COLO_HEARTBEAT_RTT, workers=COLO_WORKERS,
                inflight_per_shard=COLO_INFLIGHT, window_s=window_s,
                parity_every=COLO_PARITY_EVERY,
-               reduced=["timed window 60 s -> 30 s"])
+               mesh=None if mesh is None else [str(d) for d in mesh.devices],
+               reduced=[f"timed window 60 s -> {window_s:g} s"])
     nhs = {}
     try:
         t0 = time.perf_counter()
@@ -2622,6 +2763,12 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
         st = group.core.stats_snapshot()
         parity_failure = group.core.parity_failure
         engine_errors = list(errors_logged.lines)
+        if mesh is not None:
+            # where the rows sit: the shards whose replicas span blocks
+            core = group.core
+            res["straddling_shards"] = sum(
+                len({core.device_coordinate(s, r) for r in nhs}) > 1
+                for s in range(1, shards + 1))
     finally:
         engine_log.removeHandler(errors_logged)
         for nh in nhs.values():
@@ -2637,7 +2784,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             "routed_dropped_ring", "sel_fallbacks", "pipeline_overlap_s",
             "pipeline_fences", "early_completions", "readback_windows",
             "parity_failures", "parity_row_attempts",
-            "parity_checked_row_moves")
+            "parity_checked_row_moves", "lane_sent", "lane_delivered",
+            "lane_dropped_xlane")
     res["engine"] = {k: st.get(k, 0) for k in keys}
     # the engine's cumulative wall-time breakdown of the launch path (ms)
     res["engine_ms"] = {k: v for k, v in sorted(st.items())
@@ -2675,6 +2823,62 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             f"kernels never launched on the colocated path: {idle}")
     if st["routed_delivered"] < 1:
         raise AssertionError("no message was routed on the card")
+    if need_lane and (st["lane_sent"] < 1 or st["lane_delivered"] < 1
+                      or st["lane_dropped_xlane"] != 0):
+        raise AssertionError(
+            f"the lane carried {st['lane_sent']}, delivered "
+            f"{st['lane_delivered']} and dropped "
+            f"{st['lane_dropped_xlane']} messages")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the engines' mesh modes
+# ---------------------------------------------------------------------------
+MESH_BLOCKS = 4
+MESH_COLO_WINDOW_S = 10.0
+MESH_LANE_SHARDS = 1365  # 4,095 rows: a block of 1,024 holds <= 341 shards
+MESH_LANE_WINDOW_S = 5.0
+MESH_NH_WINDOW_S = 10.0
+MESH_NH_WRITES = 64  # a shard's writes the 10 s window can begin
+
+
+def mesh_engines_phase(dev, workdir: str) -> dict:
+    """Both engines in mesh mode on ``GroupsMesh([dev] * 4)``, each path's
+    kernel launches counted from zero: (a) the colocated phase's drive
+    (1,000 shards x 3, BASELINE config 2, tan WAL) for a 10 s window;
+    (b) the same engine at 1,365 shards x 3 = 4,095 rows for 5 s, so
+    that shards straddle the blocks and their traffic rides the lane;
+    (c) the nodehost phase's layout (300 shards, capacity 512) on
+    ``torch_step_engine_factory(mesh=...)``, the writes begun in a 10 s
+    window; (d) the colocated pack
+    bit-exact against its plain version at leg 2's geometry and timed
+    beside the pack without the new operands.  Every path holds the
+    parity self-check, every acknowledged write read back from all three
+    replicas and no divergence halt; on four visible cards (a) runs again
+    with one block a card.  On one card this measures the mechanism, not
+    a multi-card rate."""
+    import torch
+
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    mesh = GroupsMesh([dev] * MESH_BLOCKS)
+    res = dict(blocks=MESH_BLOCKS, devices=[str(d) for d in mesh.devices])
+    res["colocated"] = colocated_phase(
+        dev, os.path.join(workdir, "a"), window_s=MESH_COLO_WINDOW_S,
+        mesh=mesh)
+    res["colocated_lane"] = colocated_phase(
+        dev, os.path.join(workdir, "b"), shards=MESH_LANE_SHARDS,
+        window_s=MESH_LANE_WINDOW_S, mesh=mesh, need_lane=True)
+    res["nodehost"] = nodehost_phase(
+        dev, os.path.join(workdir, "c"), mesh=mesh, window_s=MESH_NH_WINDOW_S,
+        writes=MESH_NH_WRITES)
+    res["pack"] = mesh_pack_case(dev)
+    if torch.cuda.device_count() >= MESH_BLOCKS:
+        res["colocated_cards"] = colocated_phase(
+            dev, os.path.join(workdir, "a4"), window_s=MESH_COLO_WINDOW_S,
+            mesh=GroupsMesh([torch.device("cuda", i)
+                             for i in range(MESH_BLOCKS)]))
     return res
 
 
@@ -2695,8 +2899,9 @@ def main(argv) -> int:
     ap.add_argument(
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
-             "mesh_kernels, phase_a, multichip, nodehost, colocated) "
-             "without the result lines; default: all",
+             "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
+             "colocated, mesh_engines) without the result lines; default: "
+             "all",
     )
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
@@ -2742,6 +2947,8 @@ def main(argv) -> int:
         ckern = run("colocated_kernels", colocated_kernels_phase, dev)
     if want("mesh_kernels"):
         mkern = run("mesh_kernels", mesh_kernels_phase, dev)
+    if want("mesh_pack") and only:
+        run("mesh_pack", mesh_pack_case, dev)
     if want("phase_a"):
         pa = run("phase_a", phase_a_phase, dev)
     if want("multichip"):
@@ -2756,6 +2963,9 @@ def main(argv) -> int:
         colo = run("colocated", colocated_phase, dev,
                    os.path.join(scratch, f"colo-{os.getpid()}"),
                    profile_s=args.profile_colocated)
+    if want("mesh_engines"):
+        mesh = run("mesh_engines", mesh_engines_phase, dev,
+                   os.path.join(scratch, f"mesh-{os.getpid()}"))
     if only:
         print(f"chip_smoke: ran {sorted(only)} in "
               f"{time.perf_counter() - t_all:.1f} s {phase_s}",
@@ -2884,6 +3094,26 @@ def main(argv) -> int:
                 undersized=mkern["xlane_pack_undersized"],
                 ptxas={n: ptxas_numbers(v) for n, v in ptxas.items()
                        if n.startswith("xlane_") and "scatter" not in n})
+    # the mesh modes' paths: every kernel's launches there, and the
+    # colocated pack (the lane pack with its new operands) as a case of
+    # its row
+    m_colo = mesh["colocated"]["kernel_launches"]
+    m_nh = mesh["nodehost"]["launches"]
+    for row in rows:
+        row["launches_mesh_colocated"] = m_colo.get(row["name"], 0)
+        row["launches_mesh_nodehost"] = m_nh.get(row["name"], 0)
+        if row["name"] == "xlane_pack":
+            pk = mesh["pack"]
+            row["colocated_operands"] = dict(
+                launches=m_colo["xlane_pack"],
+                launches_lane_path=mesh["colocated_lane"][
+                    "kernel_launches"]["xlane_pack"],
+                max_abs_err=pk["max_abs_err"], ms=pk["ms"],
+                device_ms=pk["device_ms"], plain_ms=pk["plain_ms"],
+                bound_ms=pk["bound_ms"], bound_by="bytes",
+                library_ms=pk["library_ms"], split=pk["split"],
+                without_operands=pk["without_operands"])
+            row["max_abs_err"] = max(row["max_abs_err"], pk["max_abs_err"])
     emit({"kernels": rows, "phase_s": phase_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -373,7 +373,10 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
                 const at::Tensor& boff, const at::Tensor& part,
                 const at::Tensor& tot,
                 const at::Tensor& stats, int64_t me, int64_t D, int64_t B,
-                int64_t R) {
+                int64_t R, const std::optional<at::Tensor>& alive,
+                int64_t alive_stride,
+                const std::optional<at::Tensor>& packed,
+                const std::optional<at::Tensor>& undeliv) {
   const char* name = "xlane_pack";
   const at::Device dev = buf.device();
   auto s = ins(st, dbt::N_LANE_STATE, dev, name);
@@ -392,16 +395,36 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
   for (int i = 0; i < dbt::N_LANE_STATE; ++i)
     TORCH_CHECK(st[i].size(0) == G, name, ": state row counts differ");
   TORCH_CHECK(count.numel() == G && dest_local.numel() == G * P &&
-                  dest_dev.numel() == G * P && rank.numel() == G * P &&
-                  stats.numel() == dbt::N_LANE_STATS,
+                  dest_dev.numel() == G * P && rank.numel() == G * P,
               name, ": bad table shapes");
+  TORCH_CHECK(packed.has_value() == undeliv.has_value(), name,
+              ": packed and undeliv come together");
+  const int64_t n_stats =
+      packed ? dbt::N_LANE_STATS_X : dbt::N_LANE_STATS;
+  TORCH_CHECK(stats.numel() == n_stats, name, ": stats must be [", n_stats,
+              "]");
+  const int* alv = nullptr;
+  if (alive) {
+    TORCH_CHECK(alive_stride >= 1 && alive->numel() == G * D * alive_stride,
+                name, ": alive must be [G * D * alive_stride]");
+    alv = in(*alive, dev, name);
+  }
+  int* pk = nullptr;
+  int* ud = nullptr;
+  if (packed) {
+    TORCH_CHECK(packed->numel() == G * ((O + 31) / 32) &&
+                    undeliv->numel() == G,
+                name, ": packed must be [G, ceil(O / 32)], undeliv [G]");
+    pk = out(*packed, dev, name);
+    ud = out(*undeliv, dev, name);
+  }
   TORCH_CHECK(R == 32 || R == 64 || R == 128, name,
               ": rows a block must be 32, 64 or 128, got ", R);
   const int64_t nblk = (G + R - 1) / R;
   TORCH_CHECK(rowoff.numel() == G * D && btot.numel() == nblk * D &&
-                  boff.numel() == nblk * D && part.numel() == nblk * 4 &&
+                  boff.numel() == nblk * D && part.numel() == nblk * 5 &&
                   tot.numel() == D,
-              name, ": workspace must be [G, D], [nblk, D] twice, [nblk, 4], "
+              name, ": workspace must be [G, D], [nblk, D] twice, [nblk, 5], "
               "[D]");
   const int* sup = nullptr;
   if (suppress) {
@@ -416,7 +439,8 @@ void xlane_pack(const Tensors& st, const at::Tensor& buf,
                          out(btot, dev, name), out(boff, dev, name),
                          out(part, dev, name),
                          out(tot, dev, name), out(stats, dev, name),
-                         dim(G, name), dim(P, name), dim(W, name),
+                         dim(n_stats, name), alv, dim(alive_stride, name),
+                         pk, ud, dim(G, name), dim(P, name), dim(W, name),
                          dim(O, name), dim(E, name), dim(D, name),
                          dim(XB, name), dim(B, name), dim(me, name),
                          dim(R, name), stream_of(dev));
@@ -435,7 +459,9 @@ void xlane_scatter(const Tensors& inbox, const at::Tensor& recv,
   const int64_t E = inbox[10].size(2), R = recv.size(0);
   TORCH_CHECK(recv.size(1) == 14 + 2 * E, name,
               ": recv must be [R, 14 + 2E]");
-  TORCH_CHECK(stats.numel() == dbt::N_LANE_STATS, name, ": stats must be [7]");
+  TORCH_CHECK(stats.numel() == dbt::N_LANE_STATS ||
+                  stats.numel() == dbt::N_LANE_STATS_X,
+              name, ": stats must be [7] or [8]");
   for (int i = 0; i < dbt::N_INBOX; ++i)
     TORCH_CHECK(inbox[i].size(0) == G && inbox[i].size(1) == M, name,
                 ": inbox shapes differ");

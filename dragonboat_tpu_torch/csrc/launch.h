@@ -31,6 +31,8 @@ constexpr int N_ROUTE_STATS = 7;
 // CrossStats, then the suppressed and the live row counts)
 constexpr int N_LANE_STATE = 6;
 constexpr int N_LANE_STATS = 7;
+// the colocated pack's stats row: the seven, then the refused messages
+constexpr int N_LANE_STATS_X = 8;
 
 // raft_step.cu — every array in the field order of ops/types.py; the
 // external [G, ...] layout (internal = 0) or the G-last one (1); blocks of
@@ -131,16 +133,22 @@ int select_blob_launch(const int* flags, const int* combo, const int* packed,
                        void* stream);
 
 // xlane.cu, pack — st: N_LANE_STATE sources; suppress may be null;
-// xbuf [D, XB, 14 + 2E] and stats [7] are written whole; rowoff [G, D],
-// btot [nblk, D], boff [nblk, D], part [nblk, 4] and tot [D] are
-// workspace (nblk = the blocks of rows_per_block rows: 32, 64 or 128)
+// xbuf [D, XB, 14 + 2E] and stats [n_stats] (N_LANE_STATS, or
+// N_LANE_STATS_X with the refused count) are written whole; rowoff
+// [G, D], btot [nblk, D], boff [nblk, D], part [nblk, 5] and tot [D] are
+// workspace (nblk = the blocks of rows_per_block rows: 32, 64 or 128).
+// The colocated operands may be null: alive (the receivers' words at
+// (dest_dev * G + dest_local) * alive_stride), and packed [G, ceil(O/32)]
+// and undeliv [G], updated in place (both or neither)
 void xlane_pack_launch(const int* const* st, const int* buf,
                        const int* count, const int* suppress,
                        const int* dest_local, const int* dest_dev,
                        const int* rank, int* xbuf, int* rowoff, int* btot,
-                       int* boff, int* part, int* tot, int* stats, int G,
-                       int P, int W, int O, int E, int D, int XB, int B,
-                       int me, int rows_per_block, void* stream);
+                       int* boff, int* part, int* tot, int* stats,
+                       int n_stats, const int* alive, int alive_stride,
+                       int* packed, int* undeliv, int G, int P, int W, int O,
+                       int E, int D, int XB, int B, int me,
+                       int rows_per_block, void* stream);
 
 // xlane.cu, scatter — adds the R received rows into inbox (in place) and
 // writes the delivered count into stats[1]

@@ -48,6 +48,18 @@
 //      them in shared memory first (up to XL_STAGE_BYTES) and writes each
 //      device's run out whole, coalesced; a block with more rows than
 //      that packs each in place.
+//   With the colocated engine's operands (a mesh-mode launch's route
+//   step, ops/colocated.py) the pack also holds a message to its
+//   receiver's alive word, in the global row order dest_dev * G +
+//   dest_local: a stopping or detached receiver is not fed, as the
+//   single-device route's dest_alive (route.py:143).  The write pass then
+//   sets the delivered bit of every message it carried in the route's
+//   bit-packed mask and rewrites the row's undelivered word (a valid
+//   message left without a bit), so the flag word built after it tells
+//   the host which messages it still owns.  The stats row has an eighth
+//   word then: the messages toward another device the lane refuses (a
+//   forwarded PROPOSE, or a receiver not alive), which the single-device
+//   route counts as host_carried.
 // xlane_scatter, one launch: one thread per received row; a row with
 // found != 0 is counted in `delivered` and, when its row and slot lie in
 // [0, G) x [0, M), its fields are ADDED into the inbox with atomicAdd
@@ -93,8 +105,8 @@ constexpr int XL_STAGE_BYTES = 40 * 1024;
 constexpr int XL_THREADS = 256;
 constexpr int XL_RMAX = 128;
 // the partial stats a block writes: dropped_budget, dropped_ring,
-// sendable, suppressed rows
-constexpr int XL_NPART = 4;
+// sendable, suppressed rows, refused (host-carried) messages
+constexpr int XL_NPART = 5;
 
 DBT_HD int wmul(int a, int b) {
   return (int)((uint32_t)a * (uint32_t)b);
@@ -119,9 +131,19 @@ struct XPackArgs {
   int* boff;               // [nblk, D] the block's first lane slot
   int* part;               // [nblk, XL_NPART] a block's partial stats
   int* tot;                // [D] device totals
-  int* stats;              // [7]
+  int* stats;              // [n_stats]: 7, or 8 with the refused count
   int G, P, W, O, E, D, XB, B, me, R, nblk;
   int stage_rows;          // packed rows a block stages in shared memory
+  // the colocated operands: the receivers' alive words, read at
+  // alive[(dest_dev * G + dest_local) * alive_stride] (null: every
+  // receiver alive); the route's delivered bits [G, nw] and undelivered
+  // words [G], updated by the write pass (both null, or neither)
+  const int* alive = nullptr;
+  int alive_stride = 1;
+  int* packed = nullptr;
+  int* undeliv = nullptr;
+  int nw = 0;
+  int n_stats = 7;
 };
 
 // One peer slot of a sending row: its id and the three mesh tables.
@@ -166,7 +188,7 @@ struct XMsg {
   uint32_t hits;         // peer slots whose id matches `to`
   int xdev, xloc, xrank;  // the tables summed over the hits
   int b;                  // its region slot: the sum of k_excl at the hits
-  bool v, routable, ring_ok, deliverable;
+  bool v, routable, refused, ring_ok, deliverable;
 };
 
 // Message o's words, read only when the row's walk holds it.
@@ -201,7 +223,16 @@ DBT_FI void xlane_msg_facts(const XPackArgs& a, const XRow& r, XMsg& f) {
   f.ring_ok = !carries || (wadd(f.li, 1) >= r.win_lo &&
                            wadd(f.li, f.n_ent) <= r.last && !marker);
   const bool remote = f.hits != 0 && f.xdev >= 0 && f.xdev != a.me;
-  f.routable = remote && f.mt != MT_PROPOSE;
+  bool alive = true;
+  if (a.alive && remote) {
+    // the receiver's global row, clamped into the mesh as the reference
+    // clamps dest_row (route.py:236)
+    const int x = imin(imax(wadd(wmul(f.xdev, a.G), f.xloc), 0),
+                       wmul(a.D, a.G) - 1);
+    alive = a.alive[(long long)x * a.alive_stride] != 0;
+  }
+  f.routable = remote && f.mt != MT_PROPOSE && alive;
+  f.refused = remote && !f.routable;
   f.deliverable = f.routable && f.ring_ok;
 }
 
@@ -225,7 +256,8 @@ DBT_LANE void xlane_lane_facts(const XPackArgs& a, const XRow& r, int o,
 
 // The message's region slot b = popc(hits) * bx (bx: its k_excl, the
 // same at every hit slot) and its counts: s[0] dropped_budget, s[1]
-// dropped_ring, s[2] sendable.  Returns whether it takes a lane slot: a
+// dropped_ring, s[2] sendable, s[4] refused.  Returns whether it takes a
+// lane slot: a
 // sendable message toward a device outside [0, D) has no lane (counted
 // as dropped_xlane).
 DBT_FI bool xlane_lane_tally(const XPackArgs& a, XMsg& f, int bx, int* s) {
@@ -234,7 +266,35 @@ DBT_FI bool xlane_lane_tally(const XPackArgs& a, XMsg& f, int bx, int* s) {
   if (f.deliverable && !in_b) s[0] += 1;
   if (f.routable && !f.ring_ok) s[1] += 1;
   if (f.deliverable && in_b) s[2] += 1;
+  if (f.refused) s[4] += 1;
   return f.deliverable && in_b && f.xdev < a.D;
+}
+
+// Whether the j-th of block blk's sendable rows toward device x gets a
+// lane slot (q = boff + j below XB): the message is carried.
+DBT_HD bool xlane_carried(const XPackArgs& a, int blk, int x, int j) {
+  return a.boff[(long long)blk * a.D + x] + j < a.XB;
+}
+
+// Message o of row g after the lane: whether it stays with the host — a
+// valid message (`v`) that neither the route (its bit in `packed`) nor
+// the lane (`carried`) delivered.
+DBT_HD bool xlane_undelivered(const XPackArgs& a, int g, int o, bool v,
+                              bool carried) {
+  if (!v || carried) return false;
+  const int w = a.packed[(long long)g * a.nw + (o >> 5)];
+  return ((w >> (o & 31)) & 1) == 0;
+}
+
+// The delivered bits of chunk c of row g (bit l: message
+// c * WALK_LANES + l) set in the row's packed words: a chunk lies in
+// one word, and only the row's walk writes them.
+DBT_HD void xlane_mark_carried(const XPackArgs& a, int g, int c,
+                               uint32_t carried) {
+  if (!carried) return;
+  const int o = c * WALK_LANES;
+  int* w = a.packed + (long long)g * a.nw + (o >> 5);
+  *w = (int)((uint32_t)*w | (carried << (o & 31)));
 }
 
 // Where the j-th of block blk's sendable rows toward device x is packed:
@@ -306,6 +366,7 @@ DBT_HD void xlane_finish_stats(const XPackArgs& a, const int* tot,
   a.stats[4] = st[1];
   a.stats[5] = st[3];
   a.stats[6] = a.G - st[3];
+  if (a.n_stats > 7) a.stats[7] = st[4];
 }
 
 // The packed rows a block of the write pass can stage: as many as its R
@@ -414,9 +475,11 @@ __device__ __forceinline__ void xlane_load_slots(const dbt::XPackArgs& a,
 // sendable messages toward each device so far.  Count pass: the stats go
 // to s.  Write pass: the j-th of block blk's sendable messages toward
 // device d (j = rowoff[d], the row's offset in the block, plus its rank
-// in the row) is packed at `xlane_row_at`.
+// in the row) is packed at `xlane_row_at`; with the colocated operands it
+// also sets the carried messages' delivered bits and returns whether a
+// valid message of the row stays undelivered.
 template <bool WRITE>
-__device__ __forceinline__ void xlane_walk(const dbt::XPackArgs& a,
+__device__ __forceinline__ bool xlane_walk(const dbt::XPackArgs& a,
                                            const dbt::XRow& r, int sub,
                                            int blk, const dbt::XSlots& sl,
                                            const dbt::LaneWords& rowoff,
@@ -427,9 +490,11 @@ __device__ __forceinline__ void xlane_walk(const dbt::XPackArgs& a,
       __reduce_max_sync(0xffffffffu, dbt::xlane_row_live(a, r));
   const auto ballot = [](int, bool pred) { return dbt::sub_ballot(pred); };
   dbt::LaneWords carry;  // deliverable messages toward each peer slot
+  bool und = false;
   for (int c = 0; c * L < n_live; ++c) {
     dbt::XMsg f;
-    dbt::xlane_lane_facts(a, r, c * L + sub, sl, f);
+    const int o = c * L + sub;
+    dbt::xlane_lane_facts(a, r, o, sl, f);
     const int bx = dbt::lane_rank(a.P, f.deliverable ? f.hits : 0u, sub,
                                   ballot, carry);
     const bool ok = dbt::xlane_lane_tally(a, f, bx, s);
@@ -440,8 +505,16 @@ __device__ __forceinline__ void xlane_walk(const dbt::XPackArgs& a,
       int* row = ok ? dbt::xlane_row_at(a, blk, f.xdev, j, stage, seg)
                     : nullptr;
       if (row) dbt::xlane_pack_row(a, r, f, row);
+      if (a.packed) {
+        const bool carried = ok && dbt::xlane_carried(a, blk, f.xdev, j);
+        const uint32_t bits = dbt::sub_ballot(carried);
+        und |= dbt::sub_ballot(
+                   dbt::xlane_undelivered(a, r.g, o, f.v, carried)) != 0;
+        if (sub == 0) dbt::xlane_mark_carried(a, r.g, c, bits);
+      }
     }
   }
+  return und;
 }
 
 // The count pass: XL_THREADS / WALK_LANES rows at a time, R rows a block.
@@ -587,7 +660,9 @@ __device__ __forceinline__ void zero_words(int* p, long long n, long long t,
 // fit its stage packs them there, in lane-slot order a device, and then
 // writes each device's run of rows out whole (its rows toward a device
 // have consecutive slots); a block with more packs each row in place.
-__global__ void __launch_bounds__(dbt::XL_THREADS)
+// (a minimum of one block an SM: with the colocated operands' state the
+// default bounds cap the walk at 64 registers and spill 8 bytes)
+__global__ void __launch_bounds__(dbt::XL_THREADS, 1)
     xlane_write_kernel(const __grid_constant__ dbt::XPackArgs a) {
   constexpr int L = dbt::WALK_LANES;
   extern __shared__ int stage[];
@@ -625,8 +700,11 @@ __global__ void __launch_bounds__(dbt::XL_THREADS)
     if (row_ok && sub + L < a.D)
       rowoff.hi = a.rowoff[(long long)g * a.D + sub + L];
     dbt::LaneWords dcnt;
-    xlane_walk<true>(a, r, sub, blk, sl, rowoff, staged ? stage : nullptr,
-                     seg, s, dcnt);
+    const bool und = xlane_walk<true>(a, r, sub, blk, sl, rowoff,
+                                      staged ? stage : nullptr, seg, s, dcnt);
+    // a live row's undelivered word: the route's, with the lane's
+    // deliveries (a suppressed row keeps the route's)
+    if (a.packed && row_ok && !r.sup && sub == 0) a.undeliv[g] = und;
   }
   if (!staged) return;
   __syncthreads();
@@ -657,7 +735,8 @@ void dbt::xlane_pack_launch(const int* const* st, const int* buf,
                             const int* dest_local, const int* dest_dev,
                             const int* rank, int* xbuf, int* rowoff,
                             int* btot, int* boff, int* part, int* tot,
-                            int* stats,
+                            int* stats, int n_stats, const int* alive,
+                            int alive_stride, int* packed, int* undeliv,
                             int G, int P, int W, int O, int E, int D, int XB,
                             int B, int me, int rows_per_block,
                             void* stream) {
@@ -681,6 +760,12 @@ void dbt::xlane_pack_launch(const int* const* st, const int* buf,
   a.part = part;
   a.tot = tot;
   a.stats = stats;
+  a.n_stats = n_stats;
+  a.alive = alive;
+  a.alive_stride = alive_stride;
+  a.packed = packed;
+  a.undeliv = undeliv;
+  a.nw = (O + 31) / 32;
   a.G = G;
   a.P = P;
   a.W = W;

@@ -40,6 +40,20 @@ non-leader row fail-stops the replica (see
 ``TorchStepEngine._merge_appends``) — silent empty entries would diverge
 the SM.
 
+Mesh mode (``ColocatedEngineGroup(mesh=GroupsMesh(...))``): the rows
+are cut into the mesh's blocks (``placement.RowBlocks``) and every
+program of a launch runs once a block on its device.  Each block routes
+over its local view of the tables; a message toward another block rides
+the cross-device lane as ``route.make_sharded_round`` runs it: the
+block's route step packs it (``xlane_pack`` holds it to the receiver's
+alive word, sets its delivered bit and rewrites the row's undelivered
+word, before the flag word), ``ring_shift`` moves the lane buffers and
+each block adds what it received into its pending regions.  The blocks'
+blobs are read as one (``_round_head``), with the lane's counts folded
+into the route stats, so the host sees exactly the single-device
+engine's launch.  Rows are placed with the reference's striped free
+list and shard affinity (``_pick_row``).
+
 Readback: each round's (head, detail) blobs are copied with
 ``non_blocking=True`` into PINNED host buffers allocated for that
 generation, and a ``torch.cuda.Event`` is recorded after the copies at
@@ -97,14 +111,9 @@ from .engine import (
     _ROLE_OF,
     _bucket,
     _pos_map,
-    _build_idx4,
-    _fetch_detail_vals,
-    _to_np,
     N_FIELDS_BUF,
     N_VALS,
     _tick_bookkeeping,
-    _pad_idx,
-    _set_remote_snapshot,
 )
 from .types import (
     ROLE_LEADER as _ROLE_LEADER_I,
@@ -114,7 +123,15 @@ from .types import (
     U_ROLE,
     U_STATE,
 )
-from .route import build_route_tables, route_cuda
+from .route import (
+    build_route_tables,
+    ring_shift,
+    route_cuda,
+    split_route_tables,
+    xbudget_for,
+    xlane_pack,
+    xlane_scatter,
+)
 from .types import (
     I32,
     MT_TICK,
@@ -122,7 +139,6 @@ from .types import (
     DeviceState,
     Inbox,
     make_inbox,
-    make_state,
 )
 from ..metrics import global_registry as _metrics
 
@@ -224,7 +240,8 @@ def _assemble_and_step(state, host: Inbox, pending: Inbox, combo,
 
 
 def _route_step(old_state, new_state, out, dest, rank, combo,
-                *, PB: int, E: int, budget: int):
+                *, PB: int, E: int, budget: int,
+                lane: Optional[colocated_ref.Lane] = None):
     """Post-launch tail: discard escalated rows' effects, route the
     outboxes into the next launch's pending regions (width P*budget,
     base=0 — host slots are prepended at the next assemble), and compute
@@ -235,11 +252,16 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
     reference donates it): merged is new_state with the escalated rows
     put back in place.  On CUDA: ``merge_escalated`` (the in-place
     escalation merge), ``route`` (bit-pack and undelivered word fused),
-    then ``summarize_flags`` with the undelivered F_COUNT override."""
+    then ``summarize_flags`` with the undelivered F_COUNT override.
+
+    ``lane``: a mesh block's lane operands (``colocated_ref.route_step``);
+    the block's ``xlane_pack`` then runs between ``route`` and
+    ``summarize_flags`` and the lane buffer and its [8] stats row are
+    returned after the five."""
     if _on_cpu(combo):
         return colocated_ref.route_step(
             old_state, new_state, out, dest, rank, combo,
-            PB=PB, E=E, budget=budget,
+            PB=PB, E=E, budget=budget, lane=lane,
         )
     G, O = out.buf.shape[:2]
     dev = combo.device
@@ -253,8 +275,29 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
         suppress=out.escalate, alive=combo, alive_stride=4,
         packed=packed, undeliv=undeliv,
     )
+    xlane = ()
+    if lane is not None:
+        xlane = xlane_pack(
+            merged, out, lane.dest_local, lane.dest_dev, lane.rank,
+            me=lane.me, n_dev=lane.n_dev, E=E, budget=budget,
+            xbudget=lane.xbudget, suppress=out.escalate,
+            dest_alive=lane.combo, alive_stride=4, packed=packed,
+            undeliv=undeliv,
+        )
     flags = plumbing.summarize_flags(old_state, merged, out, undeliv)
-    return merged, regions, kstats[:6], packed, flags
+    return (merged, regions, kstats[:6], packed, flags) + tuple(xlane)
+
+
+def _lane_scatter(regions: Inbox, recv, lane_stats, *, budget: int):
+    """The lane's receiving half on a mesh block: the rows ``recv`` that
+    the ring shifts brought (``route.ring_shift``) added into the block's
+    pending regions in place, the count in ``lane_stats[1]``.  CUDA
+    ``xlane_scatter``; CPU: ``colocated_ref.lane_scatter``."""
+    if _on_cpu(recv):
+        return colocated_ref.lane_scatter(regions, recv, lane_stats,
+                                          budget=budget)
+    xlane_scatter(regions, recv, budget=budget, base=0, stats=lane_stats)
+    return regions, lane_stats
 
 
 # deterministic select-capacity ladder (clamped to G at use): three
@@ -268,6 +311,24 @@ _SEL_TIERS = (
     # become-leader barrier on tens of thousands of rows per launch)
     {"b": 1024, "sl": 8192, "n": 256, "a": 32768, "s": 1 << 18},
 )
+
+
+# the five selected sections, in the head's order, and the section each
+# of _parse_detail's seven arrays belongs to (buf; slot_base, slot_term,
+# ent_drop; need; ring_term, ring_cc)
+_SEL_KEYS = ("b", "sl", "n", "a", "s")
+_DETAIL_SECTION = (0, 1, 1, 1, 2, 3, 3)
+
+
+def _join_sections(parts, counts, cap: int) -> np.ndarray:
+    """Each block's first ``counts[d]`` rows of ``parts[d]``, concatenated
+    in block order and cut or zero-padded to ``cap`` rows: a section of
+    a global blob read from the blocks' blobs (exact whenever the total
+    fits ``cap``; past it the engine takes the exact gather)."""
+    cat = np.concatenate([p[:int(n)] for p, n in zip(parts, counts)])[:cap]
+    out = np.zeros((cap,) + parts[0].shape[1:], parts[0].dtype)
+    out[:cat.shape[0]] = cat
+    return out
 
 
 def _blob_sizes(G: int, O: int, Mo: int, E: int, P: int, W: int,
@@ -381,6 +442,10 @@ def _scatter_inbox_rows(host: Inbox, pos, sub: Inbox) -> Inbox:
 PROGRAM_KERNELS: Dict[str, Tuple[str, ...]] = {
     "assemble_and_step": ("inbox", "raft_step"),
     "route_step": ("merge_escalated", "route", "summarize_flags"),
+    # a mesh block's route step adds the lane pack (lane_route_step)
+    "lane_route_step": ("merge_escalated", "route", "xlane_pack",
+                        "summarize_flags"),
+    "lane_scatter": ("xlane_scatter",),
     "select_and_blob": ("select_and_blob", "gather_pack"),
     "zero_inbox_rows": ("inbox",),
     "host_inbox_from_ticks": ("inbox",),
@@ -388,10 +453,12 @@ PROGRAM_KERNELS: Dict[str, Tuple[str, ...]] = {
 }
 
 
-# the positional argument a device program consumes (updates in place):
-# the parity self-check hands its plain version a copy taken before the
+# the positional arguments a device program consumes (updates in place):
+# the parity self-check hands its plain version copies taken before the
 # kernels ran
-PROGRAM_CONSUMES: Dict[str, int] = {"route_step": 1}
+PROGRAM_CONSUMES: Dict[str, Tuple[int, ...]] = {
+    "route_step": (1,), "lane_route_step": (1,), "lane_scatter": (0, 2),
+}
 
 
 def _tensors(x):
@@ -453,25 +520,35 @@ class _InFlightGen:
     __slots__ = (
         "batch", "staging", "alive_np", "batch_gs", "prop_gs", "caps",
         "merged", "out", "head_dev", "detail_dev", "t_req", "tick_fed",
-        "rounds",
+        "rounds", "lane_dev", "heads",
     )
 
     def __init__(self, *, batch, staging, alive_np, batch_gs, prop_gs,
                  caps, merged, out, head_dev, detail_dev, t_req,
-                 tick_fed=None, rounds=1):
+                 tick_fed=None, rounds=1, lane_dev=()):
         self.batch = batch
         self.staging = staging
         self.alive_np = alive_np
         self.batch_gs = batch_gs
         self.prop_gs = prop_gs
         self.caps = caps
-        self.merged = merged          # per-round list of state handles
-        self.out = out                # per-round list of DeviceOut
-        self.head_dev = head_dev      # per-round list of head _Readbacks
-        self.detail_dev = detail_dev  # per-round list of detail _Readbacks
+        self.merged = merged          # per-round list of Sharded states
+        self.out = out                # per-round list of Sharded DeviceOut
+        # per round: one head / detail _Readback per row block
+        self.head_dev = head_dev
+        self.detail_dev = detail_dev
         self.t_req = t_req
         self.tick_fed = tick_fed or {}
         self.rounds = rounds
+        # mesh mode: one _Readback per block of its [rounds, 8] lane stats
+        self.lane_dev = lane_dev
+        self.heads: Dict[int, list] = {}  # round -> its blocks' parsed heads
+
+    def readbacks(self):
+        """Every blob readback of the generation."""
+        for rbs in (*self.head_dev, *self.detail_dev):
+            yield from rbs
+        yield from self.lane_dev
 
 
 class ColocatedTorchEngine(TorchStepEngine):
@@ -482,7 +559,7 @@ class ColocatedTorchEngine(TorchStepEngine):
 
     def __init__(self, *, budget: int = 2, capacity: int = 64, P: int = 5,
                  W: int = 32, M: int = 8, E: int = 4, O: int = 32,
-                 rebase_chunk: int = 1 << 30, device=None,
+                 rebase_chunk: int = 1 << 30, device=None, mesh=None,
                  pipeline_depth: Optional[int] = None,
                  sync_floor_ms: Optional[float] = None,
                  fused_rounds: Optional[int] = None,
@@ -494,8 +571,13 @@ class ColocatedTorchEngine(TorchStepEngine):
         self._host_replica = np.zeros((capacity,), np.int64)
         self._host_peers = np.zeros((capacity, P), np.int64)
         self._tables_dirty = True
+        # per block: the local view of the route tables (a peer on
+        # another block is -1) and, with several blocks, the lane's mesh
+        # tables and per-edge budget (see _rebuild_tables)
         self._dest_dev = None
         self._rank_dev = None
+        self._lane_tabs = None
+        self._xbudget = 1
         # shard -> OrderedDict[(index, term) -> Entry]; bounded FIFO per
         # shard.  Depth must cover BOTH lifetimes an entry is needed
         # for: the device ring window (8*W) and the stamp-to-consumption
@@ -590,7 +672,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         self._free_pending: List[int] = []
         self._last_worker_id = 0
         super().__init__(None, capacity=capacity, P=P, W=W, M=M, E=E, O=O,
-                         device=device, parity_every=parity_every)
+                         device=device, mesh=mesh, parity_every=parity_every)
         # nemesis escalations are consumed at plan time here: routed
         # regions suppress escalated rows ON device, so the base
         # engine's post-launch flag flip would desync the merged state
@@ -623,9 +705,19 @@ class ColocatedTorchEngine(TorchStepEngine):
             fused_waves=0, fused_rounds_stepped=0, fused_fences=0,
             readback_windows=0,
         )
-        for k in sorted({k for ks in PROGRAM_KERNELS.values() for k in ks}):
-            self.stats[f"parity_attempts_{k}"] = 0
-            self.stats[f"parity_checks_{k}"] = 0
+        lane = self._blocks.D > 1
+        if lane:
+            # the cross-block lane (mesh mode): messages carried, received
+            # and refused for want of a lane slot (structurally 0: the
+            # per-edge budget is xbudget_for the tables)
+            self.stats.update(lane_sent=0, lane_delivered=0,
+                              lane_dropped_xlane=0)
+        for name, ks in PROGRAM_KERNELS.items():
+            if name.startswith("lane_") and not lane:
+                continue
+            for k in ks:
+                self.stats[f"parity_attempts_{k}"] = 0
+                self.stats[f"parity_checks_{k}"] = 0
 
     def _compute_base(self, r) -> int:
         # the SHARD's shared base, not a per-row quantity — see __init__
@@ -661,12 +753,76 @@ class ColocatedTorchEngine(TorchStepEngine):
                 r.anchor_quorum_evidence(a)
 
     def device_coordinate(self, shard_id: int, replica_id=None):
-        """None: this single-device engine has no mesh (the multi-device
-        slice is not ported)."""
-        return None
+        """Device block hosting the (shard, replica) row — with no
+        replica, the shard's lowest row — or None when unknown / no
+        mesh."""
+        if self._mesh is None:
+            return None
+        if replica_id is None:
+            gs = [
+                g for (s, _r), g in self._row_of.items() if s == shard_id
+            ]
+            g = min(gs) if gs else None
+        else:
+            g = self._row_of.get((shard_id, replica_id))
+        if g is None:
+            return None
+        return g // (self.capacity // self._mesh.size)
+
+    def _pick_row(self, node) -> int:
+        """Mesh-mode shard affinity: place a shard's replicas on the
+        device block already hosting the shard, so a shard's commit
+        rounds route inside one block and only cross-SHARD load spreads
+        over the mesh.  The scan is bounded to the free-list tail — with
+        the striped base order the tail alternates blocks, so the
+        preferred block is almost always within a few slots; after heavy
+        churn it degrades to the plain pop."""
+        if self._mesh is None:
+            return self._free.pop()
+        per = self.capacity // self._mesh.size
+        want = None
+        for (s, _r), g0 in self._row_of.items():
+            if s == node.shard_id:
+                want = g0 // per
+                break
+        if want is None:
+            return self._free.pop()
+        lo = max(0, len(self._free) - 4 * self._mesh.size)
+        for i in range(len(self._free) - 1, lo - 1, -1):
+            if self._free[i] // per == want:
+                return self._free.pop(i)
+        return self._free.pop()
 
     def _tier_caps(self, t: int) -> Dict[str, int]:
         return {k: min(self.capacity, v) for k, v in _SEL_TIERS[t].items()}
+
+    def _block_caps(self, caps: Dict[str, int]) -> Dict[str, int]:
+        """A tier's capacities on one row block (select_and_blob takes at
+        most the block's rows a section): when the whole launch's count
+        of a section fits its capacity, each block's fits too."""
+        return {k: min(self._blocks.per, v) for k, v in caps.items()}
+
+    def _fresh_pending(self):
+        """Empty routed regions on every block."""
+        per, dv = self._blocks.per, self._blocks.devices
+        return placement.Sharded(tuple(
+            make_inbox(per, self.P * self.budget, self.E, device=dv[d])
+            for d in range(self._blocks.D)))
+
+    def _on_blocks(self, name: str, fn, *args, parity: bool = False, **kw):
+        """The device program ``fn`` once per row block (``_run``): each
+        ``Sharded`` argument gives its block's part.  A program of one
+        output returns a ``Sharded``; of several, a tuple of them."""
+        res = [
+            self._run(name, fn, *(
+                a.parts[d] if isinstance(a, placement.Sharded) else a
+                for a in args), parity=parity, **kw)
+            for d in range(self._blocks.D)
+        ]
+        if isinstance(res[0], tuple) and not hasattr(res[0], "_fields"):
+            return tuple(placement.Sharded(tuple(r[i] for r in res))
+                         for i in range(len(res[0])))
+        return placement.Sharded(tuple(res))
 
     def _run(self, name: str, fn, *args, parity: bool = False, **kw):
         """Run the device program ``fn`` (``name`` in
@@ -681,11 +837,11 @@ class ColocatedTorchEngine(TorchStepEngine):
         before the kernels ran."""
         if not parity:
             return fn(*args, **kw)
-        ref_args = args
-        i = PROGRAM_CONSUMES.get(name)
-        if i is not None:
-            ref_args = list(args)
-            ref_args[i] = type(args[i])(*(t.clone() for t in args[i]))
+        ref_args = list(args)
+        for i in PROGRAM_CONSUMES.get(name, ()):
+            a = args[i]
+            ref_args[i] = (a.clone() if isinstance(a, torch.Tensor)
+                           else type(a)(*(t.clone() for t in a)))
         got = fn(*args, **kw)
         kernels = PROGRAM_KERNELS[name]
         for k in kernels:
@@ -859,6 +1015,14 @@ class ColocatedTorchEngine(TorchStepEngine):
         ], "save_failure")
 
     def _rebuild_tables(self) -> None:
+        """The route tables of the resident rows: global ``dest`` / ``rank``
+        (build_route_tables), the partition cut applied to the GLOBAL
+        ``dest`` — so it severs a block's own routes and the lane's alike
+        — then cut into the row blocks (split_route_tables): each block
+        routes over its local view (a peer on another block: -1) and,
+        with several blocks, the lane carries the rest with a per-edge
+        budget of ``xbudget_for`` the tables (``dropped_xlane`` stays
+        structurally 0)."""
         dest, rank = build_route_tables(
             self._host_shard, self._host_replica, self._host_peers
         )
@@ -877,8 +1041,20 @@ class ColocatedTorchEngine(TorchStepEngine):
                 part[np.clip(dest, 0, len(part) - 1)] != part[:, None]
             )
             dest = np.where(cut, -1, dest)
-        self._dest_dev = self._put_rows(dest)
+        self._set_tables(dest, rank)
+
+    def _set_tables(self, dest: np.ndarray, rank: np.ndarray) -> None:
+        """Install global ``dest`` / ``rank`` tables on the row blocks."""
+        D = self._blocks.D
+        tabs = split_route_tables(dest, rank, D)
+        block = (np.arange(self.capacity) // self._blocks.per)[:, None]
+        self._dest_dev = self._put_rows(
+            np.where(tabs.dest_dev == block, tabs.dest_local, -1))
         self._rank_dev = self._put_rows(rank)
+        if D > 1:
+            self._lane_tabs = list(zip(*(self._put_rows(t).parts
+                                         for t in tabs)))
+            self._xbudget = xbudget_for(tabs, self.budget, D)
         self._tables_dirty = False
 
     def set_partition(self, fn) -> None:
@@ -922,35 +1098,48 @@ class ColocatedTorchEngine(TorchStepEngine):
         runs eagerly; there is nothing to trace), and set up the routed
         pending regions."""
         G, P, B, E, O = self.capacity, self.P, self.budget, self.E, self.O
-        dev = self._device
-        self._pending = make_inbox(G, P * B, E, device=dev)
-        st = self._state
-        combo = self._put_rows(np.zeros((G, 4), np.int32))
+        D, per = self._blocks.D, self._blocks.per
+        self._pending = self._fresh_pending()
         # persistent all-zero combo: rounds >= 2 of a fused wave build
         # their (empty) host inbox region from it ON DEVICE — ticks and
         # host slots are fed exactly once, in round 1
-        self._zero_combo = combo
-        dest = self._put_rows(np.full((G, P), -1, np.int32))
-        rank = self._put_rows(np.zeros((G, P), np.int32))
-        host = _host_inbox_from_ticks(combo, M=self.M, E=E)
-        new_st, out = _assemble_and_step(
-            st, host, self._pending, combo, out_capacity=O
-        )
-        merged_w, _regions_w, stats_w, packed_w, flags_w = _route_step(
-            st, new_st, out, dest, rank, combo, PB=P * B, E=E, budget=B
-        )
-        caps = self._tier_caps(0)
-        _select_and_blob(
-            merged_w, out, stats_w, packed_w, flags_w, combo,
-            CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
-            CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=P * B,
-        )
-        _zero_inbox_rows(self._pending, self._put_rows(np.zeros((G,), bool)))
-        idx = self._put(np.zeros((1,), np.int32))
-        _scatter_inbox_rows(
-            host, self._put_rows(np.full((G,), -1, np.int32)),
-            Inbox(*plumbing.place_rows(None, list(host), idx)),
-        )
+        self._zero_combo = self._put_rows(np.zeros((G, 4), np.int32))
+        caps = self._block_caps(self._tier_caps(0))
+        xbufs = []
+        for d in range(D):
+            st, combo = self._state.parts[d], self._zero_combo.parts[d]
+            dest = self._put(np.full((per, P), -1, np.int32), d)
+            rank = self._put(np.zeros((per, P), np.int32), d)
+            host = _host_inbox_from_ticks(combo, M=self.M, E=E)
+            new_st, out = _assemble_and_step(
+                st, host, self._pending.parts[d], combo, out_capacity=O
+            )
+            kw = {}
+            if D > 1:
+                kw["lane"] = colocated_ref.Lane(
+                    dest, dest, rank, self._put(np.zeros((G, 4), np.int32),
+                                                d), d, D, 1)
+            res = _route_step(st, new_st, out, dest, rank, combo,
+                              PB=P * B, E=E, budget=B, **kw)
+            merged_w, _regions_w, stats_w, packed_w, flags_w = res[:5]
+            xbufs.append(res[5:])
+            _select_and_blob(
+                merged_w, out, stats_w, packed_w, flags_w, combo,
+                CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
+                CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=P * B,
+            )
+            _zero_inbox_rows(self._pending.parts[d],
+                             self._put(np.zeros((per,), np.int32), d))
+            idx = self._put(np.zeros((1,), np.int32), d)
+            _scatter_inbox_rows(
+                host, self._put(np.full((per,), -1, np.int32), d),
+                Inbox(*plumbing.place_rows(None, list(host), idx)),
+            )
+        if D > 1:
+            recv = ring_shift(self._blocks.mesh, [x[0] for x in xbufs])
+            for d in range(D):
+                _lane_scatter(self._pending.parts[d], recv[d], xbufs[d][1],
+                              budget=B)
         super()._warm()
 
     def _evict_rows_to_host(self, gs, cause: str = "other") -> None:
@@ -1010,11 +1199,9 @@ class ColocatedTorchEngine(TorchStepEngine):
 
         if self._pending is None or not pairs:
             return
-        idx = self._put(_pad_idx([g for _, g in pairs]))
-        sub = Inbox(*(
-            _to_np(t)
-            for t in plumbing.place_rows(None, list(self._pending), idx)
-        ))
+        sub = Inbox(*self._gather_blocks(
+            self._pending.parts, [g for _, g in pairs],
+            lambda part, idx: plumbing.place_rows(None, list(part), idx)))
         for k, (node, g) in enumerate(pairs):
             r = node.peer.raft
             base = int(self._base[g])  # routed lanes are shard-rebased
@@ -1065,7 +1252,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         # drained rows stayed dirty through the next launch's alive mask.
         mask = np.zeros((self.capacity,), bool)
         mask[[g for _, g in pairs]] = True
-        self._pending = self._run(
+        self._pending = self._on_blocks(
             "zero_inbox_rows", _zero_inbox_rows, self._pending,
             self._put_rows(mask), parity=self._parity_every > 0,
         )
@@ -1235,14 +1422,8 @@ class ColocatedTorchEngine(TorchStepEngine):
                 if meta.node.device_reads.has_pending():
                     meta.node.drop_device_reads()
         try:
-            self._state = make_state(
-                self.capacity, self.P, self.W,
-                replica_ids=np.zeros(self.capacity), device=self._device,
-            )
-            self._pending = make_inbox(
-                self.capacity, self.P * self.budget, self.E,
-                device=self._device,
-            )
+            self._state = self._inert_state()
+            self._pending = self._fresh_pending()
         except Exception:  # noqa: BLE001 — rebuilt lazily next launch
             self._pending = None
 
@@ -1445,9 +1626,7 @@ class ColocatedTorchEngine(TorchStepEngine):
             # any round's detail payload too, and blocking the core
             # lock on a still-in-flight transfer is exactly the stall
             # this non-blocking pass exists to avoid
-            if not all(
-                rb.is_ready() for rb in (*rec.head_dev, *rec.detail_dev)
-            ):
+            if not all(rb.is_ready() for rb in rec.readbacks()):
                 break
             ripe.extend(self._complete_oldest())
         if ripe:
@@ -2046,14 +2225,19 @@ class ColocatedTorchEngine(TorchStepEngine):
         combo_np[:, _C_ALIVE] = alive_np
         combo_np[batch_gs, _C_BATCH] = 1
         combo_np[prop_gs, _C_PROP] = 1
-        combo = self._put_rows(combo_np)
+        # the whole combo on every block's device: a block's programs
+        # take its rows, and its lane pack reads the receivers' alive
+        # lane in the global row order
+        combo_all = self._blocks.put_each(combo_np)
+        combo = placement.Sharded(tuple(
+            c[slice(*self._blocks.span(d))] for d, c in enumerate(combo_all)))
         # the parity self-check (parity_every) re-runs every program of
         # every Nth launch through its plain version
         parity = (
             self._parity_every > 0
             and self.stats["launches"] % self._parity_every == 0
         )
-        host_inbox = self._run(
+        host_inbox = self._on_blocks(
             "host_inbox_from_ticks", _host_inbox_from_ticks, combo,
             M=M, E=E, parity=parity,
         )
@@ -2072,12 +2256,17 @@ class ColocatedTorchEngine(TorchStepEngine):
                 "planner let oversized rows through: "
                 f"{[sparse[i][0] for i in overflow if i < len(sparse)]}"
             )
-            host_inbox = self._run(
-                "scatter_inbox_rows", _scatter_inbox_rows,
-                host_inbox,
-                self._put_rows(_pos_map(G, [g for g, _ in sparse])),
-                self._put(sub), parity=parity,
-            )
+            pos = _pos_map(G, [g for g, _ in sparse])
+            parts = list(host_inbox.parts)
+            for d in range(self._blocks.D):
+                pos_d = pos[slice(*self._blocks.span(d))]
+                if (pos_d >= 0).any():
+                    parts[d] = self._run(
+                        "scatter_inbox_rows", _scatter_inbox_rows,
+                        parts[d], self._put(pos_d, d), self._put(sub, d),
+                        parity=parity,
+                    )
+            host_inbox = placement.Sharded(tuple(parts))
 
         old_state = self._state
         import time as _time
@@ -2087,29 +2276,27 @@ class ColocatedTorchEngine(TorchStepEngine):
         if self._pending is None:
             # a prior launch failure dropped the pending inbox and could
             # not rebuild it (see the handler below)
-            self._pending = make_inbox(G, P * B, E, device=self._device)
+            self._pending = self._fresh_pending()
         if _DEBUG_LAUNCH:
             # debug-only sync: how much PRIOR device work (uploads,
             # materialize, scatters) is in flight?
             import sys as _sys
             _td = _time.perf_counter()
-            _t1g, _occ_h, _occ_p = (
-                _to_np(old_state.term[:1]),
-                _to_np((host_inbox.mtype != 0).sum(dim=1)),
-                _to_np((self._pending.mtype != 0).sum(dim=1)),
-            )
+            _occ = self._blocks.numpy([
+                (h.mtype != 0).sum(dim=1) + (p.mtype != 0).sum(dim=1)
+                for h, p in zip(host_inbox.parts, self._pending.parts)])
             print(
                 f"[pre ] prior-work wait "
                 f"{(_time.perf_counter() - _td) * 1000:.0f} ms "
-                f"n_occ_max={int((_occ_h + _occ_p).max())} "
-                f"occ_mean={float((_occ_h + _occ_p).mean()):.2f} "
+                f"n_occ_max={int(_occ.max())} "
+                f"occ_mean={float(_occ.mean()):.2f} "
                 f"ticks_max={int(tick_counts.max())}",
                 file=_sys.stderr, flush=True,
             )
         _t0 = _time.perf_counter()
         try:
             with annotate("raft-colocated-step"):
-                new_state, out = self._run(
+                new_state, out = self._on_blocks(
                     "assemble_and_step", _assemble_and_step,
                     old_state, host_inbox, self._pending, combo,
                     out_capacity=self.O, parity=parity,
@@ -2118,13 +2305,9 @@ class ColocatedTorchEngine(TorchStepEngine):
                     "t_dev_step_ms", 0
                 ) + int((_time.perf_counter() - _t0) * 1000)
                 _t1 = _time.perf_counter()
-                merged, regions, stats_dev, packed_dev, flags_dev = (
-                    self._run(
-                        "route_step", _route_step,
-                        old_state, new_state, out, self._dest_dev,
-                        self._rank_dev, combo, PB=P * B, E=E, budget=B,
-                        parity=parity,
-                    )
+                merged, regions, stats_dev, packed_dev, flags_dev, lane_k = (
+                    self._route_blocks(old_state, new_state, out, combo,
+                                       combo_all, parity)
                 )
                 self.stats["t_dev_route_ms"] = self.stats.get(
                     "t_dev_route_ms", 0
@@ -2140,7 +2323,7 @@ class ColocatedTorchEngine(TorchStepEngine):
             self._pending = None
             self._pending_live = False
             try:
-                self._pending = make_inbox(G, P * B, E, device=self._device)
+                self._pending = self._fresh_pending()
             except Exception:  # noqa: BLE001 — next launch rebuilds
                 pass
             raise
@@ -2158,23 +2341,24 @@ class ColocatedTorchEngine(TorchStepEngine):
                 # counts + row ids + vals in each round's head, heavy
                 # sections in its detail (see _select_and_blob).  Every
                 # round's pair is copied into its own pinned buffers at
-                # dispatch (_Readback), so the whole wave's blobs land
-                # in ONE readback window while the host assembles and
-                # dispatches the NEXT generation.
+                # dispatch (_Readback, one a row block), so the whole
+                # wave's blobs land in ONE readback window while the
+                # host assembles and dispatches the NEXT generation.
                 caps = self._tier_caps(self._sel_tier)
+                bcaps = self._block_caps(caps)
                 merged_l, out_l = [merged], [out]
-                head_l, detail_l = [], []
+                head_l, detail_l, lane_l = [], [], [lane_k]
 
                 def _sel(merged_k, out_k, stats_k, packed_k, flags_k):
-                    head_dev, detail_dev = self._run(
+                    head_dev, detail_dev = self._on_blocks(
                         "select_and_blob", _select_and_blob,
                         merged_k, out_k, stats_k, packed_k, flags_k,
-                        combo, CAP_B=caps["b"], CAP_SL=caps["sl"],
-                        CAP_N=caps["n"], CAP_A=caps["a"],
-                        CAP_S=caps["s"], HOST_OFF=P * B, parity=parity,
+                        combo, CAP_B=bcaps["b"], CAP_SL=bcaps["sl"],
+                        CAP_N=bcaps["n"], CAP_A=bcaps["a"],
+                        CAP_S=bcaps["s"], HOST_OFF=P * B, parity=parity,
                     )
-                    head_l.append(_Readback(head_dev))
-                    detail_l.append(_Readback(detail_dev))
+                    head_l.append([_Readback(h) for h in head_dev.parts])
+                    detail_l.append([_Readback(t) for t in detail_dev.parts])
 
                 _sel(merged, out, stats_dev, packed_dev, flags_dev)
                 # ---- fused wave: rounds 2..K, dispatched back-to-back
@@ -2182,31 +2366,35 @@ class ColocatedTorchEngine(TorchStepEngine):
                 # exact single-round program chain (assemble over the
                 # previous round's routed regions with an EMPTY host
                 # inbox — ticks and proposals fed once, in round 1 —
-                # then step, route, select), so a K-round wave is
-                # bit-exact with K serial launches by construction.
+                # then step, route (and the lane between blocks), select),
+                # so a K-round wave is bit-exact with K serial launches by
+                # construction.  Every round routes with round 1's alive
+                # lane (combo).
                 for _k in range(1, rounds):
-                    host_k = self._run(
+                    host_k = self._on_blocks(
                         "host_inbox_from_ticks", _host_inbox_from_ticks,
                         self._zero_combo, M=M, E=E, parity=parity,
                     )
-                    new_k, out_k = self._run(
+                    new_k, out_k = self._on_blocks(
                         "assemble_and_step", _assemble_and_step,
                         self._state, host_k, self._pending, combo,
                         out_capacity=self.O, parity=parity,
                     )
-                    merged_k, regions_k, stats_k, packed_k, flags_k = (
-                        self._run(
-                            "route_step", _route_step,
-                            self._state, new_k, out_k, self._dest_dev,
-                            self._rank_dev, combo, PB=P * B, E=E,
-                            budget=B, parity=parity,
-                        )
-                    )
+                    (merged_k, regions_k, stats_k, packed_k, flags_k,
+                     lane_kk) = self._route_blocks(
+                        self._state, new_k, out_k, combo, combo_all, parity)
                     self._pending = regions_k
                     self._state = merged_k
                     merged_l.append(merged_k)
                     out_l.append(out_k)
+                    lane_l.append(lane_kk)
                     _sel(merged_k, out_k, stats_k, packed_k, flags_k)
+                lane_dev = ()
+                if lane_k is not None:
+                    # one readback a block of its rounds' lane stats rows
+                    lane_dev = tuple(
+                        _Readback(torch.stack([r[d] for r in lane_l]))
+                        for d in range(self._blocks.D))
                 self.stats["t_dev_sel_ms"] = self.stats.get(
                     "t_dev_sel_ms", 0
                 ) + int((_time.perf_counter() - _t1) * 1000)
@@ -2231,8 +2419,107 @@ class ColocatedTorchEngine(TorchStepEngine):
             batch_gs=batch_gs, prop_gs=prop_gs, caps=caps,
             merged=merged_l, out=out_l, head_dev=head_l,
             detail_dev=detail_l, t_req=_time.monotonic(),
-            tick_fed=tick_fed, rounds=rounds,
+            tick_fed=tick_fed, rounds=rounds, lane_dev=lane_dev,
         ))
+
+    def _route_blocks(self, old_state, new_state, out, combo, combo_all,
+                      parity: bool):
+        """One round's route step on every row block over its local view
+        of the tables; with several blocks, the lane between them as
+        ``route.make_sharded_round`` runs it (route.py:666-745): every
+        block's route step packs its cross-block messages (``xlane_pack``
+        with the alive lane, before its flag word), ``ring_shift`` moves
+        the lane buffers, and each block adds what it received into its
+        pending regions.  Returns (merged, regions, stats, packed, flags)
+        as ``Sharded`` and the blocks' [8] lane stats rows (None with one
+        block)."""
+        P, B, E, D = self.P, self.budget, self.E, self._blocks.D
+        if D == 1:
+            return self._on_blocks(
+                "route_step", _route_step, old_state, new_state, out,
+                self._dest_dev, self._rank_dev, combo, PB=P * B, E=E,
+                budget=B, parity=parity) + (None,)
+        res = [
+            self._run(
+                "lane_route_step", _route_step, old_state.parts[d],
+                new_state.parts[d], out.parts[d], self._dest_dev.parts[d],
+                self._rank_dev.parts[d], combo.parts[d], PB=P * B, E=E,
+                budget=B, parity=parity,
+                lane=colocated_ref.Lane(*self._lane_tabs[d], combo_all[d],
+                                        d, D, self._xbudget))
+            for d in range(D)
+        ]
+        recv = ring_shift(self._blocks.mesh, [r[5] for r in res])
+        lane = [
+            self._run("lane_scatter", _lane_scatter, res[d][1], recv[d],
+                      res[d][6], budget=B, parity=parity)[1]
+            for d in range(D)
+        ]
+        outs = tuple(placement.Sharded(tuple(r[i] for r in res))
+                     for i in range(5))
+        return outs + (lane,)
+
+    def _round_head(self, rec, rnd: int, lane):  # sync-hot
+        """Round ``rnd``'s head, collected and parsed (``_parse_head``).
+        With several row blocks their heads read as one: flags and
+        delivered bits joined in row order, the route stats and section
+        counts summed, each section's rows concatenated in block order
+        with global row ids (stable per-block compactions of ascending
+        row ranges: the global stable compaction), the values likewise;
+        the lane's stats row (``lane[rnd]``, summed over the blocks) is
+        folded into the route stats so that they count as the
+        single-device route's: a message the lane carried as delivered,
+        one it refused (PROPOSE, receiver not alive) as host_carried, its
+        budget and ring drops as the route's — not as off-device, where
+        each block's route put every message toward another block."""
+        per, nw = self._blocks.per, (self.O + 31) // 32
+        bcaps = self._block_caps(rec.caps)
+        parts = [
+            self._parse_head(self._collect_blob(rb, rec.t_req), bcaps, per,
+                             nw)
+            for rb in rec.head_dev[rnd]
+        ]
+        rec.heads[rnd] = parts
+        if len(parts) == 1:
+            return parts[0]
+        counts = [p[3] for p in parts]
+        rstats = sum(p[2].astype(np.int64) for p in parts)
+        sent, delivered, budget, xlane, ring = lane[rnd][:5]
+        refused = lane[rnd][7]
+        rstats[0] += delivered
+        rstats[1] -= sent + budget + ring + refused
+        rstats[2] += budget
+        rstats[3] += ring
+        rstats[5] += refused
+        self.stats["lane_sent"] += int(sent)
+        self.stats["lane_delivered"] += int(delivered)
+        self.stats["lane_dropped_xlane"] += int(xlane)
+        rows = tuple(
+            _join_sections(
+                [p[4][i] + d * per for d, p in enumerate(parts)],
+                [c[i] for c in counts], rec.caps[k])
+            for i, k in enumerate(_SEL_KEYS))
+        vals = _join_sections([p[5] for p in parts], [c[4] for c in counts],
+                              rec.caps["s"])
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]), rstats,
+                sum(c.astype(np.int64) for c in counts), rows, vals)
+
+    def _round_detail(self, rec, rnd: int):  # sync-hot
+        """Round ``rnd``'s detail, collected and parsed
+        (``_parse_detail``); several blocks' sections joined as
+        ``_round_head`` joins their rows (each block's first ``count``
+        rows, in block order)."""
+        bcaps = self._block_caps(rec.caps)
+        dets = [self._parse_detail(self._collect_blob(rb, rec.t_req), bcaps)
+                for rb in rec.detail_dev[rnd]]
+        if len(dets) == 1:
+            return dets[0]
+        counts = [p[3] for p in rec.heads[rnd]]
+        return tuple(
+            _join_sections([dt[f] for dt in dets], [c[i] for c in counts],
+                           rec.caps[_SEL_KEYS[i]])
+            for f, i in enumerate(_DETAIL_SECTION))
 
     def _parse_head(self, head, caps, G: int, nw: int):  # sync-hot
         """Host-side parse of one round's head blob (_select_and_blob's
@@ -2357,9 +2644,8 @@ class ColocatedTorchEngine(TorchStepEngine):
             pos_buf, pos_slot, pos_need, pos_ring, pos_sum, _src = cover
             vals_np = sel_vals[:n_sum_d]
             if has_heavy:
-                det = self._collect_blob(rec.detail_dev[rnd], rec.t_req)
                 (buf_np, slot_base, slot_term, ent_drop, _need_np,
-                 ring_t, ring_c) = self._parse_detail(det, caps)
+                 ring_t, ring_c) = self._round_detail(rec, rnd)
             else:
                 buf_np = slot_base = slot_term = ent_drop = None
                 ring_t = ring_c = None
@@ -2374,15 +2660,12 @@ class ColocatedTorchEngine(TorchStepEngine):
                 self.stats.get("sel_fallbacks", 0) + 1
             )
             self.stats["readback_windows"] += 1
-            idx4 = _build_idx4(
-                sets.buf_rows.tolist(), sets.slot_rows.tolist(),
-                sets.need_rows.tolist(), sets.append_rows.tolist(),
-            )
             _tq = _time.monotonic()
-            detail, vals_np = _fetch_detail_vals(
-                rec.merged[rnd], rec.out[rnd], idx4,
-                sets.sum_rows.tolist(), self._put, self.O,
-                self.M + self.P * self.budget, self.E, self.P, self.W,
+            detail, vals_np = self._fetch(
+                rec.merged[rnd].parts, rec.out[rnd].parts,
+                (sets.buf_rows.tolist(), sets.slot_rows.tolist(),
+                 sets.need_rows.tolist(), sets.append_rows.tolist()),
+                sets.sum_rows.tolist(), self.M + self.P * self.budget,
                 allow_fused=False,
             )
             self._floor_wait(_tq)
@@ -2598,12 +2881,18 @@ class ColocatedTorchEngine(TorchStepEngine):
         # the same round trip — the one-readback-per-wave budget the
         # fused-round smoke asserts
         self.stats["readback_windows"] += 1
+        # mesh mode: the wave's lane stats rows, summed over the blocks
+        # ([rounds, 8]; each round's are folded into its route stats)
+        lane = None
+        if rec.lane_dev:
+            lane = sum(self._collect_blob(rb, rec.t_req).astype(np.int64)
+                       for rb in rec.lane_dev)
         for rnd in range(K):
             final = rnd == K - 1
             round_props = prop_gs if rnd == 0 else empty_gs
             _t0 = _time.perf_counter()
             _tc = _time.monotonic()
-            head = self._collect_blob(rec.head_dev[rnd], rec.t_req)
+            head = self._round_head(rec, rnd, lane)
             if rnd == 0 and self._pipeline_depth > 1:
                 # host-side work done between the D2H request
                 # (dispatch) and this collect ran concurrently with
@@ -2623,7 +2912,7 @@ class ColocatedTorchEngine(TorchStepEngine):
                 (_time.perf_counter() - _t0) * 1000
             )
             (flags, delivered_bits, rstats, sel_counts, sel_rows,
-             sel_vals) = self._parse_head(head, caps, G, nw)
+             sel_vals) = head
             (sel_rows_buf, sel_rows_slot, sel_rows_need,
              sel_rows_append, sel_rows_sum) = sel_rows
             if final:
@@ -2801,9 +3090,8 @@ class ColocatedTorchEngine(TorchStepEngine):
                 or len(slot_rows) or len(need_rows)
             )
             if need_detail:
-                det = self._collect_blob(rec.detail_dev[rnd], rec.t_req)
                 (buf_np, slot_base, slot_term, ent_drop, need_np,
-                 ring_t, ring_c) = self._parse_detail(det, caps)
+                 ring_t, ring_c) = self._round_detail(rec, rnd)
             else:
                 # pure commit/tick generation: the detail payload is
                 # never read — on hardware its bytes still rode the
@@ -2821,17 +3109,14 @@ class ColocatedTorchEngine(TorchStepEngine):
                 self.stats.get("sel_fallbacks", 0) + 1
             )
             self.stats["readback_windows"] += 1
-            idx4 = _build_idx4(
-                buf_rows.tolist(), slot_rows.tolist(),
-                need_rows.tolist(), append_rows.tolist(),
-            )
             _tq = _time.monotonic()
             # the kernel ran on the ASSEMBLED inbox (host slots + routed
             # regions), so the out slot arrays are M + P*B wide
-            detail, vals_np = _fetch_detail_vals(
-                rec.merged[rnd], rec.out[rnd], idx4, sum_rows.tolist(),
-                self._put,
-                self.O, M + P * B, E, P, self.W, allow_fused=False,
+            detail, vals_np = self._fetch(
+                rec.merged[rnd].parts, rec.out[rnd].parts,
+                (buf_rows.tolist(), slot_rows.tolist(),
+                 need_rows.tolist(), append_rows.tolist()),
+                sum_rows.tolist(), M + P * B, allow_fused=False,
             )
             self._floor_wait(_tq)
             if detail is not None:
@@ -2841,7 +3126,7 @@ class ColocatedTorchEngine(TorchStepEngine):
                 buf_np = slot_base = slot_term = ent_drop = need_np = None
                 ring_t = ring_c = None
             # position maps over the HOST-ordered gather sections (the
-            # same order _build_idx4 packed them in)
+            # order the host built them in)
             pos_buf = hostplane.pos_of(G, buf_rows)
             pos_ring = hostplane.pos_of(G, append_rows)
             pos_slot = hostplane.pos_of(G, slot_rows)
@@ -3090,13 +3375,7 @@ class ColocatedTorchEngine(TorchStepEngine):
             # the need flag re-fires while the condition persists, the
             # lane write is idempotent, and at most one extra probe
             # volley reaches a peer already being streamed to
-            self._state = self._move_rows(
-                _set_remote_snapshot,
-                self._state,
-                self._put(_pad_idx([t[0] for t in lanes])),
-                self._put(_pad_idx([t[1] for t in lanes])),
-                self._put(_pad_idx([t[2] for t in lanes])),
-            )
+            self._state = self._snapshot_state(self._state, lanes)
         below = [t for t in snapshot_sends if t[2] is None]
         if below:
             # the durable snapshot sits below the shard base (see
@@ -3167,11 +3446,18 @@ class ColocatedEngineGroup:
     ``device``: where the shared row state lives and the programs run —
     the CUDA card by default (``placement.default_device()``), which
     raises here when there is none; ``"cpu"`` runs the plain PyTorch
-    versions.  The other keywords go to ``ColocatedTorchEngine``.
+    versions.  ``mesh`` (a ``placement.GroupsMesh``: ``["cpu"] * D``,
+    ``[cuda:0] * 4``, or distinct cards) decides the device instead: the
+    rows are cut into its devices' blocks, each block's programs run on
+    its device, and messages between blocks ride the cross-device lane
+    (``ColocatedTorchEngine``).  The other keywords go to
+    ``ColocatedTorchEngine``.
     """
 
-    def __init__(self, *, device=None, **kw):
-        self._kw = dict(kw, device=placement.resolve_device(device))
+    def __init__(self, *, device=None, mesh=None, **kw):
+        if mesh is None:
+            device = placement.resolve_device(device)
+        self._kw = dict(kw, device=device, mesh=mesh)
         self._core: Optional[ColocatedTorchEngine] = None
         self._lock = threading.Lock()
 

@@ -15,7 +15,7 @@ prop, ticks — the ``_C_*`` lanes).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,29 +53,43 @@ def assemble_and_step(state: DeviceState, host: Inbox, pending: Inbox,
     )
 
 
-def pack_delivered(delivered: torch.Tensor) -> torch.Tensor:
-    """[G, O] bool -> [G, ceil(O/32)] int32 words of uint32 bits."""
-    G, O = delivered.shape
-    nwords = (O + 31) // 32
-    shift = torch.arange(O, device=delivered.device) % 32
-    word = torch.arange(O, device=delivered.device) // 32
-    bits = torch.where(delivered, torch.ones_like(shift) << shift, 0)
-    cols = []
-    for w in range(nwords):
-        s = torch.where(word[None, :] == w, bits, 0).sum(dim=1)  # int64
-        cols.append(torch.where(s >= 2**31, s - 2**32, s))
-    return torch.stack(cols, dim=1).to(I32)
+# [G, O] bool -> [G, ceil(O/32)] int32 words of uint32 bits
+pack_delivered = route_ref.pack_bits
+
+
+class Lane(NamedTuple):
+    """A mesh-mode route step's lane operands for one block: its mesh
+    tables (``route.MeshTables`` rows, [Gl, P] each), the launch's whole
+    [G, 4] combo on the block's device (the receivers' alive lane), the
+    block's coordinate, the block count and the lane's per-edge
+    budget."""
+
+    dest_local: torch.Tensor
+    dest_dev: torch.Tensor
+    rank: torch.Tensor
+    combo: torch.Tensor
+    me: int
+    n_dev: int
+    xbudget: int
 
 
 def route_step(old_state: DeviceState, new_state: DeviceState,
                out: DeviceOut, dest: torch.Tensor, rank: torch.Tensor,
-               combo: torch.Tensor, *, PB: int, E: int, budget: int):
+               combo: torch.Tensor, *, PB: int, E: int, budget: int,
+               lane: Optional[Lane] = None):
     """Post-launch tail: discard escalated rows' effects, route the
     outboxes into the next launch's pending regions (width PB, base 0),
     the flag word with the colocated F_COUNT override, and the packed
     delivered bits.  Returns (merged, regions, stats [6], packed, flags).
     Consumes ``new_state``: merged is new_state with the escalated rows
-    put back in place (the reference donates it, colocated.py:213)."""
+    put back in place (the reference donates it, colocated.py:213).
+
+    With ``lane`` (a mesh block: ``dest`` is the local view of its
+    tables) the lane pack runs between the route and the flag word:
+    messages toward another block are packed for it (``lane_pack`` with
+    the alive lane), their delivered bits set and the undelivered words
+    rewritten, so the F_COUNT override sees what the lane carried.  Then
+    it also returns the block's lane buffer and its [8] lane stats row."""
     merged = DeviceState(*engine_ref.merge_escalated(
         out.escalate, old_state, new_state))
     regions, stats, delivered = route_ref.route(
@@ -84,9 +98,29 @@ def route_step(old_state: DeviceState, new_state: DeviceState,
     )
     O = delivered.shape[1]
     valid = torch.arange(O, device=out.count.device)[None, :] < out.count[:, None]
-    undeliv = (valid & ~delivered).any(dim=1)
-    flags = engine_ref.summarize_flags(old_state, merged, out, undeliv.to(I32))
-    return merged, regions, stats, pack_delivered(delivered), flags
+    undeliv = (valid & ~delivered).any(dim=1).to(I32)
+    packed = pack_delivered(delivered)
+    xlane = ()
+    if lane is not None:
+        xlane = route_ref.lane_pack(
+            merged, out, lane.dest_local, lane.dest_dev, lane.rank,
+            me=lane.me, n_dev=lane.n_dev, E=E, budget=budget,
+            xbudget=lane.xbudget, suppress=out.escalate,
+            dest_alive=lane.combo, alive_stride=4, packed=packed,
+            undeliv=undeliv,
+        )
+    flags = engine_ref.summarize_flags(old_state, merged, out, undeliv)
+    return (merged, regions, stats, packed, flags) + tuple(xlane)
+
+
+def lane_scatter(regions: Inbox, recv: torch.Tensor, lane_stats: torch.Tensor,
+                 *, budget: int):
+    """The lane's receiving half on a block: the received rows added into
+    its pending regions in place (``lane_scatter``, base 0) and the count
+    written into ``lane_stats[1]``.  Returns (regions, lane_stats)."""
+    regions, n = route_ref.lane_scatter(regions, recv, budget=budget, base=0)
+    lane_stats[1] = n
+    return regions, lane_stats
 
 
 def selection_masks(flags: torch.Tensor, combo: torch.Tensor):
@@ -184,6 +218,8 @@ def scatter_inbox_rows(host: Inbox, pos: torch.Tensor, sub: Inbox) -> Inbox:
 PROGRAMS: Dict[str, object] = {
     "assemble_and_step": assemble_and_step,
     "route_step": route_step,
+    "lane_route_step": route_step,
+    "lane_scatter": lane_scatter,
     "select_and_blob": select_and_blob,
     "zero_inbox_rows": zero_inbox_rows,
     "host_inbox_from_ticks": host_inbox_from_ticks,

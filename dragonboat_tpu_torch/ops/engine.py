@@ -9,6 +9,12 @@ version for CPU tensors (``ops/plumbing.py``).  Everything else — the
 launch plan, the escalation replay, rebasing and the update lanes — is
 the reference's host numpy and Python logic, carried over as it stands.
 
+With ``mesh=`` (a ``placement.GroupsMesh``) the row state is cut into
+the mesh's blocks and every program of a launch runs once a block
+(``placement.RowBlocks``); readbacks are joined on the host in the
+order the host asked for them.  A one-device mesh is the single-device
+engine.
+
 Replaces the per-shard scalar ``node.step()`` loop of ``HostStepEngine``
 with ONE kernel launch over a `[G]`-row device-resident state tensor
 (reference: engine.go stepWorkerMain becomes a vectorized kernel, per
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -310,6 +317,54 @@ def _fetch_detail_vals(state, out, idx4, sum_rows, put, O, M, E, P, W,
     return detail, vals_np
 
 
+# the row set each detail field of _split_detail reads (_build_idx4's
+# rows: buf, slot, need, append)
+_DETAIL_SET = (0, 1, 1, 1, 2, 3, 3)
+
+
+def _fetch_blocks(blocks, states, outs, sets, sum_rows, put, O, M, E, P,
+                  W, allow_fused: bool = True, pack=None):
+    """``_fetch_detail_vals`` over row blocks (``placement.RowBlocks``):
+    ``sets`` = (buf, slot, need, append) row lists and ``sum_rows`` in
+    global rows, in the order the host built them; ``states[d]`` /
+    ``outs[d]`` block d's tensors, ``put(x, d)`` a host array on block
+    d's device.  Each block gathers its own rows (block-local indexes),
+    and each section is joined in the caller's order (split_rows'
+    ``order``).  One block is the single-device fetch."""
+    if blocks.D == 1:
+        return _fetch_detail_vals(
+            states[0], outs[0], _build_idx4(*sets), list(sum_rows),
+            lambda x: put(x, 0), O, M, E, P, W, allow_fused, pack)
+    lists = [list(x) for x in sets] + [list(sum_rows)]
+    split = [{d: (local, order) for d, local, order in blocks.split_rows(x)}
+             for x in lists]
+    touched = sorted({d for sp in split for d in sp})
+    detail = None
+    if any(lists[:4]):
+        detail = [None] * len(_DETAIL_SET)
+    vals = (np.zeros((len(lists[4]), N_VALS), np.int32)
+            if lists[4] else None)
+    for d in touched:
+        loc = [split[i].get(d, (np.zeros((0,), np.int32), None))[0]
+               for i in range(5)]
+        det_d, vals_d = _fetch_detail_vals(
+            states[d], outs[d], _build_idx4(*(x.tolist() for x in loc[:4])),
+            loc[4].tolist(), lambda x, d=d: put(x, d), O, M, E, P, W,
+            allow_fused, pack)
+        if det_d is not None:
+            for f, (arr, i) in enumerate(zip(det_d, _DETAIL_SET)):
+                if detail[f] is None:
+                    detail[f] = np.zeros((len(lists[i]),) + arr.shape[1:],
+                                         arr.dtype)
+                if d in split[i]:
+                    order = split[i][d][1]
+                    detail[f][order] = arr[:len(order)]
+        if vals_d is not None:
+            order = split[4][d][1]
+            vals[order] = vals_d[:len(order)]
+    return (None if detail is None else tuple(detail)), vals
+
+
 def _set_remote_snapshot(state: DeviceState, g_idx, p_idx, snap_idx,
                          impl=plumbing):
     """rstate = RS_SNAPSHOT and snap_index = snap_idx at each (g, p)
@@ -553,6 +608,15 @@ class TorchStepEngine(IStepEngine):
     hand-written kernels; ``"cpu"`` runs their plain PyTorch versions.
     Asking for CUDA without a card raises.
 
+    ``mesh``: a ``placement.GroupsMesh`` (it wins over ``device``, as in
+    the reference, engine.py:660-684).  The row state is a
+    ``placement.Sharded``: block ``d`` on ``mesh.devices[d]`` holds rows
+    ``[d*Gl, (d+1)*Gl)``; every program of a launch runs once per block
+    on that block's tensors, and readbacks are joined on the host in
+    global row order.  Free rows are striped across the blocks (the
+    reference's order), and ``device_coordinate`` names a shard's block.
+    A one-device mesh is the single-device engine.
+
     ``parity_every``: when > 0, every ``parity_every``-th launch is run
     a second time through the plain PyTorch versions (step, flag word,
     readback pack) on the same inputs, and so is every row movement
@@ -577,6 +641,7 @@ class TorchStepEngine(IStepEngine):
         E: int = 4,
         O: int = 32,
         device=None,
+        mesh=None,
         parity_every: int = 0,
     ):
         if capacity & (capacity - 1):
@@ -590,14 +655,27 @@ class TorchStepEngine(IStepEngine):
             E,
             O,
         )
-        self._device = placement.resolve_device(device)
+        if mesh is not None:
+            if capacity % mesh.size:
+                raise ValueError(
+                    f"capacity {capacity} must divide over {mesh.size} devices"
+                )
+            if len(mesh.axis_names) != 1:
+                raise ValueError("engine mesh must be one-dimensional")
+            self._mesh = mesh
+            self._device = None
+        else:
+            self._mesh = None
+            self._device = placement.resolve_device(device)
+        # the row blocks every program runs over: the mesh's, or one
+        # block on the engine device
+        self._blocks = placement.RowBlocks(
+            mesh if mesh is not None
+            else placement.GroupsMesh([self._device]), capacity)
         self._parity_every = int(parity_every)
         self.parity_failure: Optional[str] = None  # the first mismatch
         # inert rows: no peers, empty inbox -> the kernel never touches them
-        self._state = make_state(
-            capacity, P, W, replica_ids=np.zeros(capacity),
-            device=self._device,
-        )
+        self._state = self._inert_state()
         self._row_of: Dict[int, int] = {}  # shard_id -> g
         self._meta: Dict[int, _RowMeta] = {}  # g -> meta
         # SoA truth store behind every _RowMeta (ops/hostplane.py): the
@@ -628,7 +706,10 @@ class TorchStepEngine(IStepEngine):
         self._lane_slot = np.full((capacity,), -1, np.int64)
         self._lane_dbi = np.full((capacity,), -1, np.int64)
         self._lane_dbs: List = []
-        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        # STRIPED free order in mesh mode: consecutive attaches land on
+        # distinct device blocks, so resident rows (and their group-tick
+        # load) balance across the mesh; pops come from the END
+        self._free: List[int] = self._blocks.striped_free()
         # per-row index base (the 64-bit story): the host log is 64-bit
         # throughout; device rows hold indexes REBASED by a per-row
         # multiple of W so the int32 lanes never overflow.  Recomputed at
@@ -687,21 +768,98 @@ class TorchStepEngine(IStepEngine):
         with self._lock:
             return dict(self.stats)
 
-    def _put(self, x):
+    def _put(self, x, d: int = 0):
         """Move a numpy int array, a tensor, or a NamedTuple of tensors
-        (indexes, gathered sub-states, inboxes) to the engine device."""
+        (indexes, gathered sub-states, inboxes) to block ``d``'s
+        device."""
         if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(self._put(t) for t in x))
+            return type(x)(*(self._put(t, d) for t in x))
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
-        return x.to(self._device)
+        return x.to(self._blocks.devices[d])
 
-    # full-capacity row arrays take the same path on one device
-    _put_rows = _put
+    def _put_rows(self, x) -> placement.Sharded:
+        """A full-capacity row array (state, inbox, [G] maps) as the row
+        blocks' tensors (``placement.Sharded``)."""
+        return self._blocks.put(x)
+
+    def _inert_state(self) -> placement.Sharded:
+        """Fresh inert rows on every block (no peers: the kernel never
+        touches them)."""
+        return self._put_rows(make_state(
+            self.capacity, self.P, self.W,
+            replica_ids=np.zeros(self.capacity), device="cpu"))
 
     def _sync(self) -> None:
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        for dev in set(self._blocks.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    # -- row moves over the blocks --------------------------------------
+    def _scatter_state(self, state, gs, sub) -> placement.Sharded:
+        """``_scatter_rows`` of the host sub-state ``sub`` (row k for the
+        global row ``gs[k]``) on every block it touches."""
+        pos = _pos_map(self.capacity, gs)
+        parts = list(state.parts)
+        for d in range(self._blocks.D):
+            lo, hi = self._blocks.span(d)
+            if (pos[lo:hi] >= 0).any():
+                parts[d] = self._move_rows(
+                    _scatter_rows, parts[d], self._put(pos[lo:hi], d),
+                    self._put(sub, d))
+        return placement.Sharded(tuple(parts))
+
+    def _select_state(self, keep_new, old, new) -> placement.Sharded:
+        """``_select_rows`` block by block (``keep_new``: [G] bool)."""
+        return placement.Sharded(tuple(
+            self._move_rows(_select_rows, keep_new[slice(*self._blocks.span(
+                d))], old.parts[d], new.parts[d])
+            for d in range(self._blocks.D)))
+
+    def _gather_blocks(self, parts, gs, gather) -> list:
+        """The rows ``gs`` of a row tree's blocks ``parts`` as host
+        arrays, field by field, in ``gs``'s order: ``gather(part, idx)``
+        gathers a block's rows (padded block-local indexes)."""
+        fields = None
+        for d, local, order in self._blocks.split_rows(gs):
+            sub = [_to_np(t) for t in gather(parts[d],
+                                              self._put(_pad_idx(local), d))]
+            if fields is None:
+                fields = [np.zeros((len(gs),) + a.shape[1:], a.dtype)
+                          for a in sub]
+            for f, a in zip(fields, sub):
+                f[order] = a[:len(order)]
+        return fields
+
+    def _gather_state(self, state, gs) -> DeviceState:
+        """The rows ``gs`` of every state field as host arrays, in
+        ``gs``'s order (each block gathers its own rows)."""
+        return DeviceState(*self._gather_blocks(
+            state.parts, gs,
+            lambda part, idx: self._move_rows(_gather_rows, part, idx)))
+
+    def _snapshot_state(self, state, lanes) -> placement.Sharded:
+        """``_set_remote_snapshot`` at each (g, p, snap) of ``lanes`` on
+        its row's block."""
+        p_idx = np.asarray([t[1] for t in lanes], np.int64)
+        s_idx = np.asarray([t[2] for t in lanes], np.int64)
+        parts = list(state.parts)
+        for d, local, order in self._blocks.split_rows(
+                [t[0] for t in lanes]):
+            parts[d] = self._move_rows(
+                _set_remote_snapshot, parts[d],
+                self._put(_pad_idx(local), d),
+                self._put(_pad_idx(p_idx[order]), d),
+                self._put(_pad_idx(s_idx[order]), d))
+        return placement.Sharded(tuple(parts))
+
+    def _fetch(self, states, outs, sets, sum_rows, M: int,
+               allow_fused: bool = True, pack=None):
+        """The post-step readback (``_fetch_blocks``) of the row sets
+        ``sets`` = (buf, slot, need, append) and ``sum_rows``."""
+        return _fetch_blocks(self._blocks, states, outs, sets, sum_rows,
+                             self._put, self.O, M, self.E, self.P, self.W,
+                             allow_fused=allow_fused, pack=pack)
 
     @staticmethod
     def _cq_grace(r) -> None:
@@ -737,17 +895,19 @@ class TorchStepEngine(IStepEngine):
         runs eagerly; there is nothing to trace)."""
         from .types import make_inbox
 
-        st = self._state
-        inbox = make_inbox(self.capacity, self.M, self.E, device=self._device)
-        _, out = K.step(st, inbox, out_capacity=self.O)
-        _summarize_flags(st, st, out)
-        _select_rows(np.ones((self.capacity,), bool), st, st)
-        idx = self._put(np.zeros((1,), np.int32))
-        _scatter_rows(st, self._put(np.full((self.capacity,), -1, np.int32)),
-                      _gather_rows(st, idx))
-        _gather_detail_vals(st, out, self._put(np.zeros((4, 1), np.int32)),
-                            idx)
-        _set_remote_snapshot(st, idx, idx, idx)
+        per = self._blocks.per
+        for d, st in enumerate(self._state.parts):
+            inbox = make_inbox(per, self.M, self.E,
+                               device=self._blocks.devices[d])
+            _, out = K.step(st, inbox, out_capacity=self.O)
+            _summarize_flags(st, st, out)
+            _select_rows(np.ones((per,), bool), st, st)
+            idx = self._put(np.zeros((1,), np.int32), d)
+            _scatter_rows(st, self._put(np.full((per,), -1, np.int32), d),
+                          _gather_rows(st, idx))
+            _gather_detail_vals(st, out,
+                                self._put(np.zeros((4, 1), np.int32), d), idx)
+            _set_remote_snapshot(st, idx, idx, idx)
         self._sync()
 
     # ------------------------------------------------------------------
@@ -846,18 +1006,24 @@ class TorchStepEngine(IStepEngine):
 
     def _pick_row(self, node) -> int:
         """Pop a free row slot.  The base policy is the free-list order
-        ; the colocated
+        (striped across device blocks in mesh mode); the colocated
         engine overrides with shard affinity — see its _pick_row."""
         return self._free.pop()
 
     def device_coordinate(self, shard_id: int):
-        """Device block hosting this shard's row; None on this
-        single-device engine (the multi-device slice is not ported)."""
-        return None
+        """Device block hosting this shard's row under the placement
+        contract (ops/placement.py), or None when unknown / no mesh —
+        the balance plane's chip-placement dimension."""
+        if self._mesh is None:
+            return None
+        g = self._row_of.get(shard_id)
+        if g is None:
+            return None
+        return g // (self.capacity // self._mesh.size)
 
     def device_chip_count(self) -> int:
         """Chips this engine spreads rows over (1 = single device)."""
-        return 1
+        return self._mesh.size if self._mesh is not None else 1
 
     # ------------------------------------------------------------------
     # classification
@@ -1099,12 +1265,8 @@ class TorchStepEngine(IStepEngine):
             "t_up_pack_ms", 0
         ) + (_time.perf_counter() - _t0) * 1000.0
         _t0 = _time.perf_counter()
-        pos = self._put_rows(
-            _pos_map(self.capacity, [g for g, _ in rows])
-        )
-        self._state = self._move_rows(
-            _scatter_rows, self._state, pos, self._put(sub)
-        )
+        self._state = self._scatter_state(
+            self._state, [g for g, _ in rows], sub)
         self.stats["t_up_scatter_ms"] = self.stats.get(
             "t_up_scatter_ms", 0
         ) + (_time.perf_counter() - _t0) * 1000.0
@@ -1173,10 +1335,7 @@ class TorchStepEngine(IStepEngine):
         if not gs:
             return
         st = state if state is not None else self._state
-        idx = self._put(_pad_idx(gs))
-        sub = DeviceState(
-            *(_to_np(t) for t in self._move_rows(_gather_rows, st, idx))
-        )
+        sub = self._gather_state(st, gs)
         for k, g in enumerate(gs):
             self._lease.disarm(g)  # scalar path re-arms at next upload
             node = self._meta[g].node
@@ -1676,31 +1835,35 @@ class TorchStepEngine(IStepEngine):
 
     def _parity_check(self, old_state, inbox, new_state, out, flags) -> None:
         """Re-run this launch's step and flag word through the plain
-        PyTorch versions on the same device tensors and require bit
-        equality (``parity_every``); the readback is checked after the
-        fetch (``_parity_check_readback``).  No kernel is launched here."""
+        PyTorch versions on the same device tensors, block by block, and
+        require bit equality (``parity_every``); the readback is checked
+        after the fetch (``_parity_check_readback``).  No kernel is
+        launched here."""
         self.stats["parity_step_attempts"] += 1
-        ref_state, ref_out = kernel_ref.step(old_state, inbox, self.O)
-        pairs = [
-            (f"state.{f}", getattr(new_state, f), getattr(ref_state, f))
-            for f in DeviceState._fields
-        ] + [
-            (f"out.{f}", getattr(out, f), getattr(ref_out, f))
-            for f in DeviceOut._fields
-        ]
-        pairs.append((
-            "flags", flags,
-            engine_ref.summarize_flags(old_state, new_state, out),
-        ))
-        for name, got, want in pairs:
-            if not torch.equal(got, want):
-                self._parity_fail(name)
+        for d in range(self._blocks.D):
+            old_d, new_d, out_d = (old_state.parts[d], new_state.parts[d],
+                                   out.parts[d])
+            ref_state, ref_out = kernel_ref.step(old_d, inbox.parts[d],
+                                                 self.O)
+            pairs = [
+                (f"state.{f}", getattr(new_d, f), getattr(ref_state, f))
+                for f in DeviceState._fields
+            ] + [
+                (f"out.{f}", getattr(out_d, f), getattr(ref_out, f))
+                for f in DeviceOut._fields
+            ]
+            pairs.append((
+                "flags", flags[d],
+                engine_ref.summarize_flags(old_d, new_d, out_d),
+            ))
+            for name, got, want in pairs:
+                if not torch.equal(got, want):
+                    self._parity_fail(name)
 
-    def _parity_check_readback(self, new_state, out, idx4, sum_rows,
+    def _parity_check_readback(self, new_state, out, sets, sum_rows,
                                detail, vals_np) -> None:
-        ref_detail, ref_vals = _fetch_detail_vals(
-            new_state, out, idx4, sum_rows, self._put,
-            self.O, self.M, self.E, self.P, self.W,
+        ref_detail, ref_vals = self._fetch(
+            new_state.parts, out.parts, sets, sum_rows, self.M,
             pack=engine_ref.gather_pack,
         )
         same = (ref_detail is None) == (detail is None) and (
@@ -1715,24 +1878,35 @@ class TorchStepEngine(IStepEngine):
 
     def _device_step(self, batch) -> List[Tuple]:
         G, M, E = self.capacity, self.M, self.E
+        # wall-time breakdown of a launch (ms, cumulative): host encode,
+        # the device step with its flag readback, the parity self-check,
+        # the escalations' replay, the detail fetch, the merge tail
+        t0 = time.perf_counter()
         msg_rows, staging, prop_rows, tick_fed = self._encode_batch(batch)
         inbox, overflow = S.encode_inbox(msg_rows, M, E)
         assert not overflow, f"planner let oversized rows through: {overflow}"
+        t1 = time.perf_counter()
         inbox = self._put_rows(inbox)
 
         old_state = self._state
         from ..profiling import annotate
 
         with annotate("raft-device-step"):
-            new_state, out = K.step(old_state, inbox, out_capacity=self.O)
-            flags_t = _summarize_flags(old_state, new_state, out)
-            flags = _to_np(flags_t)
+            steps = [K.step(st, ib, out_capacity=self.O)
+                     for st, ib in zip(old_state.parts, inbox.parts)]
+            new_state = placement.Sharded(tuple(n for n, _ in steps))
+            out = placement.Sharded(tuple(o for _, o in steps))
+            flags_t = [_summarize_flags(*a) for a in zip(
+                old_state.parts, new_state.parts, out.parts)]
+            flags = self._blocks.numpy(flags_t)
+        t_step = time.perf_counter()
         parity = (
             self._parity_every > 0
             and self.stats["device_steps"] % self._parity_every == 0
         )
         if parity:
             self._parity_check(old_state, inbox, new_state, out, flags_t)
+        t_chk = time.perf_counter()
         inj = self.fault_injector
         if (
             inj is not None
@@ -1766,9 +1940,7 @@ class TorchStepEngine(IStepEngine):
             keep_new = np.ones((G,), bool)
             for _, g, _ in esc_rows:
                 keep_new[g] = False
-            new_state = self._move_rows(
-                _select_rows, keep_new, old_state, new_state
-            )
+            new_state = self._select_state(keep_new, old_state, new_state)
             self._materialize_rows([g for _, g, _ in esc_rows], old_state)
             for node, g, si in esc_rows:
                 meta = self._meta.get(g)
@@ -1801,14 +1973,15 @@ class TorchStepEngine(IStepEngine):
             g for _, g, _ in live
             if (flags[g] & _F_ANY_LIVE) or g in slot_set
         ]
-        idx4 = _build_idx4(buf_rows, slot_rows, need_rows, append_rows)
-        detail, vals_np = _fetch_detail_vals(
-            new_state, out, idx4, sum_rows, self._put,
-            self.O, self.M, self.E, self.P, self.W,
-        )
+        sets = (buf_rows, slot_rows, need_rows, append_rows)
+        t2 = time.perf_counter()
+        detail, vals_np = self._fetch(new_state.parts, out.parts, sets,
+                                      sum_rows, self.M)
+        t3 = time.perf_counter()
         if parity:
-            self._parity_check_readback(new_state, out, idx4, sum_rows,
+            self._parity_check_readback(new_state, out, sets, sum_rows,
                                         detail, vals_np)
+        t_chk2 = time.perf_counter()
         if detail is not None:
             (buf_np, slot_base, slot_term, ent_drop, need_np, ring_t,
              ring_c) = detail
@@ -2098,13 +2271,7 @@ class TorchStepEngine(IStepEngine):
 
         lanes = [t for t in snapshot_sends if t[2] is not None]
         if lanes:
-            self._state = self._move_rows(
-                _set_remote_snapshot,
-                self._state,
-                self._put(_pad_idx([t[0] for t in lanes])),
-                self._put(_pad_idx([t[1] for t in lanes])),
-                self._put(_pad_idx([t[2] for t in lanes])),
-            )
+            self._state = self._snapshot_state(self._state, lanes)
         below = [t for t in snapshot_sends if t[2] is None]
         if below:
             # see _send_snapshots: these rows continue on the scalar path
@@ -2124,6 +2291,13 @@ class TorchStepEngine(IStepEngine):
                 rm = meta.node.peer.raft.get_remote(pid)
                 if rm is not None:
                     rm.become_snapshot(ss_index)
+        st = self.stats
+        t4 = time.perf_counter()
+        for k, v in (("t_encode_ms", t1 - t0), ("t_dev_step_ms", t_step - t1),
+                     ("t_parity_ms", (t_chk - t_step) + (t_chk2 - t3)),
+                     ("t_escalate_ms", t2 - t_chk), ("t_fetch_ms", t3 - t2),
+                     ("t_merge_ms", t4 - t_chk2)):
+            st[k] = st.get(k, 0.0) + v * 1000.0
         return updates
 
     # -- append reconstruction -----------------------------------------
@@ -2312,7 +2486,9 @@ class TorchStepEngine(IStepEngine):
         # snapshot_sends entries are (g, p, lane, pid, ss_index); lane is
         # None when the durable snapshot sits below the row's base (the
         # host-excursion path)
-        peer_ids = _to_np(self._state.peer_id[g])  # small row fetch
+        d = self._blocks.block_of(g)  # small row fetch
+        peer_ids = _to_np(
+            self._state.parts[d].peer_id[g - d * self._blocks.per])
         ss = r.log.logdb.snapshot()
         for p in range(self.P):
             if not need_row[p]:
@@ -2367,6 +2543,7 @@ def torch_step_engine_factory(
     E: int = 4,
     O: int = 32,
     device=None,
+    mesh=None,
     parity_every: int = 0,
 ):
     """ExpertConfig.step_engine_factory hook:
@@ -2374,13 +2551,16 @@ def torch_step_engine_factory(
         expert.step_engine_factory = torch_step_engine_factory(capacity=2048)
 
     ``device`` defaults to the CUDA card (``placement.default_device``);
-    pass ``device="cpu"`` for the plain PyTorch path.
+    pass ``device="cpu"`` for the plain PyTorch path.  ``mesh`` (a
+    ``placement.GroupsMesh``, e.g. ``GroupsMesh(["cpu"] * 2)`` or
+    ``GroupsMesh([cuda:0] * 4)``) spreads the rows over its devices'
+    blocks instead (``TorchStepEngine``); capacity must divide over it.
     """
 
     def factory(nodehost):
         return TorchStepEngine(
             nodehost.logdb, capacity=capacity, P=P, W=W, M=M, E=E, O=O,
-            device=device, parity_every=parity_every,
+            device=device, mesh=mesh, parity_every=parity_every,
         )
 
     return factory

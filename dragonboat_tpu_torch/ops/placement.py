@@ -16,12 +16,19 @@
   (:class:`Sharded`) and put it back together.  A mesh may repeat a
   device (``["cpu"] * 4``, ``[cuda:0] * 4``): the counterpart of the
   reference's forced host devices, one block per entry.
+* :class:`RowBlocks` — the engines' per-block map over a mesh: global
+  row indexes to (block, local) and back (:meth:`RowBlocks.split_rows`
+  keeps the caller's order, so a join restores it), numpy row arrays
+  cut into per-block tensors, and the reference's striped free-row
+  order.  A one-device mesh is one block holding every row: the
+  single-device engine.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -200,3 +207,98 @@ def groups_mesh(n_devices: Optional[int] = None) -> Optional[GroupsMesh]:
             f"mesh wants {n_devices} devices, only {n} visible"
         )
     return GroupsMesh([torch.device("cuda", i) for i in range(n_devices)])
+
+
+# ---------------------------------------------------------------------------
+# the engines' per-block map
+# ---------------------------------------------------------------------------
+class RowBlocks:
+    """The row blocks of an engine's ``capacity`` rows over ``mesh``:
+    block ``d`` lives on ``mesh.devices[d]`` and holds the global rows
+    ``[d*per, (d+1)*per)``.  Every full-width row array of the engine is
+    a :class:`Sharded` of this map (:meth:`put`), every device program
+    runs once per block on that block's tensors, and readbacks are
+    joined on the host in global row order (or the caller's order:
+    :meth:`split_rows`)."""
+
+    def __init__(self, mesh: GroupsMesh, capacity: int):
+        if len(mesh.axis_names) != 1:
+            raise ValueError("engine mesh must be one-dimensional")
+        self.mesh = mesh
+        self.capacity = capacity
+        self.D = mesh.size
+        self.per = rows_per_device(capacity, mesh.size)
+        self.devices = mesh.devices
+
+    def span(self, d: int) -> Tuple[int, int]:
+        """Block ``d``'s global rows ``[lo, hi)``."""
+        return d * self.per, (d + 1) * self.per
+
+    def block_of(self, g: int) -> int:
+        return g // self.per
+
+    def split_rows(self, idx) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+        """``[(d, local, order)]`` for every block the global rows ``idx``
+        touch, in block order: ``local`` (int32) are the block-local
+        indexes of ``idx[order]``, in the caller's order, so ``out[order]
+        = block_result`` puts a block's per-row results back in place."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        d_of = idx // self.per
+        parts = []
+        for d in np.unique(d_of).tolist():
+            order = np.nonzero(d_of == d)[0]
+            parts.append((int(d), (idx[order] - d * self.per).astype(
+                np.int32), order))
+        return parts
+
+    def striped_free(self) -> List[int]:
+        """The reference's free-row order (engine.py:726-739): consecutive
+        attaches land on distinct blocks (pops come from the END of the
+        list, so the stripe is built reversed); one block: every row,
+        lowest popped first."""
+        order = [b * self.per + i for i in range(self.per)
+                 for b in range(self.D)]
+        return list(reversed(order))
+
+    def put(self, x) -> Sharded:
+        """A full-width row array (numpy, tensor, or a NamedTuple of
+        them) as per-block tensors on the blocks' devices.  When every
+        block shares one device the tree moves there once and the blocks
+        are row views of it (a host-to-device copy from pageable memory
+        waits for the device's queued work: one a field, not one a
+        field and a block)."""
+        t = _tensor_tree(x)
+        if any(v.shape[0] != self.capacity for v in _leaves(t)):
+            raise ValueError(f"RowBlocks.put: every leaf must have "
+                             f"{self.capacity} rows")
+        if len(set(self.devices)) > 1:
+            return self.mesh.shard(t)
+        whole = _map(lambda v: v.to(self.devices[0]), t)
+        return Sharded(tuple(
+            _map(lambda v, d=d: v[d * self.per:(d + 1) * self.per], whole)
+            for d in range(self.D)))
+
+    def put_each(self, x) -> Tuple[Any, ...]:
+        """A small array (indexes, a sub-state, the launch's combo) on
+        every block's device — the counterpart of the reference's
+        replicated puts; blocks that share a device share the copy."""
+        t = _tensor_tree(x)
+        on = {dv: _map(lambda v, dv=dv: v.to(dv), t)
+              for dv in dict.fromkeys(self.devices)}
+        return tuple(on[dv] for dv in self.devices)
+
+    def numpy(self, parts) -> np.ndarray:
+        """Per-block [per, ...] tensors joined on the host in global row
+        order: one copy to the host when the blocks share a device."""
+        if len({p.device for p in parts}) == 1:
+            return torch.cat([p.detach() for p in parts]).cpu().numpy()
+        return np.concatenate([p.detach().cpu().numpy() for p in parts])
+
+
+def _tensor_tree(x):
+    """numpy leaves as int32 tensors (bool masks too: the kernels' words)."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tensor_tree(t) for t in x))
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+    return x

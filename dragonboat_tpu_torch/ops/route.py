@@ -47,15 +47,16 @@ from . import plumbing
 from . import route_ref
 from .placement import GroupsMesh, Sharded
 from .route_ref import (
-    N_LANE_STATS, X_KF, XI_B, XI_FOUND, XI_FROM, XI_LOC, XI_RANK,
-    make_prefill,
+    N_LANE_STATS, N_LANE_STATS_X, X_KF, XI_B, XI_FOUND, XI_FROM, XI_LOC,
+    XI_RANK, make_prefill,
 )
 from .types import I32, N_FIELDS, DeviceOut, DeviceState, Inbox
 
 __all__ = [
     "RouteStats", "build_route_tables", "route", "make_prefill",
     "merge_and_route", "routed_round", "fused_rounds", "MeshTables",
-    "CrossStats", "build_route_tables_mesh", "xbudget_for",
+    "CrossStats", "build_route_tables_mesh", "split_route_tables",
+    "xbudget_for",
     "xlane_pack", "xlane_scatter", "cross_exchange", "make_sharded_round",
     # the packed lane row's layout (route_ref.py, csrc/xlane.cu)
     "XI_FROM", "XI_LOC", "XI_RANK", "XI_B", "XI_FOUND", "X_KF",
@@ -434,11 +435,19 @@ def build_route_tables_mesh(
     placement into (device, local row) coordinates.  A peer on the same
     device routes through ``route``; a peer on another device rides the
     lane (``cross_exchange``)."""
-    G = peer_ids.shape[0]
+    dest, rank = build_route_tables(shard_ids, replica_ids, peer_ids)
+    return split_route_tables(dest, rank, n_devices)
+
+
+def split_route_tables(dest: np.ndarray, rank: np.ndarray,
+                       n_devices: int) -> MeshTables:
+    """Global ``(dest_row, rank_in_dest)`` tables — after any edit of
+    ``dest`` such as the colocated engine's partition cut — in the
+    row-block placement's (device, local row) coordinates."""
+    G = dest.shape[0]
     if n_devices <= 0 or G % n_devices:
         raise ValueError(f"G={G} must divide over {n_devices} devices")
     gl = G // n_devices
-    dest, rank = build_route_tables(shard_ids, replica_ids, peer_ids)
     placed = dest >= 0
     dest_dev = np.where(placed, dest // gl, -1).astype(np.int32)
     dest_local = np.where(placed, dest % gl, -1).astype(np.int32)
@@ -481,16 +490,27 @@ def xlane_pack(
     xbudget: int,
     suppress: Optional[torch.Tensor] = None,
     stats: Optional[torch.Tensor] = None,
+    dest_alive: Optional[torch.Tensor] = None,
+    alive_stride: int = 1,
+    packed: Optional[torch.Tensor] = None,
+    undeliv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shard ``me``'s lane buffer ``xbuf [n_dev, xbudget, 14 + 2E]`` and
-    its [7] stats row (``route_ref.lane_pack``), written into ``stats``
-    when given.  CUDA: ``csrc/xlane.cu``'s pack; CPU: the plain
-    version."""
+    its stats row (``route_ref.lane_pack``), written into ``stats`` when
+    given.  The colocated operands (``route_ref.lane_pack``): the
+    receivers' alive words ``dest_alive``, read at ``x * alive_stride``
+    for global row x (the colocated combo, stride 4), and the route's
+    delivered bits ``packed`` and undelivered words ``undeliv``, updated
+    in place; with them the stats row has ``N_LANE_STATS_X`` words.
+    CUDA: ``csrc/xlane.cu``'s pack; CPU: the plain version."""
+    if (packed is None) != (undeliv is None):
+        raise ValueError("xlane_pack: packed and undeliv come together")
     if _device(out.buf) == "cpu":
         xbuf, st = route_ref.lane_pack(
             state, out, dest_local, dest_dev, rank_in_dest, me=me,
             n_dev=n_dev, E=E, budget=budget, xbudget=xbudget,
-            suppress=suppress,
+            suppress=suppress, dest_alive=dest_alive,
+            alive_stride=alive_stride, packed=packed, undeliv=undeliv,
         )
         if stats is not None:
             stats.copy_(st)
@@ -510,11 +530,13 @@ def xlane_pack(
     xbuf = torch.empty((n_dev, xbudget, X_KF + 2 * E), dtype=I32,
                        device=dev)
     if stats is None:
-        stats = torch.empty((N_LANE_STATS,), dtype=I32, device=dev)
+        n = N_LANE_STATS if packed is None else N_LANE_STATS_X
+        stats = torch.empty((n,), dtype=I32, device=dev)
     _native.launch(
         "xlane_pack", [getattr(state, f) for f in _LANE_STATE], out.buf,
         out.count, _int32(suppress), dest_local, dest_dev, rank_in_dest,
         xbuf, *_lane_work(G, n_dev, R, dev), stats, me, n_dev, budget, R,
+        _int32(dest_alive), alive_stride, packed, undeliv,
     )
     return xbuf, stats
 
@@ -522,10 +544,10 @@ def xlane_pack(
 def _lane_work(G: int, D: int, R: int, dev) -> list:
     """``xlane_pack``'s workspace as views of one allocation, each 16-byte
     aligned: the rows' in-block offsets [G, D], the blocks' totals and
-    offsets [nblk, D], their partial stats [nblk, 4] and the device
+    offsets [nblk, D], their partial stats [nblk, 5] and the device
     totals [D], for blocks of R rows."""
     nblk = -(-G // R)
-    return K._views(((G, D), (nblk, D), (nblk, D), (nblk, 4), (D,)), dev)
+    return K._views(((G, D), (nblk, D), (nblk, D), (nblk, 5), (D,)), dev)
 
 
 

@@ -388,8 +388,30 @@ XI_RANK = XI_FROM + 2
 XI_B = XI_FROM + 3
 XI_FOUND = XI_FROM + 4
 X_KF = XI_FROM + 5  # ent_term starts here; row width = X_KF + 2 * E
-# lane stats row: CrossStats, then escalated rows and live rows
+# lane stats row: CrossStats, then escalated rows and live rows; the
+# colocated pack's row adds the refused (host-carried) messages
 N_LANE_STATS = 7
+N_LANE_STATS_X = 8
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """[G, O] bool -> [G, ceil(O/32)] int32 words of uint32 bits."""
+    G, O = mask.shape
+    shift = torch.arange(O, device=mask.device) % 32
+    word = torch.arange(O, device=mask.device) // 32
+    bits = torch.where(mask, torch.ones_like(shift) << shift, 0)
+    cols = []
+    for w in range((O + 31) // 32):
+        s = torch.where(word[None, :] == w, bits, 0).sum(dim=1)  # int64
+        cols.append(torch.where(s >= 2**31, s - 2**32, s))
+    return torch.stack(cols, dim=1).to(I32)
+
+
+def unpack_bits(packed: torch.Tensor, O: int) -> torch.Tensor:
+    """The inverse of ``pack_bits``: [G, nw] int32 words -> [G, O] bool."""
+    o = torch.arange(O, device=packed.device)
+    w = packed.long()[:, o // 32]
+    return ((w >> (o % 32)) & 1) != 0
 
 
 def lane_pack(
@@ -405,6 +427,10 @@ def lane_pack(
     budget: int,
     xbudget: int,
     suppress: Optional[torch.Tensor] = None,
+    dest_alive: Optional[torch.Tensor] = None,
+    alive_stride: int = 1,
+    packed: Optional[torch.Tensor] = None,
+    undeliv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shard ``me``'s half of the lane before the ring shifts: every
     message whose destination replica lives on another device, packed
@@ -412,9 +438,21 @@ def lane_pack(
     is the ``q``-th sendable message toward device ``d`` in flat
     ``(g, o)`` order; zeros where no message sits).
 
-    Returns ``(xbuf, stats [7])``: sent, 0 (delivered: the scatter's),
-    dropped_budget, dropped_xlane, dropped_ring, then the number of
-    suppressed rows and of the other (live) rows."""
+    The colocated engine's operands make the lane decide as the
+    single-device route with ``dest_alive`` does (route.py:143): a
+    message whose receiver (global row ``dest_dev * G + dest_local``,
+    its word at ``dest_alive.reshape(-1)[row * alive_stride]``) is not
+    alive is refused like a forwarded PROPOSE; ``packed`` (the route's
+    [G, ceil(O/32)] delivered bits) gains the bit of every message the
+    lane carried, and ``undeliv`` ([G]) is rewritten, for every row not
+    suppressed, to whether a valid message of the row has no bit.
+
+    Returns ``(xbuf, stats)``, stats [7]: sent, 0 (delivered: the
+    scatter's), dropped_budget, dropped_xlane, dropped_ring, then the
+    number of suppressed rows and of the other (live) rows; with
+    ``packed``, [8]: the refused (host-carried) messages last."""
+    if (packed is None) != (undeliv is None):
+        raise ValueError("lane_pack: packed and undeliv come together")
     G, O, _ = out.buf.shape
     W = state.ring_term.shape[1]
     B, D, XB = budget, n_dev, xbudget
@@ -444,6 +482,11 @@ def lane_pack(
     xdev = at_pstar(dest_dev)
     xloc = at_pstar(dest_local)
     xrank = at_pstar(rank_in_dest)
+    alive = torch.ones((G, O), dtype=torch.bool, device=dev)
+    if dest_alive is not None:
+        col = dest_alive.reshape(-1)[::alive_stride] != 0
+        at_row = (xdev.long() * G + xloc.long()).clamp(0, max(D * G - 1, 0))
+        alive = col[at_row]
     is_repl = mtype == MT_REPLICATE
     carries = is_repl & (n_ent > 0)
     win_lo = torch.maximum(state.first_index, state.last_index - (W - 1))
@@ -454,7 +497,8 @@ def lane_pack(
         & ~marker
     )
     remote = found & (xdev >= 0) & (xdev != me)
-    routable = valid & remote & (mtype != MT_PROPOSE)
+    routable = valid & remote & (mtype != MT_PROPOSE) & alive
+    refused = valid & remote & ~routable
     deliverable = routable & ring_ok
     oh = (hits & deliverable[:, :, None]).to(I32)
     k_excl = torch.cumsum(oh, dim=1, dtype=I32) - oh
@@ -491,7 +535,7 @@ def lane_pack(
     at = fdev[in_q] * XB + q[in_q].long()
     xbuf[at] = fields[in_q]
     sent = in_q.sum(dtype=I32)
-    stats = torch.stack([
+    words = [
         sent,
         torch.zeros((), dtype=I32, device=dev),
         (deliverable & ~in_b).sum(dtype=I32),
@@ -499,8 +543,17 @@ def lane_pack(
         (routable & ~ring_ok).sum(dtype=I32),
         n_sup,
         G - n_sup,
-    ])
-    return xbuf.reshape(D, XB, KT), stats
+    ]
+    if packed is not None:
+        words.append(refused.sum(dtype=I32))
+        delivered = unpack_bits(packed, O) | in_q.reshape(G, O)
+        all_valid = torch.arange(O, device=dev)[None, :] < out.count[:, None]
+        und = (all_valid & ~delivered).any(dim=1).to(I32)
+        if suppress is not None:
+            und = torch.where(suppress.bool(), undeliv, und)
+        packed.copy_(pack_bits(delivered))
+        undeliv.copy_(und)
+    return xbuf.reshape(D, XB, KT), torch.stack(words)
 
 
 def lane_scatter(

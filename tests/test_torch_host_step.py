@@ -149,9 +149,10 @@ void host_quorum(const int* peer_id, const int* kind, const int* match,
 // pass block by block (each row's sub-warp lane by lane, the masks made
 // from the lanes' predicates, then the block's row-order scan), the scan
 // over the blocks, then the write pass and the zero fill
-static void lane_walk(const dbt::XPackArgs& a, const dbt::XRow& r, int blk,
+static bool lane_walk(const dbt::XPackArgs& a, const dbt::XRow& r, int blk,
                       bool write, int* s, dbt::LaneWords& dcnt, int* stage,
                       const int* seg) {
+  bool und = false;
   constexpr int L = dbt::WALK_LANES;
   dbt::XSlots sl;
   for (int p = 0; p < a.P; ++p) {
@@ -178,14 +179,23 @@ static void lane_walk(const dbt::XPackArgs& a, const dbt::XRow& r, int blk,
       in[l] = ok[l] ? 1u << f[l].xdev : 0u;
     }
     dbt::host_lane_ranks(a.D, in, dcnt, q);
+    uint32_t bits = 0;
     for (int l = 0; write && l < L; ++l) {
-      if (!ok[l]) continue;
-      const int x = f[l].xdev;
-      int* row = dbt::xlane_row_at(a, blk, x, q[l] + rowoff.pick(x), stage,
-                                   seg);
-      if (row) dbt::xlane_pack_row(a, r, f[l], row);
+      const int x = ok[l] ? f[l].xdev : 0;
+      const int j = q[l] + rowoff.pick(x);
+      bool carried = false;
+      if (ok[l]) {
+        int* row = dbt::xlane_row_at(a, blk, x, j, stage, seg);
+        if (row) dbt::xlane_pack_row(a, r, f[l], row);
+        carried = dbt::xlane_carried(a, blk, x, j);
+      }
+      if (!a.packed) continue;
+      if (carried) bits |= 1u << l;
+      und |= dbt::xlane_undelivered(a, r.g, c * L + l, f[l].v, carried);
     }
+    if (write && a.packed) dbt::xlane_mark_carried(a, r.g, c, bits);
   }
+  return und;
 }
 
 void host_xlane_pack(const int* const* st, const int* buf, const int* count,
@@ -193,7 +203,9 @@ void host_xlane_pack(const int* const* st, const int* buf, const int* count,
                      const int* dest_dev, const int* rank, int* xbuf,
                      int* rowoff, int* btot, int* boff, int* part, int* tot,
                      int* stats, int G, int P, int W, int O, int E, int D,
-                     int XB, int B, int me, int R, int stage_rows) {
+                     int XB, int B, int me, int R, int stage_rows,
+                     const int* alive, int alive_stride, int* packed,
+                     int* undeliv, int n_stats) {
   dbt::XPackArgs a;
   a.peer_id = st[0]; a.replica_id = st[1]; a.first_index = st[2];
   a.last_index = st[3]; a.ring_term = st[4]; a.ring_cc = st[5];
@@ -204,6 +216,9 @@ void host_xlane_pack(const int* const* st, const int* buf, const int* count,
   a.G = G; a.P = P; a.W = W; a.O = O; a.E = E; a.D = D; a.XB = XB;
   a.B = B; a.me = me; a.R = R; a.nblk = (G + R - 1) / R;
   a.stage_rows = stage_rows;
+  a.alive = alive; a.alive_stride = alive_stride;
+  a.packed = packed; a.undeliv = undeliv; a.nw = (O + 31) / 32;
+  a.n_stats = n_stats;
   auto row = [&](int g, dbt::XRow& r) {
     if (g < G) dbt::xlane_row_scalars(a, g, r); else dbt::xlane_row_empty(r);
   };
@@ -259,7 +274,9 @@ void host_xlane_pack(const int* const* st, const int* buf, const int* count,
       row(k * R + rr, r);
       dbt::LaneWords dcnt;
       int s[dbt::XL_NPART];
-      lane_walk(a, r, k, true, s, dcnt, staged ? stage.data() : nullptr, seg);
+      const bool und = lane_walk(a, r, k, true, s, dcnt,
+                                 staged ? stage.data() : nullptr, seg);
+      if (packed && k * R + rr < G && !r.sup) undeliv[k * R + rr] = und;
     }
     if (!staged) continue;
     for (int d = 0; d < D; ++d) {
@@ -513,10 +530,13 @@ def test_output_views_are_aligned_and_disjoint(G):
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
-def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB, R, stage):
+def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB, R, stage,
+                   alive=None, alive_stride=1, packed=None, undeliv=None):
     """The shim's three-pass lane pack in blocks of R rows, a block
     staging up to ``stage`` packed rows; xbuf and the workspace start
-    poisoned, so a word the passes leave unwritten shows."""
+    poisoned, so a word the passes leave unwritten shows.  The colocated
+    operands (int32 numpy arrays) are updated in place; with them the
+    stats row has ``N_LANE_STATS_X`` words."""
     G, O, _ = out["buf"].shape
     P, W = st["peer_id"].shape[1], st["ring_term"].shape[1]
     srcs = [np.ascontiguousarray(st[f]) for f in (
@@ -525,8 +545,13 @@ def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB, R, stage):
     xbuf = np.full((D, XB, route_ref.X_KF + 2 * E), POISON, np.int32)
     work = [np.full(tuple(v.shape), POISON, np.int32)
             for v in PRt._lane_work(G, D, R, "cpu")]
-    stats = np.full((route_ref.N_LANE_STATS,), POISON, np.int32)
+    n_stats = (route_ref.N_LANE_STATS if packed is None
+               else route_ref.N_LANE_STATS_X)
+    stats = np.full((n_stats,), POISON, np.int32)
     supw = np.ascontiguousarray(sup, np.int32)
+
+    def ptr(a):
+        return ctypes.c_void_p(None if a is None else a.ctypes.data)
     tabs = [np.ascontiguousarray(t, np.int32) for t in tabs]
     so.host_xlane_pack(
         _ptrs(srcs), ctypes.c_void_p(out["buf"].ctypes.data),
@@ -536,7 +561,8 @@ def host_lane_pack(so, st, out, tabs, sup, *, me, D, E, B, XB, R, stage):
         ctypes.c_void_p(xbuf.ctypes.data),
         *[ctypes.c_void_p(w.ctypes.data) for w in work],
         ctypes.c_void_p(stats.ctypes.data),
-        *_ints(G, P, W, O, E, D, XB, B, me, R, stage))
+        *_ints(G, P, W, O, E, D, XB, B, me, R, stage), ptr(alive),
+        *_ints(alive_stride), ptr(packed), ptr(undeliv), *_ints(n_stats))
     return xbuf, stats
 
 
@@ -665,5 +691,5 @@ def test_route_and_lane_views_are_aligned_and_disjoint(G):
         work = PRt._lane_work(G, D, R, "cpu")
         nblk = -(-G // R)
         assert [tuple(w.shape) for w in work] == [
-            (G, D), (nblk, D), (nblk, D), (nblk, 4), (D,)]
+            (G, D), (nblk, D), (nblk, D), (nblk, 5), (D,)]
         _assert_one_aligned_allocation(work)
