@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only colo_kernels,colocated   # some phases, no result
     python3 chip_smoke.py --only mesh_kernels,phase_a,multichip
     python3 chip_smoke.py --only mesh_engines
+    python3 chip_smoke.py --only audit
 
 Phases, each printing one JSON line:
 
@@ -100,6 +101,21 @@ Phases, each printing one JSON line:
                plain version at leg 2's geometry, timed beside the pack
                without them (``--only mesh_pack`` runs (d) alone).  On four
                visible cards (a) runs again, a block a card.
+10. audit    — the reference's audited churn round (tests/test_audit.py:560,
+               docs/AUDIT.md) on the colocated path: 256 shards x 3
+               replicas on three NodeHosts sharing ONE
+               ``ColocatedEngineGroup(device="cuda")`` (capacity 1,024,
+               the colocated phase's geometry, tan WAL, ``AuditKV``); the
+               nemesis churns a seeded sample of 6 shards (leader kills, a
+               leadership transfer, a membership cycle, one ``Balancer``
+               move onto a fourth host, a 4 s window of forced kernel
+               escalations at p=0.08) under two ``AuditClient``s a shard
+               for 30 s; every sampled history linearizable, sessions
+               exactly-once, every churn event inside its recovery SLA,
+               journals settled, no leaked future.  Then a ``Gateway``
+               drives one sampled shard (lease reads recorded as stale
+               ops), its leader's host is killed, and no stale read, a new
+               leader and a write after the kill are required.
 Each path's kernel launch counts are reset just before it and read just
 after; every kernel of the path must have run.  The engines re-run some
 launches (and every row move) through the plain versions: every such
@@ -2833,6 +2849,378 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: an audited churn round behind a gateway on the colocated path
+# ---------------------------------------------------------------------------
+# the reference's acceptance round (tests/test_audit.py:560, docs/AUDIT.md)
+AUDIT_SHARDS = 256
+AUDIT_SAMPLE = 6
+AUDIT_SEED = 1  # the reference's default DRAGONBOAT_TPU_SEED
+AUDIT_CAPACITY = 1024  # 768 rows, and a fourth host's after the balance move
+AUDIT_RTT_MS = 40  # the reference's: 768 rows' boot storm inside the window
+AUDIT_WORKLOAD_S = 30.0
+# test_chaos_colocated.py's forced-escalation window (:160, :181)
+AUDIT_ESCALATE_P, AUDIT_ESCALATE_S = 0.08, 4.0
+AUDIT_KERNELS = COLO_PARITY_KERNELS + ("place_rows",)
+
+
+def audit_phase(dev, workdir: str, shards: int = AUDIT_SHARDS,
+                seed: int = AUDIT_SEED,
+                workload_s: float = AUDIT_WORKLOAD_S) -> dict:
+    """(a) The reference's audited churn round on the product path: 256
+    shards x 3 replicas on three NodeHosts sharing ONE
+    ``ColocatedEngineGroup`` on ``dev`` (the colocated phase's geometry,
+    the tan WAL, ``AuditKV``); a ``Random(seed)`` sample of 6 shards is
+    churned by the nemesis (leader kills, a forced leadership transfer, a
+    membership cycle, one ``Balancer`` move onto a fourth host racing
+    them, and one window of nemesis-forced kernel escalations at p=0.08)
+    while two ``AuditClient``s a sampled shard write and read through
+    exactly-once sessions for ``workload_s``; every sampled shard's
+    history must be linearizable and its sessions exactly-once.
+    (b) Then a ``Gateway`` over the live hosts drives one sampled shard
+    with a writer on ``gw.connect`` handles and lease reads recorded as
+    stale ops, kills the shard leader's host mid-traffic, and requires
+    no stale read, a re-elected leader and a write after the kill."""
+    import random
+    import shutil
+    import threading
+
+    from dragonboat_tpu_torch import (
+        Balancer, Config, EngineConfig, ExpertConfig, Fault,
+        FaultController, FaultPlan, Gateway, GatewayConfig, LatencyBudget,
+        NodeHost, NodeHostConfig, RECOVERY_STATS,
+    )
+    from dragonboat_tpu_torch.audit import (
+        AuditClient, AuditKV, HistoryRecorder, audit_set_cmd,
+        check_stale_reads, run_audit, settle_journals,
+    )
+    from dragonboat_tpu_torch.audit.history import run_workload
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.ops import _native
+    from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
+    from dragonboat_tpu_torch.storage.tan import tan_logdb_factory
+    from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
+
+    tag = "aud"
+    addr = {r: f"{tag}-{r}" for r in (1, 2, 3, 4)}
+    addrs = {r: addr[r] for r in (1, 2, 3)}
+    geom = dict(capacity=AUDIT_CAPACITY, P=3, W=16, M=8, E=4, O=32,
+                budget=4)
+    reset_inproc_network()
+    shutil.rmtree(workdir, ignore_errors=True)
+    group = ColocatedEngineGroup(**geom, device=dev,
+                                 parity_every=COLO_PARITY_EVERY)
+
+    def make_nh(rid):
+        return NodeHost(NodeHostConfig(
+            nodehost_dir=os.path.join(workdir, f"nh-{rid}"),
+            rtt_millisecond=AUDIT_RTT_MS,
+            raft_address=addr[rid],
+            expert=ExpertConfig(
+                engine=EngineConfig(exec_shards=1, apply_shards=2),
+                step_engine_factory=group.factory,
+                logdb_factory=tan_logdb_factory,
+            ),
+        ))
+
+    def cfg(rid, shard):
+        return Config(replica_id=rid, shard_id=shard, election_rtt=20,
+                      heartbeat_rtt=2, pre_vote=True, check_quorum=True,
+                      quiesce=True)
+
+    def leader_of(hosts, shard, timeout):
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            for k, nh in list(hosts.items()):
+                try:
+                    if nh.is_leader_of(shard):
+                        return k
+                except Exception:  # noqa: BLE001 — a host closing
+                    pass
+            time.sleep(0.02)
+        raise AssertionError(f"no leader for shard {shard} in {timeout} s")
+
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    res = dict(shards=shards, replicas=3, sample_size=AUDIT_SAMPLE,
+               seed=seed, wal="tan", geometry=geom, rtt_ms=AUDIT_RTT_MS,
+               election_rtt=20, heartbeat_rtt=2, workload_s=workload_s,
+               parity_every=COLO_PARITY_EVERY,
+               escalate=dict(p=AUDIT_ESCALATE_P, window_s=AUDIT_ESCALATE_S),
+               reduced=[])
+    nhs = {}
+    nemesis = FaultController(seed=seed)
+    balancer = gw = None
+    stop = threading.Event()
+    rec = HistoryRecorder()
+    try:
+        t0 = time.perf_counter()
+        for rid in addrs:
+            nhs[rid] = make_nh(rid)
+        # the colocated path's kernel launches are counted from here on
+        _native.reset_launch_counts()
+        RECOVERY_STATS.reset()
+        for nh in nhs.values():
+            nh.pause_ticks()
+        for shard in range(1, shards + 1):
+            for rid in addrs:
+                nhs[rid].start_replica(addrs, False, AuditKV, cfg(rid, shard))
+        for nh in nhs.values():
+            nh.resume_ticks()
+        sample = sorted(random.Random(seed).sample(range(1, shards + 1),
+                                                   AUDIT_SAMPLE))
+        for s_ in sample:
+            leader_of(nhs, s_, 240.0)
+        res["sample"] = sample
+        res["boot_s"] = time.perf_counter() - t0
+
+        # (a) ---------------------------------------------------------
+        # per-shard replica kill/restart, each restart with the victim's
+        # real replica id and membership (test_audit.py:600-622)
+        killed = {}
+
+        def kill(host_key, shard_id):
+            node = nhs[host_key]._nodes.get(shard_id)
+            if node is not None:
+                killed[(host_key, shard_id)] = (
+                    node.replica_id, dict(node.get_membership().addresses))
+            nhs[host_key].stop_shard(shard_id)
+
+        def restart(host_key, shard_id):
+            rid, members = killed.pop((host_key, shard_id),
+                                      (host_key, dict(addrs)))
+            nhs[host_key].start_replica(members, False, AuditKV,
+                                        cfg(rid, shard_id))
+
+        sla_seq = [0]
+
+        def sla_cmd():
+            sla_seq[0] += 1
+            return audit_set_cmd("_sla", f"sla-{seed}-{sla_seq[0]}")
+
+        balancer = Balancer(
+            AuditKV, lambda shard_id, replica_id: cfg(replica_id, shard_id),
+            hosts={addr[r]: nh for r, nh in nhs.items()},
+            replication_factor=3, seed=seed)
+        nemesis.install_churn(lambda: nhs, shards=sample, balancer=balancer,
+                              kill_fn=kill, restart_fn=restart,
+                              sla_ticks=8_000, sla_cmd=sla_cmd)
+        nemesis.install_engine(group.core)
+        rng = random.Random(seed ^ 0x5EED)
+        nemesis.plan = FaultPlan([
+            Fault("leader_kill", at=1.0, duration=1.5,
+                  targets=(rng.choice(sample),)),
+            Fault("escalate", at=2.0, duration=AUDIT_ESCALATE_S,
+                  targets=tuple(sample), p=AUDIT_ESCALATE_P),
+            Fault("leader_transfer", at=4.5, targets=(rng.choice(sample),)),
+            Fault("member_cycle", at=6.0, duration=1.5,
+                  targets=(rng.choice(sample),)),
+            Fault("balance_move", at=8.0, duration=2.0),
+            Fault("leader_kill", at=11.0, duration=1.5,
+                  targets=(rng.choice(sample),)),
+        ])
+        res["plan"] = nemesis.plan.describe()
+        budget = LatencyBudget(election_window=0.8, bootstrap=1.0,
+                               floor=2.0, cap=60.0)
+        clients = [AuditClient(lambda: nhs, s_, rec, seed=seed, budget=budget)
+                   for s_ in sample for _ in range(2)]
+        for c in clients:
+            if not c.register():
+                raise AssertionError("an audit client failed to register")
+        # the fourth host joins before the clients' threads iterate the
+        # hosts dict; the scheduled balance_move races a move onto it
+        nhs[4] = make_nh(4)
+        balancer.join(addr[4], nhs[4])
+        threads = run_workload(clients, [f"k{i}" for i in range(4)], stop,
+                               pace=0.01)
+        t_churn = time.perf_counter()
+        t_churn_m = time.monotonic()  # the recorder's clock
+        with UtilizationSampler() as util:
+            nemesis.start()
+            if not nemesis.wait(timeout=300.0):
+                raise AssertionError("the nemesis overran its plan")
+            churn_s = time.perf_counter() - t_churn
+            time.sleep(max(0.0, t_churn + workload_s - time.perf_counter()))
+            stop.set()
+            for t in threads:
+                t.join(timeout=30.0)
+        for c in clients:
+            c.close()
+        res["workload_s_run"] = time.perf_counter() - t_churn
+        res["gpu_utilization"] = util.summary()
+        ops = rec.ops()
+        res["ops_by_status"] = rec.counts()
+        acked_w = [o for o in ops if o.kind == "w" and o.status == "ok"
+                   and t_churn_m <= o.ret <= t_churn_m + churn_s]
+        res["churn_s"] = churn_s
+        res["writes_acked_per_s_churn"] = len(acked_w) / churn_s
+        res["churn_log"] = [list(e) for e in nemesis.churn_log]
+        res["churn_violations"] = list(nemesis.churn_violations)
+        res["recovery_sla"] = RECOVERY_STATS.snapshot()
+        res["nemesis"] = dict(nemesis.stats)
+        audits = {}
+        for s_ in sample:
+            shard_ops = [o for o in ops if any(
+                c.shard_id == s_ and c.client == o.client for c in clients)]
+            journals = settle_journals(nhs, s_, timeout=60.0)
+            report = run_audit(shard_ops, journals)
+            audits[s_] = dict(ok=report.ok, ops=len(shard_ops),
+                              acked_sessions=report.sessions.acked,
+                              describe=report.describe()[:400])
+            leaks = {k: nh.pending_request_counts(s_)
+                     for k, nh in nhs.items() if s_ in nh._nodes}
+            audits[s_]["pending_requests"] = sum(
+                sum(c.values()) for c in leaks.values())
+        res["audit"] = audits
+
+        # (b) ---------------------------------------------------------
+        target = sample[0]
+        live = {addr[k]: nh for k, nh in nhs.items()}
+        gw = Gateway(live, GatewayConfig(default_timeout=8.0))
+        grec = HistoryRecorder()
+        wc, rc_ = grec.new_client(), grec.new_client()
+        gstop = threading.Event()
+        seq = [0]
+
+        def writer():
+            h = gw.connect(target, timeout=10.0)
+            while not gstop.is_set():
+                seq[0] += 1
+                val = f"w-{seq[0]}"
+                op = grec.invoke(wc, "w", "gk", val)
+                try:
+                    h.sync_propose(audit_set_cmd("gk", val))
+                    grec.ok(op)
+                except Exception:  # noqa: BLE001 — may have committed
+                    grec.ambiguous(op)
+                time.sleep(0.005)
+
+        def reader():
+            while not gstop.is_set():
+                op = grec.invoke(rc_, "stale", "gk")
+                try:
+                    grec.ok(op, gw.read(target, "gk", timeout=5.0))
+                except Exception:  # noqa: BLE001 — a failed read
+                    grec.fail(op)
+                time.sleep(0.003)
+
+        leader = leader_of(live, target, 30.0)
+        gthreads = [threading.Thread(target=writer, daemon=True),
+                    threading.Thread(target=reader, daemon=True)]
+        for t in gthreads:
+            t.start()
+        time.sleep(1.5)
+        t_kill = time.monotonic()
+        gw.remove_host(leader)
+        killed_key = next(k for k in nhs if addr[k] == leader)
+        nhs.pop(killed_key).close()
+        survivors = {a: nh for a, nh in live.items() if a != leader}
+        t1 = time.perf_counter()
+        new_leader = leader_of(survivors, target, 30.0)
+        res_b = dict(shard=target, killed_host=leader, new_leader=new_leader,
+                     reelection_s=time.perf_counter() - t1)
+        time.sleep(2.0)
+        gstop.set()
+        for t in gthreads:
+            t.join(timeout=15.0)
+        # a write through a fresh handle once the survivors lead
+        after = grec.new_client()
+        end = time.perf_counter() + 30.0
+        while True:
+            op = grec.invoke(after, "w", "gk", "after-kill")
+            try:
+                h = gw.connect(target, timeout=5.0)
+                h.sync_propose(audit_set_cmd("gk", "after-kill"), timeout=5.0)
+                grec.ok(op)
+                break
+            except Exception:  # noqa: BLE001 — may have committed; retry
+                grec.ambiguous(op)
+                if time.perf_counter() > end:
+                    break
+                time.sleep(0.2)
+        res_b["write_after_kill_s"] = time.perf_counter() - t1
+        gops = grec.ops()
+        res_b["ops_by_status"] = grec.counts()
+        res_b["reads_ok"] = sum(1 for o in gops if o.kind == "stale"
+                                and o.status == "ok")
+        res_b["writes_ok_after_kill"] = sum(
+            1 for o in gops if o.kind == "w" and o.status == "ok"
+            and o.invoke > t_kill)
+        res_b["stale_violations"] = [v.describe()
+                                     for v in check_stale_reads(gops)]
+        res_b["gateway"] = {k: v for k, v in gw.stats().items()
+                            if isinstance(v, (int, float))}
+        res["gateway_leg"] = res_b
+        launches = dict(_native.LAUNCHES)
+        entry_launches = dict(_native.ENTRY_LAUNCHES)
+        st = group.core.stats_snapshot()
+        parity_failure = group.core.parity_failure
+        engine_errors = list(errors_logged.lines)
+    finally:
+        stop.set()
+        engine_log.removeHandler(errors_logged)
+        nemesis.stop()
+        if balancer is not None:
+            balancer.stop()
+        if gw is not None:
+            gw.close()
+        for nh in nhs.values():
+            nh.pause_ticks()
+        for nh in nhs.values():
+            nh.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    keys = ("launches", "device_steps", "device_rows_stepped",
+            "host_rows_stepped", "escalations", "divergence_halts",
+            "routed_delivered", "routed_host_carried", "routed_dropped",
+            "parity_failures")
+    res["engine"] = {k: st.get(k, 0) for k in keys}
+    res["rows_off_card"] = {k: st[k] for k in sorted(st)
+                            if k.startswith("evict_")}
+    res["parity"] = {
+        k: [st[f"parity_attempts_{k}"], st[f"parity_checks_{k}"]]
+        for k in COLO_PARITY_KERNELS
+    }
+    res["kernel_launches"] = launches
+    res["entry_launches"] = entry_launches
+    res["engine_errors"] = len(engine_errors)
+    # the gates, every one fatal; the phase's numbers go to stderr first
+    kinds = {e[1] for e in nemesis.churn_log}
+    failed = [msg for bad, msg in (
+        ([s_ for s_, a in audits.items() if not a["ok"]],
+         "the audit failed on a sampled shard"),
+        (not any(a["acked_sessions"] > 0 for a in audits.values()),
+         "no session proposal was acknowledged"),
+        (res["churn_violations"], "churn events missed their recovery SLA"),
+        ({"leader_kill", "leader_transfer", "member_cycle",
+          "balance_move"} - kinds, "a churn kind never ran"),
+        (nemesis.stats.get("engine_escalations", 0) < 1,
+         "no kernel escalation was forced"),
+        (st["divergence_halts"], "divergence halts"),
+        ([s_ for s_, a in audits.items() if a["pending_requests"]],
+         "pending request futures leaked"),
+        (res_b["stale_violations"], "the gateway served a stale read"),
+        (res_b["reads_ok"] <= 20, "too few gateway reads succeeded"),
+        (res_b["gateway"].get("lease_reads", 0) < 1,
+         "no gateway read took the lease path"),
+        (res_b["writes_ok_after_kill"] < 1,
+         "no write committed after the leader's host was killed"),
+        (parity_failure is not None or st["parity_failures"],
+         f"parity failures; first: {parity_failure}"),
+        (engine_errors, f"the engine's workers logged errors: "
+                        f"{engine_errors[:1]}"),
+        ([k for k, (begun, passed) in res["parity"].items()
+          if passed < 1 or passed != begun], "a parity check did not pass"),
+        ([k for k in AUDIT_KERNELS if launches.get(k, 0) < 1],
+         "a kernel never launched on the audited path"),
+    ) if bad]
+    if failed:
+        print(json.dumps(dict(phase="audit", failed=failed, **res),
+                         default=str), file=sys.stderr, flush=True)
+        raise AssertionError(f"audit phase: {failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the engines' mesh modes
 # ---------------------------------------------------------------------------
 MESH_BLOCKS = 4
@@ -2900,7 +3288,8 @@ def main(argv) -> int:
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
              "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
-             "colocated, mesh_engines) without the result lines; default: "
+             "colocated, mesh_engines, audit) without the result lines; "
+             "default: "
              "all",
     )
     args = ap.parse_args(argv)
@@ -2966,6 +3355,9 @@ def main(argv) -> int:
     if want("mesh_engines"):
         mesh = run("mesh_engines", mesh_engines_phase, dev,
                    os.path.join(scratch, f"mesh-{os.getpid()}"))
+    if want("audit"):
+        aud = run("audit", audit_phase, dev,
+                  os.path.join(scratch, f"audit-{os.getpid()}"))
     if only:
         print(f"chip_smoke: ran {sorted(only)} in "
               f"{time.perf_counter() - t_all:.1f} s {phase_s}",
@@ -3102,6 +3494,7 @@ def main(argv) -> int:
     for row in rows:
         row["launches_mesh_colocated"] = m_colo.get(row["name"], 0)
         row["launches_mesh_nodehost"] = m_nh.get(row["name"], 0)
+        row["launches_audit"] = aud["kernel_launches"].get(row["name"], 0)
         if row["name"] == "xlane_pack":
             pk = mesh["pack"]
             row["colocated_operands"] = dict(

@@ -1,8 +1,9 @@
 """Import rule and drift guard of the PyTorch port.
 
 * ``import dragonboat_tpu_torch`` plus its ``nodehost``, ``ops.engine``,
-  ``ops.kernel``, ``ops.placement``, ``ops.route``, ``ops.colocated``
-  and ``storage.tan`` loads no ``jax*`` and no ``dragonboat_tpu`` module
+  ``ops.kernel``, ``ops.placement``, ``ops.route``, ``ops.colocated``,
+  ``storage.tan``, ``faults``, ``audit``, ``balance``, ``gateway`` and
+  ``gateway.rpc`` loads no ``jax*`` and no ``dragonboat_tpu`` module
   (in a fresh interpreter);
 * no file under ``dragonboat_tpu_torch/`` imports ``jax`` or anything of
   ``dragonboat_tpu``;
@@ -47,6 +48,12 @@ CARRIED = (
     "tools",
     "ops/hostplane",
     "native/__init__",
+    "faults",
+    "audit/model", "audit/history", "audit/checker", "audit/__init__",
+    "balance/view", "balance/planner", "balance/executor", "balance/balancer",
+    "balance/__init__",
+    "gateway/admission", "gateway/routing", "gateway/gateway", "gateway/rpc",
+    "gateway/__init__",
 )
 
 # carried files that are not Python modules (byte for byte)
@@ -66,6 +73,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import dragonboat_tpu_torch.ops.route\n"
         "import dragonboat_tpu_torch.ops.colocated\n"
         "import dragonboat_tpu_torch.storage.tan\n"
+        "import dragonboat_tpu_torch.faults, dragonboat_tpu_torch.audit\n"
+        "import dragonboat_tpu_torch.balance, dragonboat_tpu_torch.gateway\n"
+        "import dragonboat_tpu_torch.gateway.rpc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'dragonboat_tpu' or m.startswith('dragonboat_tpu.'))\n"

@@ -23,6 +23,7 @@ from __future__ import annotations
 import io
 import os
 import random
+import re
 import sys
 import threading
 import time
@@ -56,12 +57,42 @@ from test_torch_engine import (
 TESTS = Path(__file__).resolve().parent
 
 
-def load_on_port(filename: str, name: str) -> types.ModuleType:
-    """A test helper module of the reference's suite, executed from its
-    source with every ``dragonboat_tpu`` import taken from the port."""
+_SIBLING = re.compile(r"^(\s*)from (test_\w+|raft_harness) import", re.M)
+
+
+def load_on_port(filename: str, name: str, *, port: bool = True,
+                 tag: str = "", replace=()) -> types.ModuleType:
+    """A module of the reference's suite, executed from its source with
+    every ``dragonboat_tpu`` import taken from the port (``port=False``
+    keeps the reference's, for a side-by-side run of the same source).
+
+    ``replace`` holds ``(old, new, count)`` edits made first, each of
+    which must occur exactly ``count`` times.  With a ``tag``, the
+    module's ``/tmp/nh-`` directories become ``/tmp/nh-<tag>-`` (so a
+    run never shares a directory with the reference's own test, which
+    may run at the same time in another worker), and every sibling
+    module it imports (``test_*``, ``raft_harness``) is loaded the same
+    way as ``<tag>_<module>``."""
+    if name in sys.modules:
+        return sys.modules[name]
     src = (TESTS / filename).read_text()
-    src = src.replace("from dragonboat_tpu.", "from dragonboat_tpu_torch.")
-    assert "dragonboat_tpu." not in src.replace("dragonboat_tpu_torch.", "")
+    for old, new, count in replace:
+        assert src.count(old) == count, (filename, old, src.count(old))
+        src = src.replace(old, new)
+    if port:
+        src = re.sub(r"\b(from|import) dragonboat_tpu\b",
+                     r"\1 dragonboat_tpu_torch", src)
+        assert not re.search(r"^\s*(from|import)\s.*\bdragonboat_tpu\b"
+                             r"(?!_torch)", src, re.M), filename
+    if tag:
+        src = src.replace("/tmp/nh-", f"/tmp/nh-{tag}-")
+
+        def sibling(m):
+            dep = f"{tag}_{m.group(2)}"
+            load_on_port(f"{m.group(2)}.py", dep, port=port, tag=tag)
+            return f"{m.group(1)}from {dep} import"
+
+        src = _SIBLING.sub(sibling, src)
     mod = types.ModuleType(name)
     mod.__file__ = str(TESTS / filename)
     sys.modules[name] = mod
