@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only mesh_kernels,phase_a,multichip
     python3 chip_smoke.py --only mesh_engines
     python3 chip_smoke.py --only audit
+    python3 chip_smoke.py --only registry,day
 
 Phases, each printing one JSON line:
 
@@ -116,6 +117,26 @@ Phases, each printing one JSON line:
                drives one sampled shard (lease reads recorded as stale
                ops), its leader's host is killed, and no stale read, a new
                leader and a write after the kill are required.
+11. registry — every entry of the port's program registry
+               (dragonboat_tpu_torch/ops/registry.py, the reference's 21
+               program names) at its canonical geometry, held bit-exact on
+               the card against its plain version; the mesh pair on
+               ``GroupsMesh([cuda:0] * 4)``; each entry launches exactly the
+               bindings it names, and no binding or ``__global__`` under
+               csrc/ is left unreached.
+12. day      — the reference's tier-1 production day
+               (tests/test_scenario.py:455-517) on the port:
+               ``ScenarioRunner(DayPlan.mini(11), colocated=True)``, six
+               hosts, an on-disk and an in-memory shard, a witness, a
+               non-voting laggard, every disturbance class, the DR cycle and
+               the elastic loop, with host h2's replicas stepping on ONE
+               ``ColocatedEngineGroup(**COLO_GEOM)`` on the card (parity
+               self-check every 20th launch); the reference's gates, the
+               colocated path's every kernel launched (read from the
+               registry); then that member's whole-host kill and restart
+               onto the live group (seed 5) and ``run_rpc_smoke(n=2)``
+               through the port's worker processes; a line with the day's
+               ledger and the card's name and power limit.
 Each path's kernel launch counts are reset just before it and read just
 after; every kernel of the path must have run.  The engines re-run some
 launches (and every row move) through the plain versions: every such
@@ -148,142 +169,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-# ---------------------------------------------------------------------------
-# kernel-phase inputs: a seeded 3-replica cluster per group of rows
-# ---------------------------------------------------------------------------
-def cluster_state_np(G: int, P_: int, W_: int, seed: int) -> dict:
-    """Rows 3s, 3s+1, 3s+2 are replicas 1, 2, 3 of shard s+1; a third of
-    the shards run pre-vote, a third check-quorum."""
-    from dragonboat_tpu_torch.ops import types as T
-
-    if G % 3:
-        raise ValueError("G must be a multiple of 3")
-    shard = np.arange(G) // 3 + 1
-    rid = np.arange(G) % 3 + 1
-    peers = np.zeros((G, P_), np.int32)
-    peers[:, :3] = [1, 2, 3]
-    cols = T.make_state_np(
-        G, P_, W_, shard_ids=shard, replica_ids=rid, peer_ids=peers,
-        election_timeout=10, heartbeat_timeout=2,
+try:
+    # the seeded kernel-phase inputs (main() says so where the port is
+    # not importable)
+    from dragonboat_tpu_torch.ops.fuzz import (
+        cluster_state_np, fuzz_inbox_np, padded_cluster_np, route_np,
     )
-    rng = np.random.default_rng(seed)
-    cols["pre_vote"] = (shard % 3 == 1).astype(np.int32)
-    cols["check_quorum"] = (shard % 3 == 2).astype(np.int32)
-    # spread the first elections out
-    cols["election_tick"] = rng.integers(0, 10, G).astype(np.int32)
-    return cols
-
-
-def padded_cluster_np(G: int, P_: int, W_: int, seed: int) -> dict:
-    """``cluster_state_np`` on the first G - G % 3 rows, then empty rows
-    (no peers), as the unused capacity of an engine holds them."""
-    from dragonboat_tpu_torch.ops import types as T
-
-    live = G - G % 3
-    cols = cluster_state_np(live, P_, W_, seed)
-    if live == G:
-        return cols
-    z = np.zeros((G - live,), np.int32)
-    pad = T.make_state_np(G - live, P_, W_, shard_ids=z, replica_ids=z,
-                          peer_ids=np.zeros((G - live, P_), np.int32))
-    return {k: np.concatenate([cols[k], pad[k]]) for k in cols}
-
-
-def route_np(st: dict, out: dict, rng, M_: int, E_: int, *,
-             tick_p: float = 0.6, prop_p: float = 0.1) -> dict:
-    """Turn one step's outboxes into the next step's inboxes: every
-    message goes to its destination replica's row in the same group, in
-    source order, after an optional tick in slot 0; the last slot may
-    carry a fresh proposal.  REPLICATE entries carry the sender's ring
-    terms."""
-    from dragonboat_tpu_torch.ops import types as T
-
-    buf, count = out["buf"], out["count"]
-    G, O_, _ = buf.shape
-    W_ = st["ring_term"].shape[1]
-    rid = np.arange(G) % 3 + 1
-    to = buf[..., T.F_TO]
-    mt = buf[..., T.F_MTYPE]
-    live = np.arange(O_)[None, :] < count[:, None]
-    self_resp = (mt == T.MT_READ_INDEX_RESP) & (to == rid[:, None])
-    ok = live & ~self_resp & (to >= 1) & (to <= 3)
-    sg, sk = np.nonzero(ok)
-    dest = 3 * (sg // 3) + to[sg, sk] - 1
-    order = np.argsort(dest, kind="stable")
-    sg, sk, dest = sg[order], sk[order], dest[order]
-    ib = {f: np.zeros((G, M_), np.int32) for f in (
-        "mtype", "from_id", "term", "log_term", "log_index", "commit",
-        "reject", "hint", "hint_high", "n_entries")}
-    ib["ent_term"] = np.zeros((G, M_, E_), np.int32)
-    ib["ent_cc"] = np.zeros((G, M_, E_), np.int32)
-    tick = rng.random(G) < tick_p
-    ib["mtype"][tick, 0] = T.MT_TICK
-    ib["log_index"][tick, 0] = 1
-    first = tick.astype(np.int64)
-    start = np.searchsorted(dest, dest, side="left")
-    slot = first[dest] + (np.arange(dest.size) - start)
-    keep = slot < M_ - 1
-    sg, sk, dest, slot = sg[keep], sk[keep], dest[keep], slot[keep]
-    rec = buf[sg, sk]
-    for f, col in (("mtype", T.F_MTYPE), ("term", T.F_TERM),
-                   ("log_term", T.F_LOG_TERM), ("log_index", T.F_LOG_INDEX),
-                   ("commit", T.F_COMMIT), ("reject", T.F_REJECT),
-                   ("hint", T.F_HINT), ("hint_high", T.F_HINT_HIGH),
-                   ("n_entries", T.F_N_ENTRIES)):
-        ib[f][dest, slot] = rec[:, col]
-    ib["from_id"][dest, slot] = rid[sg]
-    rep = rec[:, T.F_MTYPE] == T.MT_REPLICATE
-    for j in range(E_):
-        has = rep & (rec[:, T.F_N_ENTRIES] > j)
-        pos = (rec[:, T.F_LOG_INDEX] + 1 + j) & (W_ - 1)
-        ib["ent_term"][dest[has], slot[has], j] = st["ring_term"][sg[has], pos[has]]
-        ib["ent_cc"][dest[has], slot[has], j] = st["ring_cc"][sg[has], pos[has]]
-    prop = rng.random(G) < prop_p
-    ib["mtype"][prop, M_ - 1] = T.MT_PROPOSE
-    ib["n_entries"][prop, M_ - 1] = rng.integers(1, E_ + 1, int(prop.sum()))
-    ib["ent_cc"][prop, M_ - 1] = (rng.random((int(prop.sum()), E_)) < 0.05)
-    return ib
-
-
-def fuzz_inbox_np(st: dict, rng, M_: int, E_: int) -> dict:
-    """Seeded inboxes over every hot message type, with fields near each
-    row's own state (terms, indexes) so every handler branch is reached."""
-    from dragonboat_tpu_torch.ops import types as T
-
-    G = st["term"].shape[0]
-    hot = np.asarray(T.HOT_TYPES, np.int32)
-    occ = rng.random((G, M_)) < 0.6
-    ib = {}
-    ib["mtype"] = np.where(occ, hot[rng.integers(0, hot.size, (G, M_))], 0)
-    # a few cold types: the row must escalate
-    cold = occ & (rng.random((G, M_)) < 0.02)
-    ib["mtype"][cold] = T.MT_INSTALL_SNAPSHOT
-    ib["mtype"] = ib["mtype"].astype(np.int32)
-
-    def near(base, lo, hi):
-        return (base[:, None] + rng.integers(lo, hi + 1, (G, M_))).astype(np.int32)
-
-    ib["from_id"] = rng.integers(0, 4, (G, M_)).astype(np.int32)
-    ib["term"] = np.maximum(near(st["term"], -1, 1), 0)
-    ib["term"][rng.random((G, M_)) < 0.15] = 0
-    ib["log_term"] = np.maximum(near(st["term"], -1, 1), 0)
-    ib["log_index"] = np.maximum(near(st["last_index"], -3, 2), 0)
-    # some reach below the W-entry ring window
-    far = rng.random((G, M_)) < 0.1
-    ib["log_index"][far] = np.maximum(near(st["last_index"], -2 * W, -W)[far], 0)
-    ib["commit"] = np.maximum(near(st["committed"], -1, 3), 0)
-    ib["reject"] = (rng.random((G, M_)) < 0.3).astype(np.int32)
-    ib["hint"] = np.where(rng.random((G, M_)) < 0.5, 0,
-                          near(st["last_index"], -2, 2)).astype(np.int32)
-    ib["hint_high"] = (rng.random((G, M_)) < 0.2).astype(np.int32)
-    ib["n_entries"] = rng.integers(0, E_ + 1, (G, M_)).astype(np.int32)
-    tick = ib["mtype"] == T.MT_TICK
-    ib["log_index"][tick] = rng.integers(0, 4, int(tick.sum()))
-    ib["ent_term"] = np.maximum(
-        st["term"][:, None, None] + rng.integers(-1, 2, (G, M_, E_)), 1
-    ).astype(np.int32)
-    ib["ent_cc"] = (rng.random((G, M_, E_)) < 0.1).astype(np.int32)
-    return {k: np.ascontiguousarray(v, dtype=np.int32) for k, v in ib.items()}
+except ImportError:
+    pass
 
 
 # ---------------------------------------------------------------------------
@@ -2087,13 +1980,13 @@ PARITY_STATS = ("parity_step_attempts", "parity_checked_launches",
 
 
 class ErrorRecords(logging.Handler):
-    """Keeps the ERROR records of a logger.  The exec engine's step and
-    apply workers log what ``step_shards`` or an apply raises and carry
-    on, so a failed launch or parity check shows only here and in the
-    engine's counters."""
+    """Keeps the records of a logger at ``level`` and above (ERROR by
+    default).  The exec engine's step and apply workers log what
+    ``step_shards`` or an apply raises and carry on, so a failed launch
+    or parity check shows only here and in the engine's counters."""
 
-    def __init__(self):
-        super().__init__(logging.ERROR)
+    def __init__(self, level=logging.ERROR):
+        super().__init__(level)
         self.lines = []
 
     def emit(self, record):
@@ -2353,7 +2246,7 @@ def nodehost_phase(dev, workdir: str, shards: int = SHARDS,
         if res[passed] < 1 or res[passed] != res[begun]:
             raise AssertionError(
                 f"parity: {res[passed]} of {res[begun]} {begun} passed")
-    idle = [k for k in KERNEL_INFO if launches[k] < 1]
+    idle = [k for k in nodehost_path_kernels() if launches[k] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     if len(acked) < 1 or (not window_s and len(acked) != shards * writes):
@@ -2860,7 +2753,6 @@ AUDIT_RTT_MS = 40  # the reference's: 768 rows' boot storm inside the window
 AUDIT_WORKLOAD_S = 30.0
 # test_chaos_colocated.py's forced-escalation window (:160, :181)
 AUDIT_ESCALATE_P, AUDIT_ESCALATE_S = 0.08, 4.0
-AUDIT_KERNELS = COLO_PARITY_KERNELS + ("place_rows",)
 
 
 def audit_phase(dev, workdir: str, shards: int = AUDIT_SHARDS,
@@ -3210,7 +3102,7 @@ def audit_phase(dev, workdir: str, shards: int = AUDIT_SHARDS,
                         f"{engine_errors[:1]}"),
         ([k for k, (begun, passed) in res["parity"].items()
           if passed < 1 or passed != begun], "a parity check did not pass"),
-        ([k for k in AUDIT_KERNELS if launches.get(k, 0) < 1],
+        ([k for k in colo_path_kernels() if launches.get(k, 0) < 1],
          "a kernel never launched on the audited path"),
     ) if bad]
     if failed:
@@ -3271,6 +3163,400 @@ def mesh_engines_phase(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the program registry
+# ---------------------------------------------------------------------------
+REGISTRY_SEED = 7
+
+
+def registry_phase(dev) -> dict:
+    """Every entry of the port's program registry (``ops/registry.py``:
+    the reference's 21 program names) on ``dev``, the two mesh entries on
+    ``GroupsMesh([dev] * 4)``.  On the canonical inputs (fresh rows,
+    empty inboxes: little arithmetic runs) each entry must launch every
+    binding it names and no other, bit-exact with its plain version, and
+    the source scan must find no binding or ``__global__`` that no entry
+    reaches: reachability and the launch mapping.  On the seeded live
+    inputs (``registry.live_world(REGISTRY_SEED)``: every group led,
+    logs past the ring window, every hot message type, dead rows) each
+    entry is held bit-exact against its plain version: parity."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import _native, registry
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    mesh = GroupsMesh([dev] * MESH_BLOCKS)
+    entries, failed = {}, []
+    launches = {k: 0 for k in _native.KERNELS}
+    for ep in registry.all_entry_points(mesh):
+        _native.reset_launch_counts()
+        got = registry.run(ep, dev)
+        torch.cuda.synchronize()
+        bound = dict(_native.ENTRY_LAUNCHES)
+        for k, v in _native.LAUNCHES.items():
+            launches[k] += v
+        want = registry.run(ep, dev, plain=True)
+        try:
+            err = _max_err(got, want)
+        except (AssertionError, ValueError) as exc:  # shape, dtype, count
+            err = None
+            failed.append(f"{ep.name}: {exc}")
+        got = registry.run(ep, dev, seed=REGISTRY_SEED)
+        torch.cuda.synchronize()
+        want = registry.run(ep, dev, plain=True, seed=REGISTRY_SEED)
+        try:
+            err_live = _max_err(got, want)
+        except (AssertionError, ValueError) as exc:
+            err_live = None
+            failed.append(f"{ep.name} live: {exc}")
+        entries[ep.name] = dict(max_abs_err=err, live_max_abs_err=err_live,
+                                outputs=len(got), bindings=bound)
+        if err:
+            failed.append(f"{ep.name}: max abs err {err}")
+        if err_live:
+            failed.append(f"{ep.name} live: max abs err {err_live}")
+        if set(bound) != set(ep.bindings):
+            failed.append(f"{ep.name}: launched {sorted(bound)}, registered "
+                          f"{sorted(ep.bindings)}")
+    failed += registry.unregistered_kernels()
+    res = dict(entries=entries, n_entries=len(entries), launches=launches,
+               kernels=list(registry.kernels()), canon=registry.CANON,
+               mesh_blocks=MESH_BLOCKS, live_seed=REGISTRY_SEED)
+    if len(entries) != 21:
+        failed.append(f"{len(entries)} registry entries, not 21")
+    if set(res["kernels"]) != set(_native.KERNELS):
+        failed.append("the registry's kernels are not the build's")
+    if failed:
+        print(json.dumps(dict(phase="registry", failed=failed, **res),
+                         default=str), file=sys.stderr, flush=True)
+        raise AssertionError(f"registry phase: {failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the production day
+# ---------------------------------------------------------------------------
+DAY_SEED = 11  # the reference's tier-1 mini day (tests/test_scenario.py:468)
+DAY_COLO_SEED = 5  # TestColocatedFleetMember's fleet (:539)
+DAY_RPC_BASE_PORT = 31350
+# a failed day runs once more only when nothing of it points at the
+# colocated member (day_colo_suspect)
+DAY_TRIES = 2
+# the colocated member's programs (registry names): its kernels are the
+# ones the day must have launched
+COLO_PATH_ENTRIES = ("colocated._assemble_and_step", "colocated._route_step",
+                     "colocated._select_and_blob",
+                     "colocated._host_inbox_from_ticks",
+                     "colocated._scatter_inbox_rows")
+
+
+# the base engine's programs (a step, the flag word, the readback, the
+# row moves)
+NODEHOST_PATH_ENTRIES = ("kernel.step", "engine._summarize_flags",
+                         "engine._gather_detail_vals", "engine._scatter_rows")
+
+
+def colo_path_kernels() -> tuple:
+    """The colocated path's kernels, read from the program registry."""
+    from dragonboat_tpu_torch.ops import registry
+
+    return registry.kernels_of(COLO_PATH_ENTRIES)
+
+
+def nodehost_path_kernels() -> tuple:
+    """The base engine's kernels, read from the program registry."""
+    from dragonboat_tpu_torch.ops import registry
+
+    return registry.kernels_of(NODEHOST_PATH_ENTRIES)
+
+
+def day_gates(r, classes) -> list:
+    """The reference's mini-day gates (tests/test_scenario.py:468-517)
+    and the runner's device checks, each a message where it fails."""
+    names = [p["name"] for p in r.phases]
+    ph = {p["name"]: p for p in r.phases}
+    sc, rh = ph.get("stream_chaos", {}), ph.get("read_hot", {})
+    wh, di, el = (ph.get("write_hot", {}), ph.get("diurnal", {}),
+                  ph.get("elastic", {}))
+    paths = rh.get("read_paths", {})
+    try:
+        rt = json.loads(r.to_json())["ok"] is True
+    except Exception:  # noqa: BLE001 — a report that does not round-trip
+        rt = False
+    return [msg for bad, msg in (
+        (not r.ok, f"the day failed: {r.aborted} {r.violations[:3]}"),
+        (set(r.disturbances_fired) != set(classes)
+         or not all(n >= 1 for n in r.disturbances_fired.values()),
+         "a disturbance class never fired"),
+        (not r.audit.get("ok") or r.audit.get("ops", {}).get("ok", 0) <= 200,
+         "the audit is not green over > 200 ok ops"),
+        (not r.recovery or any(c["violations"] for c in r.recovery.values()),
+         "a recovery missed its SLA"),
+        (not {"rolling_restart", "dr_cycle", "drain", "stream_chaos"}
+         <= set(r.recovery), "a recovery class is missing"),
+        (set(r.fault_dips) != set(classes)
+         or not all(0 < d for d in r.fault_dips.values()),
+         "a dip entry is missing"),
+        (r.baseline_committed_per_s <= 10, "baseline under 10 committed/s"),
+        (not names or names[0] != "warmup" or names[-1] != "cooldown",
+         "the phases do not run warmup to cooldown"),
+        (sc.get("stream_kills") and sc.get("stream_resumes", 0) < 1,
+         "a killed stream never resumed"),
+        (paths.get("follower", 0) < 1 or paths.get("bounded", 0) < 1
+         or rh.get("reads", 0) < paths.get("follower", 0)
+         or rh.get("hot_key_reads", 0) < 1, "the read-hot storm"),
+        (wh.get("writes", 0) < 1 or wh.get("hot_key_writes", 0) < 1,
+         "the write-hot storm"),
+        (di.get("writes", 0) < 1 or di.get("peak_committed_per_s", 0)
+         < di.get("trough_committed_per_s", 0), "the diurnal swing"),
+        (el.get("events", 0) < 1 or not el.get("moves")
+         or el.get("quiet_moves", 1) != 0
+         or not el.get("p99_after_s", 1) < el.get("p99_storm_s", 0)
+         or el.get("writes", 0) < 1, "the elastic loop's move"),
+        (not rt or "comm/s" not in r.format_table(), "the report's emit"),
+        (not r.colocated.get("device_rows_stepped", 0),
+         "the colocated member never stepped on the device path"),
+        (r.colocated.get("divergence_halts", 0), "divergence halts"),
+    ) if bad]
+
+
+def day_colo_state(runner) -> tuple:
+    """(the day's colocated groups, the first parity failure, the first
+    group's counters), read once the fleet has closed, under the core's
+    lock (the report's copy is read mid-run, where a check can sit
+    between its attempt and its pass)."""
+    groups = [g for g in runner.fleet._colo_groups.values()
+              if g.core is not None]
+    failure = next((g.core.parity_failure for g in groups
+                    if g.core.parity_failure), None)
+    pst = groups[0].core.stats_snapshot() if groups else {}
+    return groups, failure, pst
+
+
+def day_colo_suspect(runner, r, warnings) -> list:
+    """What in a failed day points at the colocated member: its host
+    (address or NodeHost ID) in the abort, the violations, the elastic
+    phase's record or the balancer's warnings (a move from or onto it
+    that failed), a parity failure, or a divergence halt.  Such a day is
+    not run again."""
+    from dragonboat_tpu_torch.scenario import fleet as F
+
+    addr = runner.fleet.addrs[F.COLO_SLOT]
+    nh = runner.fleet.hosts.get(addr)
+    keys = {addr} | ({nh.nodehost_id} if getattr(nh, "nodehost_id", None)
+                     else set())
+    elastic = next((p for p in r.phases if p.get("name") == "elastic"), {})
+    found = []
+    for what, text in (("aborted", r.aborted), ("violations", r.violations),
+                       ("elastic", elastic), ("balancer", warnings)):
+        blob = json.dumps(text, default=str)
+        found += [f"{k} in the {what}" for k in sorted(keys) if k in blob]
+    _groups, failure, pst = day_colo_state(runner)
+    if failure is not None or pst.get("parity_failures", 0):
+        found.append(f"a parity failure: {failure}")
+    if r.colocated.get("divergence_halts", 0):
+        found.append("a divergence halt")
+    return found
+
+
+def day_phase(dev, workdir: str) -> dict:
+    """(a) The reference's tier-1 production day on the port:
+    ``ScenarioRunner(DayPlan.mini(11), colocated=True)`` — six hosts, an
+    on-disk and an in-memory shard, a witness, a non-voting laggard, the
+    gateway's live traffic, every disturbance class, the DR boundary and
+    the elastic loop — with the colocated member (host h2, both shards)
+    stepping on ONE ``ColocatedEngineGroup(**COLO_GEOM)`` on the card
+    (the fleet's geometry, the parity self-check armed every 20th
+    launch); the reference's gates (tests/test_scenario.py:468-517), the
+    runner's device checks, every kernel of the colocated path launched
+    and every parity check begun passed.  (b) The colocated member's
+    whole-host kill and restart (``TestColocatedFleetMember``, seed 5):
+    the restarted host re-attaches to the live group, the SLA holds,
+    writes after the restart are read back through the gateway.  (c)
+    ``run_rpc_smoke(n=2)`` through the port's worker processes."""
+    import gc
+    import shutil
+
+    from dragonboat_tpu_torch import RECOVERY_STATS, assert_recovery_sla
+    from dragonboat_tpu_torch.audit import audit_set_cmd
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.ops import _native
+    from dragonboat_tpu_torch.scenario import (
+        DISTURBANCE_CLASSES, DayPlan, ScenarioRunner,
+    )
+    from dragonboat_tpu_torch.scenario import fleet as F
+    from dragonboat_tpu_torch.scenario.multiproc import run_rpc_smoke
+    from dragonboat_tpu_torch.scenario.plan import SH_MEM
+
+    kernels = colo_path_kernels()
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    balance_warned = ErrorRecords(logging.WARNING)
+    balance_log = get_logger("balance")
+    balance_log.addHandler(balance_warned)
+    saved_geom = dict(F.COLO_GEOM)
+    F.COLO_GEOM["parity_every"] = COLO_PARITY_EVERY
+    res = dict(seed=DAY_SEED, geometry=saved_geom,
+               parity_every=COLO_PARITY_EVERY, colo_slot=F.COLO_SLOT,
+               path_kernels=list(kernels), reduced=[])
+    failed = []
+    try:
+        # (a) ---------------------------------------------------------
+        # a failed day runs once more after the process settles, as the
+        # reference's tier-1 gate does (tests/conftest.py,
+        # flaky_isolated), unless something of it points at the
+        # colocated member; the gates hold the last day, every day is
+        # reported (on the day_report line too)
+        res["attempts"] = []
+        for attempt in range(DAY_TRIES):
+            RECOVERY_STATS.reset()
+            del balance_warned.lines[:]
+            runner = ScenarioRunner(DayPlan.mini(DAY_SEED),
+                                    tag=f"chipday{attempt}",
+                                    workdir=workdir, colocated=True)
+            _native.reset_launch_counts()
+            t0 = time.perf_counter()
+            with UtilizationSampler() as util:
+                r = runner.run()
+            gates = day_gates(r, DISTURBANCE_CLASSES)
+            suspect = (day_colo_suspect(runner, r, balance_warned.lines)
+                       if gates else [])
+            res["attempts"].append(dict(
+                gates_failed=gates, colo_suspect=suspect, aborted=r.aborted,
+                violations=r.violations[:3],
+                balancer_warnings=balance_warned.lines[:5],
+                day_s=time.perf_counter() - t0))
+            if not gates or suspect:
+                break
+            gc.collect()
+            time.sleep(1.5)
+        res["day_s"] = res["attempts"][-1]["day_s"]
+        launches = dict(_native.LAUNCHES)
+        res["kernel_launches"] = launches
+        res["entry_launches"] = dict(_native.ENTRY_LAUNCHES)
+        groups, parity_failure, pst = day_colo_state(runner)
+        st = r.colocated
+        res["parity"] = {
+            k: [pst.get(f"parity_attempts_{k}", 0),
+                pst.get(f"parity_checks_{k}", 0)]
+            for k in COLO_PARITY_KERNELS}
+        res["utilization"] = util.summary()
+        res["report"] = json.loads(r.to_json())
+        res["report"].pop("timeline", None)
+        failed += gates
+        failed += [f"the colocated member is suspect: {a['colo_suspect']}"
+                   for a in res["attempts"] if a["colo_suspect"]]
+        failed += [msg for bad, msg in (
+            (len(groups) != 1, f"{len(groups)} colocated groups, not 1"),
+            ([k for k in kernels if launches.get(k, 0) < 1],
+             "a kernel of the colocated path never launched"),
+            ([k for k, (begun, passed) in res["parity"].items()
+              if passed != begun], "a parity check did not pass"),
+            (sum(b for b, _ in res["parity"].values()) < 1,
+             "no parity check was begun"),
+            (parity_failure is not None or pst.get("parity_failures", 0),
+             f"parity failures; first: {parity_failure}"),
+        ) if bad]
+        res["ledger"] = dict(
+            baseline_committed_per_s=r.baseline_committed_per_s,
+            fault_dips=r.fault_dips,
+            worst_recovery_s={c: v["worst_s"]
+                              for c, v in sorted(r.recovery.items())},
+            audit=dict(ok=r.audit.get("ok"), ops=r.audit.get("ops")),
+            device_rows_stepped=st.get("device_rows_stepped", 0),
+            host_rows_stepped=st.get("host_rows_stepped", 0),
+            utilization_gpu_mean_pct=res["utilization"]["mean_pct"],
+            day_s=res["day_s"],
+            attempts=[dict(gates_failed=a["gates_failed"],
+                           colo_suspect=a["colo_suspect"])
+                      for a in res["attempts"]])
+
+        # (b) ---------------------------------------------------------
+        RECOVERY_STATS.reset()
+        _native.reset_launch_counts()
+        fleet = F.DayFleet(seed=DAY_COLO_SEED, tag="chipcolo",
+                           colocated=True, workdir=workdir)
+        kill = {}
+        try:
+            t0 = time.perf_counter()
+            fleet.build()
+            gw = fleet.gateway
+            h = gw.connect(SH_MEM, timeout=20.0)
+            for i in range(10):
+                h.sync_propose(audit_set_cmd(f"c{i}", str(i)), timeout=5.0)
+            addr = fleet.addrs[F.COLO_SLOT]
+            group = fleet._colo_group(F.COLO_SLOT)
+            fleet.kill(addr)
+            assert_recovery_sla(
+                fleet.hosts_holding(SH_MEM), SH_MEM, sla_ticks=15_000,
+                cmd=fleet.sla_cmd(), fault_class="colo_kill")
+            fleet.restart(addr)
+            deadline = time.time() + 30.0
+            while time.time() < deadline:
+                if fleet.hosts[addr]._nodes.get(SH_MEM) is not None:
+                    break
+                time.sleep(0.2)
+            kill["rejoined"] = fleet.hosts[addr]._nodes.get(SH_MEM) is not None
+            kill["same_group"] = fleet._colo_group(F.COLO_SLOT) is group
+            core = group.core
+            with core._lock:
+                kill["restarted_rows_on_group"] = sorted(
+                    k for k, g in core._row_of.items()
+                    if k[0] == SH_MEM and core._meta.get(g) is not None)
+                rows_at_restart = core.stats["device_rows_stepped"]
+            for i in range(10, 20):
+                h.sync_propose(audit_set_cmd(f"c{i}", str(i)), timeout=5.0)
+            kill["read_back"] = gw.read(SH_MEM, "c19", timeout=5.0)
+            st_b = fleet.colo_stats()
+            kill["rows_after_restart"] = (core.stats[
+                "device_rows_stepped"] - rows_at_restart)
+            kill["device_rows_stepped"] = st_b.get("device_rows_stepped", 0)
+            kill["divergence_halts"] = st_b.get("divergence_halts", 0)
+            kill["recovery"] = RECOVERY_STATS.snapshot()
+            kill["kernel_launches"] = dict(_native.LAUNCHES)
+            kill["s"] = time.perf_counter() - t0
+        finally:
+            fleet.close()
+        res["colo_kill"] = kill
+        failed += [msg for bad, msg in (
+            (not kill["rejoined"], "the restarted host never rejoined"),
+            (not kill["same_group"], "the restarted host left the group"),
+            (not kill["restarted_rows_on_group"],
+             "no replica of the restarted host is attached to the group"),
+            (kill["read_back"] != "19", "a write after the restart was lost"),
+            (kill["rows_after_restart"] < 1,
+             "the group stepped no row after the restart"),
+            (kill["divergence_halts"], "divergence halts after the restart"),
+        ) if bad]
+
+        # (c) ---------------------------------------------------------
+        t0 = time.perf_counter()
+        out = run_rpc_smoke(n=2, workdir=os.path.join(workdir, "rpc"),
+                            base_port=DAY_RPC_BASE_PORT)
+        res["rpc_smoke"] = dict(out, s=time.perf_counter() - t0)
+        if out["committed"] != 8 or not out["rerouted"]:
+            failed.append(f"the rpc smoke: {out}")
+        res["engine_errors"] = list(errors_logged.lines)[:5]
+        if errors_logged.lines:
+            failed.append(f"the engine's workers logged errors: "
+                          f"{errors_logged.lines[:1]}")
+    finally:
+        engine_log.removeHandler(errors_logged)
+        balance_log.removeHandler(balance_warned)
+        F.COLO_GEOM.clear()
+        F.COLO_GEOM.update(saved_geom)
+        RECOVERY_STATS.reset()
+        shutil.rmtree(workdir, ignore_errors=True)
+    if failed:
+        print(json.dumps(dict(phase="day", failed=failed, **res),
+                         default=str), file=sys.stderr, flush=True)
+        raise AssertionError(f"day phase: {failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def main(argv) -> int:
@@ -3288,7 +3574,8 @@ def main(argv) -> int:
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
              "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
-             "colocated, mesh_engines, audit) without the result lines; "
+             "colocated, mesh_engines, audit, registry, day) without the "
+             "result lines; "
              "default: "
              "all",
     )
@@ -3358,6 +3645,12 @@ def main(argv) -> int:
     if want("audit"):
         aud = run("audit", audit_phase, dev,
                   os.path.join(scratch, f"audit-{os.getpid()}"))
+    if want("registry"):
+        reg = run("registry", registry_phase, dev)
+    if want("day"):
+        day = run("day", day_phase, dev,
+                  os.path.join(scratch, f"day-{os.getpid()}"))
+        emit(dict(day_report=day["ledger"], card=smi))
     if only:
         print(f"chip_smoke: ran {sorted(only)} in "
               f"{time.perf_counter() - t_all:.1f} s {phase_s}",
@@ -3495,6 +3788,8 @@ def main(argv) -> int:
         row["launches_mesh_colocated"] = m_colo.get(row["name"], 0)
         row["launches_mesh_nodehost"] = m_nh.get(row["name"], 0)
         row["launches_audit"] = aud["kernel_launches"].get(row["name"], 0)
+        row["launches_day"] = day["kernel_launches"].get(row["name"], 0)
+        row["launches_registry"] = reg["launches"].get(row["name"], 0)
         if row["name"] == "xlane_pack":
             pk = mesh["pack"]
             row["colocated_operands"] = dict(
@@ -3507,6 +3802,12 @@ def main(argv) -> int:
                 library_ms=pk["library_ms"], split=pk["split"],
                 without_operands=pk["without_operands"])
             row["max_abs_err"] = max(row["max_abs_err"], pk["max_abs_err"])
+    # the line lists the registry's kernels, each once
+    if sorted(r_["name"] for r_ in rows) != sorted(reg["kernels"]):
+        print("chip_smoke: the kernels line is not the registry's: "
+              f"{[r_['name'] for r_ in rows]} {reg['kernels']}",
+              file=sys.stderr)
+        return 1
     emit({"kernels": rows, "phase_s": phase_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

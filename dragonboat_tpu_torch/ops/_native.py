@@ -8,9 +8,9 @@ rebuilds whatever source or header changed and reuses the rest.
 Building happens at first use — never at import.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrappers made, and
-``ENTRY_LAUNCHES`` the same per bound entry point (a kernel source such
-as ``inbox.cu`` has several); a run resets both to show which kernels
-its path went through.
+``ENTRY_LAUNCHES`` the same per bound entry point (a kernel such as
+``inbox`` has several, ``ENTRIES``); a run resets both to show which
+kernels its path went through.
 """
 from __future__ import annotations
 
@@ -38,6 +38,25 @@ KERNELS = {
     "select_and_blob": "select_blob.cu",
     "xlane_pack": "xlane.cu",
     "xlane_scatter": "xlane.cu",
+}
+
+# bound entry point (an m.def of bindings.cpp) -> the kernel whose
+# launch it counts as
+ENTRIES = {
+    "raft_step": "raft_step",
+    "raft_step_internal": "raft_step_internal",
+    "summarize_flags": "summarize_flags",
+    "gather_pack": "gather_pack",
+    "place_rows": "place_rows",
+    "set_remote_snapshot": "place_rows",
+    "merge_escalated": "merge_escalated",
+    "route": "route",
+    "assemble_inbox": "inbox",
+    "host_inbox_from_ticks": "inbox",
+    "zero_inbox_rows": "inbox",
+    "select_and_blob": "select_and_blob",
+    "xlane_pack": "xlane_pack",
+    "xlane_scatter": "xlane_scatter",
 }
 
 CUDA_FLAGS = (
@@ -104,11 +123,10 @@ def module():
         return _module
 
 
-def launch(kernel: str, *args, entry: str = "") -> None:
-    """Call the bound entry point ``entry`` (default: ``kernel``) with
-    ``args``, counting one launch of ``kernel``.  The binding checks the
+def launch(entry: str, *args) -> None:
+    """Call the bound entry point ``entry`` with ``args``, counting one
+    launch of it and of its kernel (``ENTRIES``).  The binding checks the
     tensors and the launch and raises on either."""
-    getattr(module(), entry or kernel)(*args)
-    LAUNCHES[kernel] += 1
-    name = entry or kernel
-    ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
+    getattr(module(), entry)(*args)
+    LAUNCHES[ENTRIES[entry]] += 1
+    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1

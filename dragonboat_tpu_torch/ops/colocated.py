@@ -227,7 +227,7 @@ def _assemble_inbox(host: Inbox, pending: Inbox, combo) -> Inbox:
     G, PB = pending.mtype.shape
     Mh, E = host.mtype.shape[1], host.ent_term.shape[2]
     flat, full = _inbox_alloc(G, PB + Mh, E, combo.device)
-    _native.launch("inbox", host, pending, combo, flat, entry="assemble_inbox")
+    _native.launch("assemble_inbox", host, pending, combo, flat)
     return full
 
 
@@ -413,7 +413,7 @@ def _zero_inbox_rows(inbox: Inbox, mask) -> Inbox:
         return colocated_ref.zero_inbox_rows(inbox, mask)
     G, M = inbox.mtype.shape
     flat, res = _inbox_alloc(G, M, inbox.ent_term.shape[2], mask.device)
-    _native.launch("inbox", inbox, mask.to(I32), flat, entry="zero_inbox_rows")
+    _native.launch("zero_inbox_rows", inbox, mask.to(I32), flat)
     return res
 
 
@@ -427,7 +427,7 @@ def _host_inbox_from_ticks(combo, *, M: int, E: int) -> Inbox:
     if _on_cpu(combo):
         return colocated_ref.host_inbox_from_ticks(combo, M=M, E=E)
     flat, res = _inbox_alloc(combo.shape[0], M, E, combo.device)
-    _native.launch("inbox", combo, flat, M, E, entry="host_inbox_from_ticks")
+    _native.launch("host_inbox_from_ticks", combo, flat, M, E)
     return res
 
 

@@ -53,6 +53,7 @@ become-leader noop barriers.  The merged entries flow out through
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -93,6 +94,12 @@ from .types import (
 _log = get_logger("engine")
 
 _HOT_SET = frozenset(HOT_TYPES)
+
+# On the CPU the device sections of every engine in a process take turns:
+# the plain versions are thousands of small-tensor ops, each releasing and
+# retaking the GIL, and several engines stepping them at once thrash the
+# GIL many times over the cost of running them one after another.
+_CPU_DEVICE_LOCK = threading.Lock()
 
 # readback row indices of the per-row VALUES block (_gather_detail's
 # idx_sum part); 0-5 double as the [6, G] host mirror's row indices
@@ -716,6 +723,9 @@ class TorchStepEngine(IStepEngine):
         # every upload; all host<->device index conversions go through it.
         self._base = np.zeros((capacity,), np.int64)
         self._lock = threading.Lock()
+        self._device_lock = (
+            _CPU_DEVICE_LOCK if self._blocks.mesh.device_type == "cpu"
+            else contextlib.nullcontext())
         self._warned_full = False
         # host mirrors of the summary scalars (term/vote/commit/...)
         self._mirror = np.zeros((6, capacity), np.int64)
@@ -1465,7 +1475,7 @@ class TorchStepEngine(IStepEngine):
         lane_rows: List[Tuple] = []
         lane_batches: List[Tuple] = []
         if batch:
-            with self._lock:
+            with self._lock, self._device_lock:
                 # re-validate: a concurrent detach() (stop_replica) may
                 # have freed — or freed and re-assigned — a row between
                 # the lock sections

@@ -184,6 +184,8 @@ def _jitter(shard_id, replica_id, seq, span):
 
 def reset_timeout(st: DeviceState, mask) -> DeviceState:
     """oracle: Raft._reset_randomized_timeout ([G] fields only)."""
+    if not bool(mask.any()):
+        return st
     seq = st.timeout_seq + 1
     rt = st.election_timeout + _jitter(
         st.shard_id, st.replica_id, seq, st.election_timeout
@@ -639,6 +641,8 @@ def _campaign(st, out, mask, pre, transfer, E):
 
 
 def _handle_election(st, out, mask, hint, E):
+    if not bool(mask.any()):
+        return st, out
     m = (
         mask
         & (st.role != ROLE_LEADER)
@@ -668,10 +672,20 @@ def _check_quorum(st, mask):
 def _tick(st, out, mask, E, hint, hint_high, n):
     """Advance the tick timers by ``n`` logical ticks in one slot
     (multi-tick fusion; ``n=1`` is the reference's per-tick step)."""
-    G = _G(st)
     lead = mask & (st.role == ROLE_LEADER)
     non = mask & (st.role != ROLE_LEADER)
-    # --- leader tick ---------------------------------------------------
+    # each half touches only its own rows
+    st, out = _gate(
+        lead.any(),
+        lambda s, o: _tick_leader(s, o, lead, hint, hint_high, n),
+        st, out,
+    )
+    return _gate(
+        non.any(), lambda s, o: _tick_other(s, o, non, E, n), st, out
+    )
+
+
+def _tick_leader(st, out, lead, hint, hint_high, n):
     el = st.election_tick + n
     hb = st.heartbeat_tick + n
     fired = el >= st.election_timeout
@@ -688,7 +702,11 @@ def _tick(st, out, mask, E, hint, hint_high, n):
     hb_fire = still & (st.heartbeat_tick >= st.heartbeat_timeout)
     st = st._replace(heartbeat_tick=_w(hb_fire, 0, st.heartbeat_tick))
     out = _broadcast_heartbeat(st, out, hb_fire, hint, hint_high)
-    # --- non-leader tick ----------------------------------------------
+    return st, out
+
+
+def _tick_other(st, out, non, E, n):
+    G = _G(st)
     el2 = st.election_tick + n
     time_up = el2 >= st.rand_timeout
     nvw = (st.role == ROLE_NON_VOTING) | (st.role == ROLE_WITNESS)
@@ -698,7 +716,7 @@ def _tick(st, out, mask, E, hint, hint_high, n):
     st = reset_timeout(st, probe)
     elect = non & ~nvw & time_up
     st = st._replace(election_tick=_w(elect, 0, st.election_tick))
-    zero = torch.zeros((G,), dtype=I32, device=mask.device)
+    zero = torch.zeros((G,), dtype=I32, device=non.device)
     return _handle_election(st, out, elect, zero, E)
 
 
@@ -709,6 +727,9 @@ def _on_message_term(st, out, msg, mask):
     mt = msg["mtype"]
     mterm = msg["term"]
     local = mterm == 0
+    if not _FORCE_GATES and not bool(
+            (mask & ~local & (mterm != st.term)).any()):
+        return st, out, mask  # every masked row is local or at our term
     higher = mask & ~local & (mterm > st.term)
     lower = mask & ~local & (mterm < st.term)
     vote_like = (mt == MT_REQUEST_VOTE) | (mt == MT_REQUEST_PREVOTE)
@@ -1183,10 +1204,8 @@ def _handle_propose(st, out, msg, mask, slot_i, E):
 # the per-slot dispatcher (oracle: Raft.handle + _step)
 # ---------------------------------------------------------------------------
 def _is_hot(mt):
-    acc = torch.zeros_like(mt, dtype=torch.bool)
-    for t in HOT_TYPES:
-        acc = acc | (mt == t)
-    return acc
+    return torch.isin(mt, torch.tensor(HOT_TYPES, dtype=mt.dtype,
+                                       device=mt.device))
 
 
 def _gate(pred, fn, st, out):
@@ -1207,11 +1226,11 @@ def _process_slot(st, out, msg, slot_i, E):
     out = _esc(out, mask & ~hot, ESC_COLD)
     mask = mask & hot
 
+    # the types some masked row carries: one readback for every gate
+    present = set(mt[mask].tolist())
+
     def _has(*types):
-        acc = torch.zeros((G,), dtype=torch.bool, device=mask.device)
-        for t in types:
-            acc = acc | (mt == t)
-        return (mask & acc).any()
+        return not present.isdisjoint(types)
 
     st, out = _gate(
         _has(MT_TICK),
@@ -1227,14 +1246,26 @@ def _process_slot(st, out, msg, slot_i, E):
         st, out, passed = _on_message_term(st, out, msg, rest)
 
         def _votes(st, out):
-            st, out = _handle_election(
-                st, out, passed & (mt == MT_ELECTION), msg["hint"], E
+            st, out = _gate(
+                _has(MT_ELECTION),
+                lambda s, o: _handle_election(
+                    s, o, passed & (mt == MT_ELECTION), msg["hint"], E
+                ),
+                st, out,
             )
-            st, out = _handle_request_vote(
-                st, out, msg, passed & (mt == MT_REQUEST_VOTE)
+            st, out = _gate(
+                _has(MT_REQUEST_VOTE),
+                lambda s, o: _handle_request_vote(
+                    s, o, msg, passed & (mt == MT_REQUEST_VOTE)
+                ),
+                st, out,
             )
-            st, out = _handle_request_prevote(
-                st, out, msg, passed & (mt == MT_REQUEST_PREVOTE)
+            st, out = _gate(
+                _has(MT_REQUEST_PREVOTE),
+                lambda s, o: _handle_request_prevote(
+                    s, o, msg, passed & (mt == MT_REQUEST_PREVOTE)
+                ),
+                st, out,
             )
             return st, out
 
@@ -1249,11 +1280,19 @@ def _process_slot(st, out, msg, slot_i, E):
         )
 
         def _prop_read(st, out):
-            st, out = _handle_propose(
-                st, out, msg, role_routed & (mt == MT_PROPOSE), slot_i, E
+            st, out = _gate(
+                _has(MT_PROPOSE),
+                lambda s, o: _handle_propose(
+                    s, o, msg, role_routed & (mt == MT_PROPOSE), slot_i, E
+                ),
+                st, out,
             )
-            out = _handle_read_index(
-                st, out, msg, role_routed & (mt == MT_READ_INDEX)
+            st, out = _gate(
+                _has(MT_READ_INDEX),
+                lambda s, o: (s, _handle_read_index(
+                    s, o, msg, role_routed & (mt == MT_READ_INDEX)
+                )),
+                st, out,
             )
             return st, out
 
@@ -1279,11 +1318,19 @@ def _process_slot(st, out, msg, slot_i, E):
 
         def _lead_resps(st, out):
             lead = role_routed & (st.role == ROLE_LEADER)
-            st, out = _handle_replicate_resp(
-                st, out, msg, lead & (mt == MT_REPLICATE_RESP), E
+            st, out = _gate(
+                _has(MT_REPLICATE_RESP),
+                lambda s, o: _handle_replicate_resp(
+                    s, o, msg, lead & (mt == MT_REPLICATE_RESP), E
+                ),
+                st, out,
             )
-            st, out = _handle_heartbeat_resp(
-                st, out, msg, lead & (mt == MT_HEARTBEAT_RESP), E
+            st, out = _gate(
+                _has(MT_HEARTBEAT_RESP),
+                lambda s, o: _handle_heartbeat_resp(
+                    s, o, msg, lead & (mt == MT_HEARTBEAT_RESP), E
+                ),
+                st, out,
             )
             return st, out
 
@@ -1295,6 +1342,11 @@ def _process_slot(st, out, msg, slot_i, E):
             cand = role_routed & (
                 (st.role == ROLE_CANDIDATE) | (st.role == ROLE_PRE_CANDIDATE)
             )
+            # every mask below is a subset of cand
+            return _gate(cand.any(), lambda s, o: _cand_rows(s, o, cand),
+                         st, out)
+
+        def _cand_rows(st, out, cand):
             # REPLICATE / HEARTBEAT at our term from a legitimate leader
             from_leader = cand & ((mt == MT_REPLICATE) | (mt == MT_HEARTBEAT))
             st = _become_follower(st, from_leader, st.term, msg["from_id"])
@@ -1344,21 +1396,32 @@ def _process_slot(st, out, msg, slot_i, E):
                 election_tick=_w(lmsg, 0, st.election_tick),
                 leader_id=_w(lmsg, msg["from_id"], st.leader_id),
             )
-            st, out = _handle_replicate(
-                st, out, msg, lmsg & (mt == MT_REPLICATE)
+            st, out = _gate(
+                _has(MT_REPLICATE),
+                lambda s, o: _handle_replicate(
+                    s, o, msg, lmsg & (mt == MT_REPLICATE)
+                ),
+                st, out,
             )
-            st, out = _handle_heartbeat(
-                st, out, msg, lmsg & (mt == MT_HEARTBEAT)
+            st, out = _gate(
+                _has(MT_HEARTBEAT),
+                lambda s, o: _handle_heartbeat(
+                    s, o, msg, lmsg & (mt == MT_HEARTBEAT)
+                ),
+                st, out,
             )
-            tn = (
-                foll
-                & (mt == MT_TIMEOUT_NOW)
-                & (st.role == ROLE_FOLLOWER)
-                & _self_is_voter(st)
-            )
-            no = torch.zeros((G,), dtype=torch.bool, device=mask.device)
-            st, out = _campaign(st, out, tn, no, ~no, E)
-            return st, out
+
+            def _timeout_now(st, out):
+                tn = (
+                    foll
+                    & (mt == MT_TIMEOUT_NOW)
+                    & (st.role == ROLE_FOLLOWER)
+                    & _self_is_voter(st)
+                )
+                no = torch.zeros((G,), dtype=torch.bool, device=mask.device)
+                return _campaign(st, out, tn, no, ~no, E)
+
+            return _gate(_has(MT_TIMEOUT_NOW), _timeout_now, st, out)
 
         st, out = _gate(
             _has(MT_REPLICATE, MT_HEARTBEAT, MT_TIMEOUT_NOW), _foll, st, out
@@ -1390,14 +1453,21 @@ def step_internal(
     dev = state.term.device
     out = _make_out_internal(G, P, M, E, out_capacity, dev)
     occ = cin.mtype != 0  # [M, G]
-    order = torch.argsort(
-        (~occ).to(torch.int8), dim=0, stable=True
-    )  # int64 [M, G]
-    cin = Inbox(*(_permute0(getattr(cin, f), order) for f in Inbox._fields))
+    # where the occupied slots already lead every row the stable sort is
+    # the identity, and so are both permutations and the translation
+    packed = not bool((occ[1:] & ~occ[:-1]).any())
+    if not packed:
+        order = torch.argsort(
+            (~occ).to(torch.int8), dim=0, stable=True
+        )  # int64 [M, G]
+        cin = Inbox(*(_permute0(getattr(cin, f), order)
+                      for f in Inbox._fields))
     n_occ = int(occ.sum(dim=0).max()) if G else 0
     for i in range(n_occ):
         msg = {f: getattr(cin, f)[i] for f in Inbox._fields}
         state, out = _process_slot(state, out, msg, i, E)
+    if packed:
+        return state, out
     inv = torch.argsort(order, dim=0, stable=True)
     # src_slot values index COMPACTED slots; translate through order
     src = out.buf[:, F_SRC_SLOT, :]  # [O, G]

@@ -201,6 +201,6 @@ def set_remote_snapshot(
         raise ValueError("set_remote_snapshot: bad shapes")
     rs, sn = K._views(((G, P), (G, P)), rstate.device)
     if G * P:
-        _native.launch("place_rows", rstate, snap_index, g_idx, p_idx, snap,
-                       rs, sn, entry="set_remote_snapshot")
+        _native.launch("set_remote_snapshot", rstate, snap_index, g_idx,
+                       p_idx, snap, rs, sn)
     return rs, sn

@@ -124,22 +124,22 @@ def wait_for_leader(nhs, shard_id=1, timeout=30.0):
     raise AssertionError(f"no leader for shard {shard_id}")
 
 
-def propose_r(nh, session, cmd, deadline=20.0):
+def propose_r(nh, session, cmd, deadline=20.0, timeout=2.0):
     end = time.time() + deadline
     while True:
         try:
-            return nh.sync_propose(session, cmd, timeout=2.0)
+            return nh.sync_propose(session, cmd, timeout=timeout)
         except (TimeoutError_, RequestDropped, SystemBusy):
             if time.time() >= end:
                 raise
             time.sleep(0.02)
 
 
-def read_r(nh, shard_id, query, deadline=20.0):
+def read_r(nh, shard_id, query, deadline=20.0, timeout=2.0):
     end = time.time() + deadline
     while True:
         try:
-            return nh.sync_read(shard_id, query, timeout=2.0)
+            return nh.sync_read(shard_id, query, timeout=timeout)
         except Exception:  # noqa: BLE001 — retried like a client would
             if time.time() >= end:
                 raise
@@ -181,6 +181,17 @@ def tcluster(tmp_path):
 def test_package_exports():
     assert {"NodeHost", "NodeHostConfig", "Config", "ExpertConfig",
             "EngineConfig", "IStateMachine", "Result"} <= set(pt.__all__)
+
+
+def test_cpu_engines_share_one_device_lock():
+    """CPU engines of one process take turns in their device sections
+    (concurrent plain steps thrash the GIL), mesh or not."""
+    from dragonboat_tpu_torch.ops import engine as E
+    from dragonboat_tpu_torch.ops.placement import GroupsMesh
+
+    one = E.TorchStepEngine(None, capacity=4, device="cpu")
+    two = E.TorchStepEngine(None, capacity=4, mesh=GroupsMesh(["cpu"] * 2))
+    assert one._device_lock is two._device_lock is E._CPU_DEVICE_LOCK
 
 
 def test_cuda_request_without_card_raises():
@@ -394,19 +405,21 @@ def test_parity_mismatch_is_counted_and_latched(tmp_path, monkeypatch,
 SCRIPT = [set_cmd(f"lk-{i % 5}", f"v{i}".encode()) for i in range(12)]
 
 
-def _run_script(nhs, ses_of):
+def _run_script(nhs, ses_of, timeout=2.0):
+    """SCRIPT through ``nhs``; ``timeout``: each request's wait before a
+    retry (propose_r, read_r)."""
     lid = wait_for_leader(nhs)
     for i, cmd in enumerate(SCRIPT):
         nh = nhs[(lid + i) % 3 + 1]  # spread over leader and followers
-        propose_r(nh, ses_of(nh), cmd)
+        propose_r(nh, ses_of(nh), cmd, timeout=timeout)
     out = {}
     for rid, nh in nhs.items():
-        applied = read_r(nh, 1, "__applied__")
+        applied = read_r(nh, 1, "__applied__", timeout=timeout)
         deadline = time.time() + 20.0
         while len(applied) < len(SCRIPT) and time.time() < deadline:
             time.sleep(0.05)
-            applied = read_r(nh, 1, "__applied__")
-        out[rid] = (applied, read_r(nh, 1, "__data__"))
+            applied = read_r(nh, 1, "__applied__", timeout=timeout)
+        out[rid] = (applied, read_r(nh, 1, "__data__", timeout=timeout))
     return out
 
 

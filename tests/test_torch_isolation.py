@@ -2,14 +2,16 @@
 
 * ``import dragonboat_tpu_torch`` plus its ``nodehost``, ``ops.engine``,
   ``ops.kernel``, ``ops.placement``, ``ops.route``, ``ops.colocated``,
-  ``storage.tan``, ``faults``, ``audit``, ``balance``, ``gateway`` and
-  ``gateway.rpc`` loads no ``jax*`` and no ``dragonboat_tpu`` module
+  ``storage.tan``, ``faults``, ``audit``, ``balance``, ``gateway``,
+  ``gateway.rpc``, ``scenario``, ``scenario.procworker`` and
+  ``ops.registry`` loads no ``jax*`` and no ``dragonboat_tpu`` module
   (in a fresh interpreter);
 * no file under ``dragonboat_tpu_torch/`` imports ``jax`` or anything of
   ``dragonboat_tpu``;
 * every host-plane module the port carries is byte-identical to its
   ``dragonboat_tpu/`` original, apart from the per-file allow-list of
-  edited lines below (empty), and so is every carried non-Python file
+  edited lines below (the day's worker process and its spawn line), and
+  so is every carried non-Python file
   (the tan WAL's native writer source): a later fix to the reference
   host plane then shows up here instead of drifting silently.
 """
@@ -54,13 +56,20 @@ CARRIED = (
     "balance/__init__",
     "gateway/admission", "gateway/routing", "gateway/gateway", "gateway/rpc",
     "gateway/__init__",
+    "scenario/plan", "scenario/report", "scenario/fleet", "scenario/runner",
+    "scenario/multiproc", "scenario/procworker", "scenario/__init__",
 )
 
 # carried files that are not Python modules (byte for byte)
 CARRIED_FILES = ("native/walwriter.cpp",)
 
-# file -> line numbers (1-based, in the port's copy) allowed to differ
-ALLOWED_EDITS: dict = {}
+# file -> line numbers (1-based, in the port's copy) allowed to differ:
+# the day's child process loads no jax and imports the port's package
+# (procworker.py), and the parent spawns the port's worker (multiproc.py)
+ALLOWED_EDITS: dict = {
+    "scenario/procworker": (51, 52, 53, 54, 55, 56, 58, 66, 67, 68, 69),
+    "scenario/multiproc": (101,),
+}
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -76,6 +85,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import dragonboat_tpu_torch.faults, dragonboat_tpu_torch.audit\n"
         "import dragonboat_tpu_torch.balance, dragonboat_tpu_torch.gateway\n"
         "import dragonboat_tpu_torch.gateway.rpc\n"
+        "import dragonboat_tpu_torch.scenario\n"
+        "import dragonboat_tpu_torch.scenario.procworker\n"
+        "import dragonboat_tpu_torch.ops.registry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'dragonboat_tpu' or m.startswith('dragonboat_tpu.'))\n"

@@ -103,6 +103,44 @@ def test_randomized_fuzz_matches_reference_and_oracle(dual, seed):
     assert dual.calls > 0
 
 
+class GappedDualStep(DualStep):
+    """DualStep that also holds both steps equal on the same inbox with
+    each row's messages spread over its slots, in their order (the
+    stable compaction path; the packed inbox skips it).  The harness
+    gets the packed inbox's result, whose slot numbers it reads."""
+
+    def __init__(self, seed):
+        super().__init__()
+        self.rng = np.random.default_rng(seed)
+        self.gapped = 0
+
+    def step(self, state, inbox, out_capacity):
+        ib = _np_fields(inbox)
+        occ = ib["mtype"] != 0
+        spread = {k: np.zeros_like(v) for k, v in ib.items()}
+        for g in range(occ.shape[0]):
+            src = np.flatnonzero(occ[g])
+            dst = np.sort(self.rng.choice(occ.shape[1], src.size,
+                                          replace=False))
+            self.gapped += int(np.any(dst != np.arange(src.size)))
+            for k in ib:
+                spread[k][g, dst] = ib[k][g, src]
+        jib = JT.Inbox(**{k: jnp.asarray(v) for k, v in spread.items()})
+        ref_st, ref_out = JK.step(state, jib, out_capacity=out_capacity)
+        st_np, out_np = port_step_np(_np_fields(state), spread, out_capacity)
+        assert_same(_np_fields(ref_st), st_np, "state (gapped inbox)")
+        assert_same(_np_fields(ref_out), out_np, "out (gapped inbox)")
+        return super().step(state, inbox, out_capacity)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_gapped_inbox_matches_reference(monkeypatch, seed):
+    d = GappedDualStep(seed)
+    monkeypatch.setattr(kernel_harness, "K", d)
+    TKP.test_randomized_fuzz(seed)
+    assert d.calls > 0 and d.gapped > 0
+
+
 def test_fused_multi_tick_slot():
     """Multi-tick fusion on the port, field-for-field against JAX."""
     G, P, W, M_, E_, O = 2, 3, 8, 2, 1, 16
