@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only mesh_engines
     python3 chip_smoke.py --only audit
     python3 chip_smoke.py --only registry,day
+    python3 chip_smoke.py --only graft,analysis
 
 Phases, each printing one JSON line:
 
@@ -137,6 +138,25 @@ Phases, each printing one JSON line:
                onto the live group (seed 5) and ``run_rpc_smoke(n=2)``
                through the port's worker processes; a line with the day's
                ledger and the card's name and power limit.
+13. graft    — the port's graft entry (dragonboat_tpu_torch/graft_entry.py,
+               the reference's __graft_entry__.py): ``entry()``'s step on
+               the card bit-exact against the plain path on the CPU, then
+               ``dryrun_multichip(4)`` on ``GroupsMesh([cuda:0] * 4)``: the
+               sharded step (32 rows), 64 routed rounds (32 groups x 3,
+               P=3, W=16, E=2, O=16, budget 4) and three NodeHosts on one
+               mesh ``ColocatedEngineGroup`` (capacity 16, 5 shards
+               reaching the last block), every postcondition of the
+               reference's; a line with each kernel's launches and the
+               card's name and power limit.
+14. analysis — ``analysis/devicecheck.py`` on the card: every registry
+               entry's dtype, donation and G-last on CUDA tensors, each
+               all-device entry under ``set_sync_debug_mode("error")``,
+               and the spill rule over the loaded module's ptxas report
+               (kept per source under ``_build/ptxas/``, so a re-run on a
+               built checkout reads it too; a line with every
+               ``__global__``'s registers, stack, spills and static
+               shared memory); a finding beyond
+               ``analysis/device_baseline.txt`` fails the run.
 Each path's kernel launch counts are reset just before it and read just
 after; every kernel of the path must have run.  The engines re-run some
 launches (and every row move) through the plain versions: every such
@@ -303,43 +323,16 @@ def device_ms(fn, reps: int = 20):
     return us / reps / 1e3 if us > 0 else None
 
 
-def ptxas_report(log: str) -> dict:
-    """Register and spill lines of each kernel from the build's ptxas
-    report."""
-    names = ("raft_step_internal_kernel", "raft_step_kernel",
-             "summarize_flags_kernel", "gather_pack_kernel",
-             "place_rows_kernel", "merge_escalated_kernel",
-             "place_snapshot_kernel",
-             "route_walk_kernel", "route_recv_kernel", "inbox_fill_kernel",
-             "inbox_copy_kernel",
-             "select_count_kernel", "select_scan_kernel",
-             "select_write_kernel", "xlane_count_kernel",
-             "xlane_scan_kernel", "xlane_write_kernel",
-             "xlane_scatter_kernel")
-    rep, cur = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            cur = next((n for n in names if n in m.group(1)), None)
-        elif cur and ("registers" in ln or "spill" in ln):
-            rep.setdefault(cur, []).append(ln.strip())
-    return rep
+def ptxas_by_kernel(log: str) -> dict:
+    """{kernel: registers, stack frame, spill stores and loads, static
+    shared memory} of each ``__global__`` in the build's ptxas report
+    (``devicecheck.ptxas_table``, which takes the names from the
+    registry)."""
+    from dragonboat_tpu_torch.analysis import devicecheck
 
-
-def ptxas_numbers(lines) -> dict:
-    """Registers, stack frame, spills and static shared memory from one
-    kernel's ptxas report lines (None where a line is missing)."""
-    text = " ".join(lines or [])
-
-    def num(pat):
-        m = re.search(pat, text)
-        return int(m.group(1)) if m else None
-
-    return dict(regs=num(r"Used (\d+) registers"),
-                stack=num(r"(\d+) bytes stack frame"),
-                spill_stores=num(r"(\d+) bytes spill stores"),
-                spill_loads=num(r"(\d+) bytes spill loads"),
-                static_smem=num(r"(\d+) bytes smem") or 0)
+    keys = ("regs", "stack", "spill_stores", "spill_loads", "static_smem")
+    return {r["kernel"]: {k: r[k] for k in keys}
+            for r in devicecheck.ptxas_table(log)}
 
 
 def kernel_split(fn, reps: int = 20) -> dict:
@@ -2282,7 +2275,8 @@ class UtilizationSampler:
         self.samples = []
         self._period = period
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run,
+                                        name="smoke-util-sampler", daemon=True)
 
     def _run(self):
         while not self._stop.is_set():
@@ -2324,7 +2318,8 @@ class StackSampler:
         self.ticks = 0
         self._period = period
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run,
+                                        name="smoke-stack-sampler", daemon=True)
 
     def _run(self):
         import threading
@@ -2605,9 +2600,11 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                 probe_ms.append((time.perf_counter() - t1) * 1e3)
                 probe_acked[(s, k)] = b"p"
 
-        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+        threads = [threading.Thread(target=worker, args=(w,),
+                                    name=f"smoke-colo-writer-{w}", daemon=True)
                    for w in range(COLO_WORKERS)]
-        threads.append(threading.Thread(target=prober, daemon=True))
+        threads.append(threading.Thread(target=prober, name="smoke-colo-probe",
+                                        daemon=True))
         t0 = time.perf_counter()
         with UtilizationSampler() as util, StackSampler() as stacks:
             for t in threads:
@@ -2997,8 +2994,10 @@ def audit_phase(dev, workdir: str, shards: int = AUDIT_SHARDS,
                 time.sleep(0.003)
 
         leader = leader_of(live, target, 30.0)
-        gthreads = [threading.Thread(target=writer, daemon=True),
-                    threading.Thread(target=reader, daemon=True)]
+        gthreads = [threading.Thread(target=writer, name="smoke-gw-writer",
+                                     daemon=True),
+                    threading.Thread(target=reader, name="smoke-gw-reader",
+                                     daemon=True)]
         for t in gthreads:
             t.start()
         time.sleep(1.5)
@@ -3557,6 +3556,128 @@ def day_phase(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the graft entry (dragonboat_tpu_torch/graft_entry.py)
+# ---------------------------------------------------------------------------
+GRAFT_DEVICES = 4
+# the programs the dry run reaches: the sharded round (parts 1-2) and
+# the colocated path on the mesh (part 3); its kernels must all launch
+GRAFT_PATH_ENTRIES = ("kernel.step_sharded", "route.sharded_round",
+                      *COLO_PATH_ENTRIES)
+
+
+def graft_phase(dev, workdir: str) -> dict:
+    """The port's graft entry on the card.  ``entry()``'s forward on
+    ``cuda`` bit-exact against the same example rows through the plain
+    path on the CPU; then ``dryrun_multichip(4)`` on
+    ``GroupsMesh([cuda:0] * 4)``: the sharded step, 64 routed rounds and
+    three NodeHosts on one mesh ``ColocatedEngineGroup``, every
+    postcondition of the reference's (a failed one raises).  Launch
+    counts are reset just before the dry run and read just after; every
+    kernel of its path must have run, and the engine's workers must have
+    logged no error."""
+    import shutil
+
+    import torch
+
+    from dragonboat_tpu_torch import graft_entry as GE
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.ops import _native, registry
+
+    failed = []
+    fn, (st, ib) = GE.entry()
+    _native.reset_launch_counts()
+    got = fn(st, ib)
+    torch.cuda.synchronize()
+    entry_launches = {k: v for k, v in _native.LAUNCHES.items() if v}
+    want = fn(*GE.example_batch(64, device="cpu"))
+    err = _max_err([t.cpu() for t in registry.leaves(got)],
+                   registry.leaves(want))
+    if err:
+        failed.append(f"entry(): max abs err {err} against the plain path")
+    if entry_launches != {"raft_step": 1}:
+        failed.append(f"entry() launched {entry_launches}")
+
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    try:
+        _native.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = GE.dryrun_multichip(GRAFT_DEVICES, devices=[dev] * GRAFT_DEVICES,
+                                  workdir=workdir)
+        torch.cuda.synchronize()
+        dry_s = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+    finally:
+        engine_log.removeHandler(errors_logged)
+        shutil.rmtree(workdir, ignore_errors=True)
+    path = registry.kernels_of(GRAFT_PATH_ENTRIES)
+    missing = [k for k in path if not launches.get(k)]
+    if missing:
+        failed.append(f"the dry run launched no {missing}")
+    if errors_logged.lines:
+        failed.append(f"the engine's workers logged errors: "
+                      f"{errors_logged.lines[:1]}")
+    rst, _rib = res["routed"]
+    groups = GE.GROUPS_PER_DEV * GRAFT_DEVICES
+    stats = res["engine"]
+    out = dict(
+        devices=GRAFT_DEVICES, entry_max_abs_err=err,
+        entry_launches=entry_launches, dryrun_s=dry_s,
+        kernel_launches=launches, path_kernels=list(path),
+        routed=dict(groups=groups, rounds=GE.ROUNDS,
+                    committed_min=int(rst.committed.min()),
+                    leaders=int((rst.role == GE.ROLE_LEADER).sum())),
+        engine={k: stats[k] for k in ("launches", "routed_delivered",
+                                      "divergence_halts") if k in stats})
+    if failed:
+        print(json.dumps(dict(phase="graft", failed=failed, **out),
+                         default=str), file=sys.stderr, flush=True)
+        raise AssertionError(f"graft phase: {failed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the device-plane audit (analysis/devicecheck.py) on the card
+# ---------------------------------------------------------------------------
+def analysis_phase(dev) -> dict:
+    """``devicecheck`` on the card over every registry entry (dtype,
+    donation and G-last on CUDA tensors, each all-device entry once under
+    ``torch.cuda.set_sync_debug_mode("error")``, restored afterwards),
+    the static transfer lint, the source scan, and the spill rule over
+    this build's ptxas report, whose per-``__global__`` registers, stack,
+    spills and static shared memory go on a line of their own first.
+    Any finding beyond ``analysis/device_baseline.txt`` fails the run."""
+    import torch
+
+    from dragonboat_tpu_torch.analysis import devicecheck, raftlint
+    from dragonboat_tpu_torch.ops import _native, registry
+
+    log = _native.build_log()
+    table = devicecheck.ptxas_table(log)
+    emit(dict(phase="ptxas", card=nvidia_smi_line(), kernels=table))
+    mode = torch.cuda.get_sync_debug_mode()
+    findings = devicecheck.audit(cuda=True, build_log=log)
+    if torch.cuda.get_sync_debug_mode() != mode:
+        raise AssertionError("analysis phase: sync debug mode not restored")
+    baseline = raftlint.load_baseline(str(devicecheck.BASELINE))
+    new, stale = raftlint.gate(findings, baseline)
+    out = dict(findings=[f.render() for f in findings],
+               unbaselined=[f.render() for f in new],
+               stale=[list(s) for s in stale],
+               entries=len(registry.ENTRY_POINTS) + 2,
+               globals=len(table),
+               spill_free=sum(1 for r in table if not (
+                   r["stack"] or r["spill_stores"] or r["spill_loads"])))
+    if new:
+        print(json.dumps(dict(phase="analysis", **out)), file=sys.stderr,
+              flush=True)
+        raise AssertionError(f"analysis phase: {len(new)} finding(s) "
+                             f"beyond the baseline: {out['unbaselined']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 def main(argv) -> int:
@@ -3574,7 +3695,8 @@ def main(argv) -> int:
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
              "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
-             "colocated, mesh_engines, audit, registry, day) without the "
+             "colocated, mesh_engines, audit, registry, day, graft, "
+             "analysis) without the "
              "result lines; "
              "default: "
              "all",
@@ -3603,7 +3725,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _native.module()
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_report(_native.build_log())
+    ptxas = ptxas_by_kernel(_native.build_log())
     emit(dict(phase="device", name=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
               build_s=build_s, ptxas=ptxas))
@@ -3651,6 +3773,11 @@ def main(argv) -> int:
         day = run("day", day_phase, dev,
                   os.path.join(scratch, f"day-{os.getpid()}"))
         emit(dict(day_report=day["ledger"], card=smi))
+    if want("graft"):
+        graft = run("graft", graft_phase, dev,
+                    os.path.join(scratch, f"graft-{os.getpid()}"))
+    if want("analysis"):
+        run("analysis", analysis_phase, dev)
     if only:
         print(f"chip_smoke: ran {sorted(only)} in "
               f"{time.perf_counter() - t_all:.1f} s {phase_s}",
@@ -3665,7 +3792,7 @@ def main(argv) -> int:
         return dict(rows_per_block=R, staged_messages=K.staged_messages(
                         geom[-1]),
                     dynamic_smem=K.smem_bytes(R, *geom, internal=internal),
-                    **ptxas_numbers(ptxas.get(kernel)))
+                    **ptxas[kernel])
 
     rows = []
     for k, info in KERNEL_INFO.items():
@@ -3684,7 +3811,7 @@ def main(argv) -> int:
             rows[-1].update(
                 launches_multichip=mc["leg2"]["kernel_launches"][k],
                 split=kern["place_rows_split"], modes=kern["place_modes"],
-                ptxas={n: ptxas_numbers(v) for n, v in ptxas.items()
+                ptxas={n: v for n, v in ptxas.items()
                        if n in ("place_rows_kernel",
                                 "place_snapshot_kernel")})
         if k == "raft_step":
@@ -3710,7 +3837,7 @@ def main(argv) -> int:
         geometries={g: {m: v["modes"][m] for m in v["modes"]
                         if m.startswith("merge_")}
                     for g, v in kern["place_modes"].items()},
-        ptxas=ptxas_numbers(ptxas.get("merge_escalated_kernel")),
+        ptxas=ptxas["merge_escalated_kernel"],
     ))
     for k, info in COLO_KERNEL_INFO.items():
         ents = info["entries"]
@@ -3733,11 +3860,11 @@ def main(argv) -> int:
                                      mkern["max_abs_err"]["route"])
             row["geometries"] = dict(ckern["route_geometries"],
                                      X37500=mkern["route_X37500"])
-            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+            row["ptxas"] = {n: v for n, v in ptxas.items()
                             if n.startswith("route_")}
         if k == "select_and_blob":
             row["geometries"] = ckern["select_geometries"]
-            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+            row["ptxas"] = {n: v for n, v in ptxas.items()
                             if n.startswith("select_")}
         if k == "inbox":
             row["entries"] = {
@@ -3753,7 +3880,7 @@ def main(argv) -> int:
             row["max_abs_err"] = max(ckern["max_abs_err"][e]
                                      for e in row["entries"])
             row["cases"] = ckern["inbox_cases"]
-            row["ptxas"] = {n: ptxas_numbers(v) for n, v in ptxas.items()
+            row["ptxas"] = {n: v for n, v in ptxas.items()
                             if n.startswith("inbox_")}
         rows.append(row)
     for k, info in MESH_KERNEL_INFO.items():
@@ -3777,7 +3904,7 @@ def main(argv) -> int:
             rows[-1].update(
                 split=mkern["xlane_pack_split"],
                 undersized=mkern["xlane_pack_undersized"],
-                ptxas={n: ptxas_numbers(v) for n, v in ptxas.items()
+                ptxas={n: v for n, v in ptxas.items()
                        if n.startswith("xlane_") and "scatter" not in n})
     # the mesh modes' paths: every kernel's launches there, and the
     # colocated pack (the lane pack with its new operands) as a case of
@@ -3790,6 +3917,7 @@ def main(argv) -> int:
         row["launches_audit"] = aud["kernel_launches"].get(row["name"], 0)
         row["launches_day"] = day["kernel_launches"].get(row["name"], 0)
         row["launches_registry"] = reg["launches"].get(row["name"], 0)
+        row["launches_graft"] = graft["kernel_launches"].get(row["name"], 0)
         if row["name"] == "xlane_pack":
             pk = mesh["pack"]
             row["colocated_operands"] = dict(

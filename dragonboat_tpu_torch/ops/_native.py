@@ -7,6 +7,11 @@ extension module under ``dragonboat_tpu_torch/_build/``.  ``load``
 rebuilds whatever source or header changed and reuses the rest.
 Building happens at first use — never at import.
 
+The build's compiler output goes to ``_build/build.log``; each compiled
+source's part of it (its ptxas register and spill report) is also kept
+in ``_build/ptxas/<source>.log``, so the report of the loaded module
+survives a later ``load`` that compiles nothing (``build_log``).
+
 ``LAUNCHES`` counts, per kernel, the launches its wrappers made, and
 ``ENTRY_LAUNCHES`` the same per bound entry point (a kernel such as
 ``inbox`` has several, ``ENTRIES``); a run resets both to show which
@@ -15,6 +20,7 @@ kernels its path went through.
 from __future__ import annotations
 
 import os
+import re
 import sys
 import threading
 from pathlib import Path
@@ -78,16 +84,48 @@ def reset_launch_counts() -> None:
     ENTRY_LAUNCHES.clear()
 
 
+def _sources() -> list:
+    return list(dict.fromkeys(KERNELS.values()))
+
+
+def compiled_sections(log: str) -> dict:
+    """{source file name: its part of a build's output} for every source
+    the build compiled.  ninja prints each finished command (the whole
+    command line, verbose) on a ``[k/n]`` line, then that command's own
+    output; a ``.cu`` compile's output is its ptxas report."""
+    out, cur = {}, None
+    for ln in log.splitlines(keepends=True):
+        if re.match(r"\[\d+/\d+\] ", ln):
+            m = re.search(r"\s-c\s+(\S+)", ln)
+            cur = os.path.basename(m.group(1)) if m else None
+            if cur:
+                out[cur] = ""
+            continue
+        if cur:
+            out[cur] += ln
+    return out
+
+
+def _keep_sections(log: str) -> None:
+    keep = BUILD / "ptxas"
+    keep.mkdir(parents=True, exist_ok=True)
+    for src, text in compiled_sections(log).items():
+        (keep / f"{src}.log").write_text(text)
+
+
 def build_log() -> str:
-    """The last build's compiler output (ptxas register and spill
-    report included)."""
-    p = BUILD / "build.log"
-    return p.read_text() if p.exists() else ""
+    """The ptxas register and spill report of the built module: for each
+    kernel source, the output of the build that last compiled it (empty
+    for a source no build here has compiled)."""
+    keep = BUILD / "ptxas"
+    parts = [keep / f"{src}.log" for src in _sources()]
+    return "".join(p.read_text() for p in parts if p.exists())
 
 
 def module():
     """The extension module, built on first use.  The compiler's output
-    goes to ``_build/build.log`` instead of standard output."""
+    goes to ``_build/build.log`` instead of standard output, and each
+    compiled source's part of it to ``_build/ptxas/``."""
     global _module
     with _lock:
         if _module is not None:
@@ -95,7 +133,7 @@ def module():
         from torch.utils.cpp_extension import load
 
         BUILD.mkdir(parents=True, exist_ok=True)
-        sources = [str(CSRC / f) for f in dict.fromkeys(KERNELS.values())]
+        sources = [str(CSRC / f) for f in _sources()]
         sources.append(str(CSRC / "bindings.cpp"))
         sys.stdout.flush()
         saved = os.dup(1)
@@ -115,11 +153,13 @@ def module():
                     sys.stdout.flush()
         except Exception as exc:
             raise RuntimeError(
-                "kernel build failed:\n" + build_log()[-6000:]
+                "kernel build failed:\n"
+                + (BUILD / "build.log").read_text()[-6000:]
             ) from exc
         finally:
             os.dup2(saved, 1)
             os.close(saved)
+        _keep_sections((BUILD / "build.log").read_text())
         return _module
 
 

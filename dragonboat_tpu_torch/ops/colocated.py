@@ -809,7 +809,7 @@ class ColocatedTorchEngine(TorchStepEngine):
             make_inbox(per, self.P * self.budget, self.E, device=dv[d])
             for d in range(self._blocks.D)))
 
-    def _on_blocks(self, name: str, fn, *args, parity: bool = False, **kw):
+    def _on_blocks(self, name: str, fn, *args, parity: bool = False, **kw):  # mesh-hot
         """The device program ``fn`` once per row block (``_run``): each
         ``Sharded`` argument gives its block's part.  A program of one
         output returns a ``Sharded``; of several, a tuple of them."""
@@ -1092,7 +1092,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         return e
 
     # -- warm -----------------------------------------------------------
-    def _warm(self) -> None:
+    def _warm(self) -> None:  # mesh-hot
         """Run every program of a launch once on the inert state, so the
         kernels are built and loaded before the first real step (torch
         runs eagerly; there is nothing to trace), and set up the routed

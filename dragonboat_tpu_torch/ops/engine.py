@@ -806,7 +806,7 @@ class TorchStepEngine(IStepEngine):
                 torch.cuda.synchronize(dev)
 
     # -- row moves over the blocks --------------------------------------
-    def _scatter_state(self, state, gs, sub) -> placement.Sharded:
+    def _scatter_state(self, state, gs, sub) -> placement.Sharded:  # mesh-hot
         """``_scatter_rows`` of the host sub-state ``sub`` (row k for the
         global row ``gs[k]``) on every block it touches."""
         pos = _pos_map(self.capacity, gs)
@@ -1886,7 +1886,7 @@ class TorchStepEngine(IStepEngine):
             self._parity_fail("readback pack")
         self.stats["parity_checked_launches"] += 1
 
-    def _device_step(self, batch) -> List[Tuple]:
+    def _device_step(self, batch) -> List[Tuple]:  # mesh-hot
         G, M, E = self.capacity, self.M, self.E
         # wall-time breakdown of a launch (ms, cumulative): host encode,
         # the device step with its flag readback, the parity self-check,

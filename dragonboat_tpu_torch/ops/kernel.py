@@ -203,7 +203,7 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
     return new, out
 
 
-def make_step_sharded(
+def make_step_sharded(  # mesh-hot
     mesh: GroupsMesh, state: DeviceState, inbox: Inbox, *,
     out_capacity: int, internal: bool = False,
 ):

@@ -17,7 +17,13 @@ The counterpart of the reference's program registry: the same 21 names
   replication, inboxes over every hot message type, live route tables,
   a mix of alive and dead rows — the ones a parity check holds;
 * ``bindings`` — the entry points of ``csrc/bindings.cpp`` the callable
-  reaches on CUDA.
+  reaches on CUDA;
+* ``donate`` / ``g_last`` — the reference's declarations, value for value
+  (its ``donate_argnums`` and its internal-layout flag), which
+  ``analysis/devicecheck.py`` holds the port to: a donated operand whose
+  leaf has an output of the same shape and dtype is returned in the
+  operand's own storage, and a G-last program keeps G as the trailing
+  axis.
 
 ``GLOBALS`` names, for every ``m.def`` of the bindings, the
 ``__global__`` functions it launches (the kernel it counts as is
@@ -106,6 +112,8 @@ class EntryPoint(NamedTuple):
     build: Callable[[], Tuple[tuple, dict]]
     bindings: Tuple[str, ...]
     live: Callable[[int], Tuple[tuple, dict]]
+    donate: Tuple[int, ...] = ()
+    g_last: bool = False
 
     def kernels(self) -> Tuple[str, ...]:
         return tuple(dict.fromkeys(_native.ENTRIES[b] for b in self.bindings))
@@ -486,7 +494,7 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("kernel.step_internal", K.step_internal,
                kernel_ref.step_internal, _b_step_internal,
                ("raft_step_internal",),
-               _l_step_internal),
+               _l_step_internal, g_last=True),
     EntryPoint("engine._scatter_rows", E._scatter_rows,
                _with_plain_moves(E._scatter_rows), _b_scatter_rows,
                ("place_rows",),
@@ -524,11 +532,11 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("colocated._assemble_and_step", C._assemble_and_step,
                colocated_ref.assemble_and_step, _b_assemble_and_step,
                ("assemble_inbox", "raft_step"),
-               _l_assemble_and_step),
+               _l_assemble_and_step, donate=(1, 2)),
     EntryPoint("colocated._route_step", C._route_step,
                colocated_ref.route_step, _b_route_step,
                ("merge_escalated", "route", "summarize_flags"),
-               _l_route_step),
+               _l_route_step, donate=(1,)),
     EntryPoint("colocated._select_and_blob", C._select_and_blob,
                colocated_ref.select_and_blob, _b_select_and_blob,
                ("select_and_blob", "gather_pack"),

@@ -105,7 +105,7 @@ class RouteStats(NamedTuple):
         return RouteStats(*(a + b for a, b in zip(self, other)))
 
 
-def build_route_tables(
+def build_route_tables(  # raftlint: ignore[host-sync] host-side numpy precompute of static tables
     shard_ids: np.ndarray,
     replica_ids: np.ndarray,
     peer_ids: np.ndarray,
@@ -223,6 +223,7 @@ def route_cuda(
         out.count, dest_row, rank_in_dest, _int32(suppress), _int32(alive),
         alive_stride, list(base_inbox) if base_inbox is not None else [],
         list(inbox), stats, packed, undeliv, deliv, scratch, cnt, B,
+        # raftlint: ignore[host-sync] the prefill's host scalars, not device values
         base, int(tick), int(propose_leaders), int(propose_n),
     )
     return inbox, stats, deliv
@@ -454,6 +455,7 @@ def split_route_tables(dest: np.ndarray, rank: np.ndarray,
     return MeshTables(dest_local, dest_dev, rank)
 
 
+# raftlint: ignore[host-sync] host-side numpy sizing of a static lane budget
 def xbudget_for(tables: MeshTables, budget: int, n_devices: int) -> int:
     """Worst-case per-edge lane volume of ``tables``: every local row may
     send up to ``budget`` messages toward each of its peer slots on an
@@ -598,8 +600,10 @@ def ring_shift(mesh: GroupsMesh, xbufs) -> list:
     return recv
 
 
-def _lane(mesh, states, outs, inboxes, tables, sups, *, E, budget, xbudget,
-          base, stats_rows):
+def _lane(  # mesh-hot
+    mesh, states, outs, inboxes, tables, sups, *, E, budget, xbudget, base,
+    stats_rows,
+):
     """The cross-device lane over per-device blocks: pack on every
     device, ring shifts, scatter on every device.  ``tables[d]`` =
     (dest_local, dest_dev, rank) of device d; ``stats_rows[d]`` its [7]
@@ -685,7 +689,7 @@ def cross_exchange(
     return Sharded(tuple(inboxes)), CrossStats(*lane[:, :5].t())
 
 
-def make_sharded_round(
+def make_sharded_round(  # mesh-hot
     mesh: GroupsMesh,
     *,
     M: int,

@@ -159,8 +159,8 @@ def worker(root: Path, cache: Path, phases) -> dict:
     _native.module()
     res = dict(root=str(root), build_s=time.perf_counter() - t0,
                card=C.nvidia_smi_line(),
-               ptxas={k: C.ptxas_numbers(v)
-                      for k, v in C.ptxas_report(_native.build_log()).items()
+               ptxas={k: v
+                      for k, v in C.ptxas_by_kernel(_native.build_log()).items()
                       if k.startswith("inbox")})
     if "kernels" in phases:
         times = {}

@@ -199,18 +199,17 @@ def _calls(C, cases) -> dict:
     return calls
 
 
-def _ptxas(C, log: str) -> dict:
+def _ptxas(log: str) -> dict:
     """Registers, stack and spills of every route and lane kernel the
     tree's build compiled, whatever their names."""
-    rep, cur = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            k = re.search(r"(?:route|xlane)_[a-z_]*?kernel", m.group(1))
-            cur = k and k.group(0)
-        elif cur and ("registers" in ln or "spill" in ln):
-            rep.setdefault(cur, []).append(ln.strip())
-    return {k: C.ptxas_numbers(v) for k, v in rep.items()}
+    from dragonboat_tpu_torch.analysis import devicecheck
+
+    names = sorted(set(re.findall(r"(?:route|xlane)_[a-z_]*?kernel", log)),
+                   key=len, reverse=True)
+    keys = ("regs", "stack", "spill_stores", "spill_loads", "static_smem")
+    return {r["kernel"]: {k: r[k] for k in keys}
+            for r in devicecheck.ptxas_table(log, names)
+            if r["kernel"] in names}
 
 
 def _times(C, fn) -> dict:
@@ -237,7 +236,7 @@ def worker(root: Path, cache: Path, phases, sweep: bool) -> dict:
     _native.module()
     res = dict(root=str(root), build_s=time.perf_counter() - t0,
                card=C.nvidia_smi_line(),
-               ptxas=_ptxas(C, _native.build_log()))
+               ptxas=_ptxas(_native.build_log()))
     if "kernels" in phases or sweep:
         calls = _calls(C, _inputs(C, dev, cache))
         res["times"] = {

@@ -154,7 +154,7 @@ def worker(root: Path, cache: Path, sweep: bool) -> dict:
     _native.module()
     res = dict(root=str(root), build_s=time.perf_counter() - t0,
                card=C.nvidia_smi_line(),
-               ptxas=C.ptxas_report(_native.build_log()))
+               ptxas=C.ptxas_by_kernel(_native.build_log()))
     cases = _inputs(C, dev, cache)
     times = {}
     for c, (st, ib, O, E) in cases.items():

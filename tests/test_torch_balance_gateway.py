@@ -32,14 +32,15 @@ on the port's copies, their source executed with every
 The base-engine clusters tick every 60 ms and the colocated ones every
 20 ms, where the reference's tick every 2 ms: the eager torch step is
 slower a launch than the reference's scalar step.  Directories are
-``/tmp/nh-tbg-*`` (and ``/tmp/nh-tbr-*`` for the reference's side), used
-by no other test; in-proc addresses live in the port's own in-proc
+``nh-tbg-*`` (and ``nh-tbr-*`` for the reference's side) under the temp
+dir, used by no other test; in-proc addresses live in the port's own in-proc
 registry, and every cluster resets it before it starts.
 """
 from __future__ import annotations
 
 import dataclasses
 import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -67,7 +68,13 @@ from dragonboat_tpu_torch.ops.engine import torch_step_engine_factory
 from dragonboat_tpu_torch.ops.placement import GroupsMesh
 from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
 
-from test_torch_storage import load_on_port
+from test_torch_storage import (  # noqa: F401 (a fixture)
+    load_on_port,
+    port_lock_witness,
+)
+
+# the port's lock-order witness over the whole module
+pytestmark = pytest.mark.usefixtures("port_lock_witness")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,6 +88,9 @@ def one_torch_thread():
 
 
 TAG = "tbg"
+TMP = tempfile.gettempdir()
+
+
 # the base-engine clusters tick every 60 ms where the reference's tick
 # every 2 ms: with several engines in one process on the CPU, a launch
 # with a full inbox takes tens of ms of plain-version CPU time, and a
@@ -107,7 +117,7 @@ def _engine_config(**engine):
 
 def _balance_host(i, rtt_ms=2):
     """``test_balance.py``'s ``make_host`` on the port's engine."""
-    d = f"/tmp/nh-{TAG}-bal-{i}"
+    d = f"{TMP}/nh-{TAG}-bal-{i}"
     shutil.rmtree(d, ignore_errors=True)
     return NodeHost(NodeHostConfig(
         nodehost_dir=d,
@@ -132,7 +142,7 @@ def _colocated_cluster(sm_factory, tag):
     addrs = {r: f"{TAG}-{tag}-{r}" for r in (1, 2, 3)}
     nhs = {}
     for r, a in addrs.items():
-        d = f"/tmp/nh-{TAG}-{tag}-{r}"
+        d = f"{TMP}/nh-{TAG}-{tag}-{r}"
         shutil.rmtree(d, ignore_errors=True)
         nhs[a] = NodeHost(NodeHostConfig(
             nodehost_dir=d,
@@ -320,7 +330,7 @@ def test_collector_view_of_a_mesh_matches_reference(monkeypatch):
     group = ColocatedEngineGroup(**CHIP_GEOM, mesh=GroupsMesh(["cpu"] * 4))
     port = {}
     for key in hosts:
-        d = f"/tmp/nh-{key}"
+        d = f"{TMP}/nh-{key}"
         shutil.rmtree(d, ignore_errors=True)
         port[key] = NodeHost(NodeHostConfig(
             nodehost_dir=d, rtt_millisecond=RTT_MS, raft_address=key,
@@ -346,7 +356,7 @@ def test_collector_view_of_a_mesh_matches_reference(monkeypatch):
         np.asarray(jax.devices("cpu")[:4]), ("groups",)))
     theirs = {}
     for key in hosts:
-        d = f"/tmp/nh-tbr-{key}"
+        d = f"{TMP}/nh-tbr-{key}"
         shutil.rmtree(d, ignore_errors=True)
         theirs[key] = ref.NodeHost(ref.NodeHostConfig(
             nodehost_dir=d, rtt_millisecond=RTT_MS, raft_address=key,

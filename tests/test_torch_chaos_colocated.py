@@ -7,9 +7,11 @@ import taken from ``dragonboat_tpu_torch`` (``load_on_port``) and its
 ``ColocatedEngineGroup`` on ``device="cpu"``: the kernels' plain PyTorch
 versions under the same invariants (acked writes survive, replicas
 agree, routed deliveries > 0, no divergence fail-stop).  Directories
-are ``/tmp/nh-tcc-*``, used by no other test.
+are ``nh-tcc-*`` under the temp dir, used by no other test.
 """
 from __future__ import annotations
+
+import tempfile
 
 import pytest
 import torch
@@ -17,7 +19,13 @@ import torch
 from dragonboat_tpu_torch import FaultController
 from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
 
-from test_torch_storage import load_on_port
+from test_torch_storage import (  # noqa: F401 (a fixture)
+    load_on_port,
+    port_lock_witness,
+)
+
+# the port's lock-order witness over the whole module
+pytestmark = pytest.mark.usefixtures("port_lock_witness")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -31,6 +39,9 @@ def one_torch_thread():
 
 
 TAG = "tcc"
+TMP = tempfile.gettempdir()
+
+
 _cchaos = load_on_port(
     "test_chaos_colocated.py", f"{TAG}_chaos_colocated", tag=TAG,
     replace=[("ColocatedEngineGroup(**GEOM)",
@@ -42,7 +53,7 @@ def test_cluster_is_the_port_colocated_engine():
     try:
         assert isinstance(cluster.nemesis, FaultController)
         assert isinstance(cluster.group, ColocatedEngineGroup)
-        assert cluster._dir(1) == "/tmp/nh-tcc-cchaos-1"
+        assert cluster._dir(1) == f"{TMP}/nh-tcc-cchaos-1"
         assert str(cluster.group.core._device) == "cpu"
         assert all(nh.engine.step_engine.core is cluster.group.core
                    for nh in cluster.nhs.values())

@@ -25,8 +25,8 @@ machine and fault is the port's):
 in ``test_torch_chaos_colocated.py`` (their storm alone takes half a
 minute here).
 
-Directories are ``/tmp/nh-tfa-*`` (port) and ``/tmp/nh-tfr-*`` (the
-reference's side of a cross-package run): no other test uses them.
+Directories are ``nh-tfa-*`` (port) and ``nh-tfr-*`` (the reference's
+side of a cross-package run) under the temp dir: no other test uses them.
 In-proc addresses are those of the reference's cases; they live in the
 port's own in-proc registry, which no reference test touches, and every
 cluster resets it before it starts.
@@ -36,6 +36,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import random
+import tempfile
 
 import pytest
 import torch
@@ -59,7 +60,13 @@ from dragonboat_tpu_torch.ops.engine import torch_step_engine_factory
 from dragonboat_tpu_torch.storage.tan import tan_logdb_factory
 from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
 
-from test_torch_storage import load_on_port
+from test_torch_storage import (  # noqa: F401 (a fixture)
+    load_on_port,
+    port_lock_witness,
+)
+
+# the port's lock-order witness over the whole module
+pytestmark = pytest.mark.usefixtures("port_lock_witness")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,6 +80,9 @@ def one_torch_thread():
 
 
 TAG = "tfa"
+TMP = tempfile.gettempdir()
+
+
 # the base engine's geometry of the port's NodeHost tests; its clusters
 # tick every 40 ms where the reference's tick every 2-5 ms: with three
 # engines in one process on the CPU, a launch with a full inbox takes
@@ -98,7 +108,7 @@ def test_cases_run_on_the_port():
     assert _audit.check_linearizable is port_checker.check_linearizable
     assert _ref_faults_cases.FaultController is ref_faults.FaultController
     cluster = _faults.Cluster.__new__(_faults.Cluster)
-    assert cluster._dir(1) == "/tmp/nh-tfa-chaos-1"
+    assert cluster._dir(1) == f"{TMP}/nh-tfa-chaos-1"
 
 
 # ---------------------------------------------------------------------------
@@ -133,10 +143,10 @@ class TestBaseEngineForcedEscalation:
         import shutil
 
         reset_inproc_network()
-        shutil.rmtree("/tmp/nh-tfa-vesc-1", ignore_errors=True)
+        shutil.rmtree(f"{TMP}/nh-tfa-vesc-1", ignore_errors=True)
         ctl = FaultController(seed=5)
         nh = NodeHost(NodeHostConfig(
-            nodehost_dir="/tmp/nh-tfa-vesc-1",
+            nodehost_dir=f"{TMP}/nh-tfa-vesc-1",
             rtt_millisecond=RTT_MS,
             raft_address="tfa-vesc-1",
             expert=ExpertConfig(

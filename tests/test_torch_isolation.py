@@ -13,11 +13,19 @@
   edited lines below (the day's worker process and its spawn line), and
   so is every carried non-Python file
   (the tan WAL's native writer source): a later fix to the reference
-  host plane then shows up here instead of drifting silently.
+  host plane then shows up here instead of drifting silently;
+* the carried analysis modules whose scopes name the package
+  (``REWRITES``) equal the reference's after exactly the listed
+  substitutions, and nothing else;
+* no port test writes a fixed ``/tmp`` path: every ``"/tmp/...`` literal
+  in ``tests/test_torch_*.py`` is the old side of a rewrite (a
+  ``replace=`` pair of ``load_on_port`` or a ``str.replace``), so a
+  checkout's own ``TMPDIR`` holds everything its tests write.
 """
 from __future__ import annotations
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -58,10 +66,20 @@ CARRIED = (
     "gateway/__init__",
     "scenario/plan", "scenario/report", "scenario/fleet", "scenario/runner",
     "scenario/multiproc", "scenario/procworker", "scenario/__init__",
+    "analysis/lockcheck",
 )
 
 # carried files that are not Python modules (byte for byte)
 CARRIED_FILES = ("native/walwriter.cpp",)
+
+# carried files that differ from the reference only by these
+# substitutions, made in order over the whole file: the rule scopes and
+# default paths name the port's package (raftlint) and the codec
+# modules' relpaths (the wire registry and audit)
+REWRITES = (("dragonboat_tpu/", "dragonboat_tpu_torch/"),
+            ('"dragonboat_tpu"', '"dragonboat_tpu_torch"'))
+REWRITTEN = ("analysis/raftlint", "analysis/wire_registry",
+             "analysis/wirecheck")
 
 # file -> line numbers (1-based, in the port's copy) allowed to differ:
 # the day's child process loads no jax and imports the port's package
@@ -88,6 +106,11 @@ def test_import_loads_no_jax_and_no_reference():
         "import dragonboat_tpu_torch.scenario\n"
         "import dragonboat_tpu_torch.scenario.procworker\n"
         "import dragonboat_tpu_torch.ops.registry\n"
+        "import dragonboat_tpu_torch.analysis\n"
+        "import dragonboat_tpu_torch.analysis.torchsync\n"
+        "import dragonboat_tpu_torch.analysis.devicecheck\n"
+        "import dragonboat_tpu_torch.analysis.wirecheck\n"
+        "import dragonboat_tpu_torch.graft_entry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'dragonboat_tpu' or m.startswith('dragonboat_tpu.'))\n"
@@ -141,3 +164,86 @@ def test_carried_file_is_byte_identical(path):
     assert (PORT / path).read_bytes() == (REF / path).read_bytes(), (
         f"{path} drifted from the reference"
     )
+
+
+@pytest.mark.parametrize("mod", REWRITTEN)
+def test_rewritten_module_equals_reference_under_rewrites(mod):
+    ref = (REF / f"{mod}.py").read_text()
+    got = (PORT / f"{mod}.py").read_text()
+    for old, new in REWRITES:
+        ref = ref.replace(old, new)
+    assert got.splitlines() == ref.splitlines(), (
+        f"{mod}.py differs from the reference beyond REWRITES")
+
+
+_TMP_LITERAL = re.compile(r"""(^|["'])/tmp/""")
+
+
+def _rewrite_olds(tree) -> set:
+    """ids of the string nodes that are the old side of a rewrite: the
+    first element of a tuple in a ``replace=`` argument, or the first
+    argument of a ``.replace(...)`` call."""
+    olds = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        if isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "replace" and node.args:
+            olds.add(id(node.args[0]))
+        for kw in node.keywords:
+            if kw.arg == "replace" and isinstance(kw.value,
+                                                  (ast.List, ast.Tuple)):
+                for pair in kw.value.elts:
+                    if isinstance(pair, ast.Tuple) and pair.elts:
+                        olds.add(id(pair.elts[0]))
+    return olds
+
+
+def _tmp_literals(path: Path) -> list:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    olds = _rewrite_olds(tree)
+    # an f-string's literal parts are read through the f-string itself
+    olds |= {id(v) for n in ast.walk(tree) if isinstance(n, ast.JoinedStr)
+             for v in n.values}
+    found = []
+    for node in ast.walk(tree):
+        if id(node) in olds:
+            continue
+        if isinstance(node, ast.JoinedStr):
+            parts = [v.value for v in node.values
+                     if isinstance(v, ast.Constant)][:1]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            parts = [node.value]
+        else:
+            continue
+        if any(_TMP_LITERAL.search(p) for p in parts) and (
+                not isinstance(node, ast.Constant)
+                or not _is_docstring(tree, node)):
+            found.append(node.lineno)
+    return found
+
+
+def _is_docstring(tree, node) -> bool:
+    for n in ast.walk(tree):
+        if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                          ast.AsyncFunctionDef)) and n.body:
+            first = n.body[0]
+            if isinstance(first, ast.Expr) and first.value is node:
+                return True
+    return False
+
+
+def test_port_tests_write_no_fixed_tmp_path():
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 25
+    bad = {f.name: ln for f in files if (ln := _tmp_literals(f))}
+    assert not bad, f"fixed /tmp literals outside a rewrite: {bad}"
+
+
+def test_fixed_tmp_scan_catches_a_literal(tmp_path):
+    f = tmp_path / "test_torch_x.py"
+    src = ('d = "@T/nh-x-1"\nsrc = s.replace("@T/nh-", d)\n'
+           'm = load(replace=[(\'"@T/a"\', "b", 1)])\n'
+           'e = f"@T/nh-{k}"\n')
+    f.write_text(src.replace("@T", "/" + "tmp"))
+    assert _tmp_literals(f) == [1, 4]

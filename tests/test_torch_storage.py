@@ -23,6 +23,7 @@ from __future__ import annotations
 import io
 import os
 import random
+import tempfile
 import re
 import sys
 import threading
@@ -68,7 +69,8 @@ def load_on_port(filename: str, name: str, *, port: bool = True,
 
     ``replace`` holds ``(old, new, count)`` edits made first, each of
     which must occur exactly ``count`` times.  With a ``tag``, the
-    module's ``/tmp/nh-`` directories become ``/tmp/nh-<tag>-`` (so a
+    module's ``/tmp/nh-`` directories become ``<tmp>/nh-<tag>-``, under
+    ``tempfile.gettempdir()`` (so a
     run never shares a directory with the reference's own test, which
     may run at the same time in another worker), and every sibling
     module it imports (``test_*``, ``raft_harness``) is loaded the same
@@ -85,7 +87,7 @@ def load_on_port(filename: str, name: str, *, port: bool = True,
         assert not re.search(r"^\s*(from|import)\s.*\bdragonboat_tpu\b"
                              r"(?!_torch)", src, re.M), filename
     if tag:
-        src = src.replace("/tmp/nh-", f"/tmp/nh-{tag}-")
+        src = src.replace("/tmp/nh-", f"{tempfile.gettempdir()}/nh-{tag}-")
 
         def sibling(m):
             dep = f"{tag}_{m.group(2)}"
@@ -98,6 +100,30 @@ def load_on_port(filename: str, name: str, *, port: bool = True,
     sys.modules[name] = mod
     exec(compile(src, mod.__file__, "exec"), mod.__dict__)
     return mod
+
+
+@pytest.fixture(scope="module")
+def port_lock_witness():
+    """The port's lock-order witness over a module that asks for it
+    (``pytestmark = pytest.mark.usefixtures("port_lock_witness")``), under
+    the reference's switch (``DRAGONBOAT_TPU_LOCKCHECK``, on in the
+    suite): locks the port creates while it is armed are tracked, and a
+    lock-order cycle fails the module at teardown.  The reference's
+    witness is never armed at the same time (its root is a string prefix
+    of the port's)."""
+    from dragonboat_tpu.analysis import lockcheck as ref_lockcheck
+    from dragonboat_tpu_torch.analysis import lockcheck as port_lockcheck
+
+    if not port_lockcheck.ENABLED:
+        yield None
+        return
+    assert ref_lockcheck.current() is None
+    w = port_lockcheck.install()
+    try:
+        yield w
+    finally:
+        port_lockcheck.uninstall()
+    w.assert_clean()
 
 
 _crash = load_on_port("test_vfs_crash.py", "torch_vfs_crash")
