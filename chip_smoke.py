@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only audit
     python3 chip_smoke.py --only registry,day
     python3 chip_smoke.py --only graft,analysis
+    python3 chip_smoke.py --only pipeline
 
 Phases, each printing one JSON line:
 
@@ -92,6 +93,21 @@ Phases, each printing one JSON line:
                8 workers keep 8 proposals in flight per shard through the
                asynchronous ``propose`` future for 30 s; every
                acknowledged write is read back from all three replicas.
+8b. pipeline — the launch pipeline's contracts (tests/test_pipeline.py:
+               F1 fence, F2 parity, F3 exactly-once, W1 one readback window
+               a generation) on the colocated path at the engine's default
+               depth 2 and fused waves of 3, the sync floor off: (a) the
+               colocated phase's layout (1,000 shards x 3, capacity 4,096,
+               tan WAL) with ``AuditKV``, 8 workers x 8 in-flight proposals a
+               shard for 20 s, the hostplane parity oracle armed and the
+               reference's fence probe on the core; every acknowledged key
+               applied exactly once on every replica, fused waves, overlap,
+               lane rows, a clean close, every kernel of the path launched;
+               (b) the reference's scripted cases on the card at their own
+               geometry (depth 1 serial, the escalation hold, the
+               stop_shard/detach fence, the depth-2 escalation), the probe
+               on every core; ``tests/port_loader.py`` executes
+               ``tests/test_pipeline.py`` with the port's modules.
 9. mesh_engines — both engines' ``mesh=`` modes on ``GroupsMesh([cuda:0]
                * 4)``: (a) the colocated phase's drive for 10 s; (b) the
                same engine at 1,365 shards x 3 = 4,095 rows for 5 s, shards
@@ -2398,6 +2414,67 @@ def device_busy_share(seconds: float) -> dict:
                 top_ms={k[:60]: v / 1e3 for k, v in top})
 
 
+def start_colo_cluster(group, workdir: str, addrs: dict, shards: int,
+                       sm_cls, nhs: dict) -> dict:
+    """NodeHosts at ``addrs`` (the in-proc transport, the tan WAL, the
+    colocated phase's clocks) stepping on ``group``, put into ``nhs`` as
+    they are made, each starting ``shards`` shards of ``sm_cls``; returns
+    once every shard has a leader and a commit.  The kernel launch counts
+    are reset after the NodeHosts are made, before the first replica
+    starts."""
+    from dragonboat_tpu_torch import (
+        Config, EngineConfig, ExpertConfig, NodeHost, NodeHostConfig,
+    )
+    from dragonboat_tpu_torch.native import load_walwriter
+    from dragonboat_tpu_torch.ops import _native
+    from dragonboat_tpu_torch.storage.tan import tan_logdb_factory
+
+    t0 = time.perf_counter()
+    for rid, addr in addrs.items():
+        nhs[rid] = NodeHost(NodeHostConfig(
+            nodehost_dir=os.path.join(workdir, f"nh-{rid}"),
+            rtt_millisecond=COLO_RTT_MS,
+            raft_address=addr,
+            expert=ExpertConfig(
+                engine=EngineConfig(exec_shards=1, apply_shards=4),
+                step_engine_factory=group.factory,
+                logdb_factory=tan_logdb_factory,
+            ),
+        ))
+    out = dict(wal_writer="native" if load_walwriter() is not None
+               else "python")
+    # the colocated path's kernel launches are counted from here on
+    _native.reset_launch_counts()
+    for nh in nhs.values():
+        nh.pause_ticks()
+    for s in range(1, shards + 1):
+        for rid, nh in nhs.items():
+            nh.start_replica(addrs, False, sm_cls, Config(
+                replica_id=rid, shard_id=s,
+                election_rtt=COLO_ELECTION_RTT,
+                heartbeat_rtt=COLO_HEARTBEAT_RTT, pre_vote=True,
+                check_quorum=True, snapshot_entries=0,
+            ))
+    for nh in nhs.values():
+        nh.resume_ticks()
+    out["boot_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deadline = t0 + 240.0
+    while True:
+        covered = sum(
+            1 for s in range(1, shards + 1)
+            if nhs[1]._nodes[s].peer.raft.log.committed >= 1
+            and nhs[1].get_leader_id(s)[1]
+        )
+        if covered == shards:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"leaders on {covered}/{shards} shards")
+        time.sleep(0.25)
+    out["election_s"] = time.perf_counter() - t0
+    return out
+
+
 def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                     window_s: float = COLO_WINDOW_S,
                     profile_s: float = 0.0,
@@ -2422,15 +2499,10 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
     import shutil
     import threading
 
-    from dragonboat_tpu_torch import (
-        Config, EngineConfig, ExpertConfig, IStateMachine, NodeHost,
-        NodeHostConfig, Result,
-    )
+    from dragonboat_tpu_torch import IStateMachine, Result
     from dragonboat_tpu_torch.logger import get_logger
-    from dragonboat_tpu_torch.native import load_walwriter
     from dragonboat_tpu_torch.ops import _native
     from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
-    from dragonboat_tpu_torch.storage.tan import tan_logdb_factory
     from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
 
     class KV(IStateMachine):
@@ -2477,49 +2549,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                reduced=[f"timed window 60 s -> {window_s:g} s"])
     nhs = {}
     try:
-        t0 = time.perf_counter()
-        for rid, addr in addrs.items():
-            nhs[rid] = NodeHost(NodeHostConfig(
-                nodehost_dir=os.path.join(workdir, f"nh-{rid}"),
-                rtt_millisecond=COLO_RTT_MS,
-                raft_address=addr,
-                expert=ExpertConfig(
-                    engine=EngineConfig(exec_shards=1, apply_shards=4),
-                    step_engine_factory=group.factory,
-                    logdb_factory=tan_logdb_factory,
-                ),
-            ))
-        res["wal_writer"] = (
-            "native" if load_walwriter() is not None else "python")
-        # the colocated path's kernel launches are counted from here on
-        _native.reset_launch_counts()
-        for nh in nhs.values():
-            nh.pause_ticks()
-        for s in range(1, shards + 1):
-            for rid, nh in nhs.items():
-                nh.start_replica(addrs, False, KV, Config(
-                    replica_id=rid, shard_id=s,
-                    election_rtt=COLO_ELECTION_RTT,
-                    heartbeat_rtt=COLO_HEARTBEAT_RTT, pre_vote=True,
-                    check_quorum=True, snapshot_entries=0,
-                ))
-        for nh in nhs.values():
-            nh.resume_ticks()
-        res["boot_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        deadline = t0 + 240.0
-        while True:
-            covered = sum(
-                1 for s in range(1, shards + 1)
-                if nhs[1]._nodes[s].peer.raft.log.committed >= 1
-                and nhs[1].get_leader_id(s)[1]
-            )
-            if covered == shards:
-                break
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"leaders on {covered}/{shards} shards")
-            time.sleep(0.25)
-        res["election_s"] = time.perf_counter() - t0
+        res.update(start_colo_cluster(group, workdir, addrs, shards, KV,
+                                      nhs))
 
         def terms():
             return [nhs[1]._nodes[s].peer.raft.term
@@ -2735,6 +2766,379 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             f"the lane carried {st['lane_sent']}, delivered "
             f"{st['lane_delivered']} and dropped "
             f"{st['lane_dropped_xlane']} messages")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the launch pipeline's contracts on the colocated path
+# ---------------------------------------------------------------------------
+# tests/test_pipeline.py's contracts (F1 fence, F2 parity, F3
+# exactly-once, W1 one readback window a generation) at the engine's
+# default pipeline (depth 2, fused waves of 3 rounds: ops/colocated.py
+# :156-174) with the sync floor off, so every generation in flight is in
+# flight on the card
+PIPE_DEPTH, PIPE_ROUNDS = 2, 3
+PIPE_WINDOW_S = 20.0
+PIPE_DRAIN_S = 10.0
+PIPE_MIN_WAVES = 50  # fewer fused waves are reported, the width kept
+PIPE_THREAD_WAIT_S = 10.0
+PIPE_TAG = "cpl"
+# leg (b): the reference's scripted cases at their own geometry, the
+# depth-2 escalation last (ROADMAP §3)
+PIPE_CASES = (
+    ("depth1_serial", "TestPipelineKnobs", "test_depth1_is_serial"),
+    ("escalation_hold", "TestFusedWaves",
+     "test_escalation_hold_fences_to_single_round"),
+    ("stop_detach_fence", "TestPipelineFences",
+     "test_stop_shard_and_detach_fence_exactly_once"),
+    ("escalation_depth2", "TestPipelineFences", "test_escalation_at_depth2"),
+)
+PIPE_STATS = ("launches", "fused_waves", "fused_rounds_stepped",
+              "fused_fences", "pipeline_fences", "pipeline_overlap_s",
+              "readback_windows", "sel_fallbacks", "evict_escalation",
+              "divergence_halts", "lane_rows", "early_completions")
+
+
+def reference_pipeline(dev, tmp: str):
+    """``tests/test_pipeline.py`` executed on the port
+    (``tests/port_loader.py``), its engines on ``dev`` and its
+    directories under ``tmp``: the module, and its colocated siblings."""
+    import tempfile
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from port_loader import load_colocated_siblings, load_on_port
+
+    saved, tempfile.tempdir = tempfile.tempdir, tmp
+    try:
+        sib = load_colocated_siblings(PIPE_TAG, str(dev))
+        pipe = load_on_port("test_pipeline.py", f"{PIPE_TAG}_pipeline",
+                            tag=PIPE_TAG)
+    finally:
+        tempfile.tempdir = saved
+    return pipe, sib
+
+
+def raft_threads() -> set:
+    import threading
+
+    return {t for t in threading.enumerate()
+            if t.name.startswith("tpu-raft-") and t.is_alive()}
+
+
+def pipeline_full_width(dev, workdir: str, pipe,
+                        shards: int = COLO_SHARDS,
+                        window_s: float = PIPE_WINDOW_S) -> dict:
+    """(a) The colocated phase's layout (1,000 shards x 3 on three
+    NodeHosts sharing ONE ``ColocatedEngineGroup`` on the card, the tan
+    WAL) at depth 2 and fused waves of 3 with the sync floor off,
+    ``AuditKV`` as the state machine; ``COLO_WORKERS`` workers keep
+    ``COLO_INFLIGHT`` proposals in flight a shard for ``window_s``
+    seconds with the hostplane parity oracle armed and the reference's
+    fence probe (``arm_fence_probe``) on the core from before the first
+    replica starts.  Returns the gates' figures and a list of the gates
+    that failed."""
+    import shutil
+    import threading
+
+    from dragonboat_tpu_torch.audit import AuditKV, audit_set_cmd
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.ops import _native, hostplane
+    from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
+    from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
+
+    replicas = 3
+    cap = 1 << (shards * replicas - 1).bit_length()
+    geom = dict(capacity=cap, P=3, W=16, M=8, E=4, O=32, budget=4,
+                pipeline_depth=PIPE_DEPTH, fused_rounds=PIPE_ROUNDS,
+                sync_floor_ms=0.0)
+    addrs = {r: f"pipe-nh-{r}" for r in range(1, replicas + 1)}
+    reset_inproc_network()
+    shutil.rmtree(workdir, ignore_errors=True)
+    group = ColocatedEngineGroup(**geom, parity_every=COLO_PARITY_EVERY,
+                                 device=dev)
+    group.factory(None)
+    core = group.core
+    violations = pipe.arm_fence_probe(core)
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    res = dict(shards=shards, replicas=replicas, wal="tan",
+               state_machine="AuditKV", geometry=geom,
+               rtt_ms=COLO_RTT_MS, election_rtt=COLO_ELECTION_RTT,
+               heartbeat_rtt=COLO_HEARTBEAT_RTT, workers=COLO_WORKERS,
+               inflight_per_shard=COLO_INFLIGHT, window_s=window_s,
+               parity_every=COLO_PARITY_EVERY, hostplane_parity=True,
+               reduced=[f"timed window 60 s -> {window_s:g} s"])
+    threads0 = raft_threads()
+    saved_parity = hostplane.PARITY
+    hostplane.PARITY = True
+    parity0 = hostplane.PARITY_FAILURE_COUNT
+    nhs = {}
+    try:
+        res.update(start_colo_cluster(group, workdir, addrs, shards,
+                                      AuditKV, nhs))
+        stop = time.perf_counter() + window_s
+        acked = [dict() for _ in range(COLO_WORKERS)]  # shard -> keys
+        errors = [0] * COLO_WORKERS
+
+        def worker(w):
+            my = list(range(1 + w, shards + 1, COLO_WORKERS))
+            nh = nhs[1 + (w % replicas)]
+            sessions = {s: nh.get_noop_session(s) for s in my}
+            pending = []  # (request, shard, key)
+            seq = 0
+
+            def reap():
+                nonlocal pending
+                still = []
+                for rs, s, k in pending:
+                    if not rs._event.is_set():
+                        still.append((rs, s, k))
+                    elif rs.code == 1:  # COMPLETED
+                        acked[w].setdefault(s, set()).add(k)
+                    else:
+                        errors[w] += 1
+                pending = still
+
+            while time.perf_counter() < stop:
+                reap()
+                by_shard = {}
+                for p_ in pending:
+                    by_shard[p_[1]] = by_shard.get(p_[1], 0) + 1
+                for s in my:
+                    while by_shard.get(s, 0) < COLO_INFLIGHT:
+                        seq += 1
+                        k = f"w{w}-{seq}"
+                        try:
+                            rs = nh.propose(sessions[s],
+                                            audit_set_cmd(k, seq), 30.0)
+                        except Exception:  # noqa: BLE001 — counted
+                            errors[w] += 1
+                            break
+                        pending.append((rs, s, k))
+                        by_shard[s] = by_shard.get(s, 0) + 1
+                time.sleep(0.001)
+            drain_end = time.perf_counter() + PIPE_DRAIN_S
+            while pending and time.perf_counter() < drain_end:
+                reap()
+                time.sleep(0.01)
+            errors[w] += len(pending)
+
+        threads = [threading.Thread(target=worker, args=(w,),
+                                    name=f"smoke-pipe-writer-{w}",
+                                    daemon=True)
+                   for w in range(COLO_WORKERS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=window_s + PIPE_DRAIN_S + 60.0)
+        res["timed_s"] = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+        keys = {}
+        for a in acked:
+            for s, ks in a.items():
+                keys.setdefault(s, set()).update(ks)
+        res.update(committed=sum(len(ks) for ks in keys.values()),
+                   errors=sum(errors))
+        res["committed_per_s"] = res["committed"] / res["timed_s"]
+        # F3: every acknowledged key applied exactly once on every
+        # replica (test_pipeline.py's settle_journals, then its count)
+        t0 = time.perf_counter()
+        end = t0 + 60.0
+        lost = dup = unsettled = 0
+        for s, ks in keys.items():
+            try:
+                journals = pipe.settle_journals(
+                    nhs, s, ks, timeout=max(0.5, end - time.perf_counter()))
+            except AssertionError:
+                unsettled += 1
+                continue
+            if len(journals) != replicas:
+                unsettled += 1
+            for j in journals.values():
+                applied = [k for _, k, _ in j if k in ks]
+                dup += max(0, len(applied) - len(ks))
+                lost += len(ks - set(applied))
+        res["journals"] = dict(shards=len(keys), unsettled=unsettled,
+                               lost=lost, duplicated=dup,
+                               settle_s=time.perf_counter() - t0)
+        # W1: one readback window a generation, read under the core lock
+        with core._lock:
+            st = dict(core.stats)
+            inflight = len(core._inflight)
+        res["w1"] = dict(readback_windows=st["readback_windows"],
+                         inflight=inflight, launches=st["launches"],
+                         sel_fallbacks=st.get("sel_fallbacks", 0))
+        engine_errors = list(errors_logged.lines)
+    finally:
+        hostplane.PARITY = saved_parity
+        engine_log.removeHandler(errors_logged)
+        for nh in nhs.values():
+            nh.pause_ticks()
+        for nh in nhs.values():
+            nh.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    res["closed"] = dict(inflight=len(core._inflight),
+                         deferred=len(core._deferred))
+    end = time.perf_counter() + PIPE_THREAD_WAIT_S
+    while (left := raft_threads() - threads0) and time.perf_counter() < end:
+        time.sleep(0.2)
+    res["closed"]["threads_left"] = sorted(t.name for t in left)
+    res["engine"] = {k: st.get(k, 0) for k in PIPE_STATS}
+    res["probe_violations"] = violations[:3]
+    res["parity_failure_count"] = hostplane.PARITY_FAILURE_COUNT - parity0
+    res["parity"] = {
+        k: [st[f"parity_attempts_{k}"], st[f"parity_checks_{k}"]]
+        for k in COLO_PARITY_KERNELS
+    }
+    res["kernel_launches"] = launches
+    res["engine_errors"] = engine_errors[:3]
+    e, w1 = res["engine"], res["w1"]
+    if e["fused_waves"] < PIPE_MIN_WAVES:
+        res["fewer_waves_than"] = PIPE_MIN_WAVES
+    gates = [
+        ("F1 fence probe", not violations),
+        ("F2 hostplane parity", res["parity_failure_count"] == 0
+         and e["divergence_halts"] == 0),
+        ("F3 exactly-once", res["committed"] > 0 and not (
+            lost or dup or unsettled)),
+        ("W1 one readback window a generation",
+         w1["readback_windows"] + w1["inflight"]
+         == w1["launches"] + w1["sel_fallbacks"]),
+        ("fused waves", e["fused_waves"] > 0
+         and e["fused_rounds_stepped"] >= PIPE_ROUNDS * e["fused_waves"]),
+        ("pipeline overlap", e["pipeline_overlap_s"] > 0),
+        ("lane rows", e["lane_rows"] > 0),
+        ("clean close", not res["closed"]["inflight"]
+         and not res["closed"]["deferred"]
+         and not res["closed"]["threads_left"]),
+        ("path kernels launched",
+         all(launches.get(k, 0) > 0 for k in colo_path_kernels())),
+        ("parity self-check", st["parity_failures"] == 0
+         and all(0 < b == a for a, b in res["parity"].values())),
+        ("engine errors", not engine_errors),
+    ]
+    res["failed"] = [name for name, ok in gates if not ok]
+    return res
+
+
+def pipeline_scripted(pipe, sib) -> dict:
+    """(b) The reference's scripted cases (``PIPE_CASES``) on the card at
+    their own geometry, with the hostplane parity oracle armed and the
+    reference's fence probe on every core from its first launch (a group
+    class that arms it; at depth 1 it also counts the generations left
+    in flight after each step).  A case's own assertions raise."""
+    from dragonboat_tpu_torch.ops import hostplane
+
+    groups = []
+    base = pipe.ColocatedEngineGroup
+
+    class ProbedGroup(base):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.violations = None
+            self.steps = self.left_inflight = 0
+            groups.append(self)
+
+        def factory(self, nodehost):
+            facade = super().factory(nodehost)
+            with self._lock:
+                if self.violations is None:
+                    core = self._core
+                    self.violations = pipe.arm_fence_probe(core)
+                    step = core._step_colocated
+
+                    def counted(nodes, worker_id):
+                        step(nodes, worker_id)
+                        self.steps += 1
+                        self.left_inflight += bool(core._inflight)
+
+                    core._step_colocated = counted
+            return facade
+
+    from port_loader import leader_off_first_row
+
+    tcc = sib["test_chaos_colocated"]
+    wait = pipe.wait_for_leader
+    saved_parity = hostplane.PARITY
+    hostplane.PARITY = True
+    pipe.ColocatedEngineGroup = tcc.ColocatedEngineGroup = ProbedGroup
+    res = {}
+    try:
+        for name, cls, meth in PIPE_CASES:
+            del groups[:]
+            before = hostplane.PARITY_FAILURE_COUNT
+            t0 = time.perf_counter()
+            # the hold case's leader kept off the row it holds, as the
+            # CPU test keeps it (tests/port_loader.py)
+            pipe.wait_for_leader = (leader_off_first_row(wait) if
+                                    name == "escalation_hold" else wait)
+            getattr(getattr(pipe, cls)(), meth)()
+            cores = [g.core for g in groups if g.core is not None]
+            row = dict(s=time.perf_counter() - t0,
+                       depth=[c._pipeline_depth for c in cores],
+                       parity_failure_count=(
+                           hostplane.PARITY_FAILURE_COUNT - before),
+                       probe_violations=[v for g in groups
+                                         for v in g.violations or ()][:3],
+                       steps=sum(g.steps for g in groups),
+                       steps_left_inflight=sum(g.left_inflight
+                                               for g in groups))
+            row.update({k: sum(c.stats.get(k, 0) for c in cores)
+                        for k in PIPE_STATS})
+            res[name] = row
+            if row["probe_violations"] or row["parity_failure_count"]:
+                raise AssertionError(f"pipeline {name}: {row}")
+            if name == "depth1_serial" and (
+                    row["steps"] < 1 or row["steps_left_inflight"]):
+                raise AssertionError(f"pipeline {name}: {row}")
+    finally:
+        hostplane.PARITY = saved_parity
+        pipe.ColocatedEngineGroup = tcc.ColocatedEngineGroup = base
+        pipe.wait_for_leader = wait
+    return res
+
+
+def pipeline_phase(dev, workdir: str) -> dict:
+    """(a) ``pipeline_full_width`` then (b) ``pipeline_scripted``; every
+    gate of (a) is checked after (b) has run too, and a failed gate
+    prints the phase's numbers to stderr as one JSON line before the
+    exception."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    tmp = os.path.join(workdir, "tmp")
+    os.makedirs(tmp)
+    res = {}
+    try:
+        pipe, sib = reference_pipeline(dev, tmp)
+        t0 = time.perf_counter()
+        res["full_width"] = pipeline_full_width(
+            dev, os.path.join(workdir, "full"), pipe)
+        res["full_width_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["scripted"] = pipeline_scripted(pipe, sib)
+        res["scripted_s"] = time.perf_counter() - t0
+        res["reference_loaded"] = sorted(
+            m for m in sys.modules
+            if m == "jax" or m.startswith(("jax.", "jaxlib"))
+            or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
+        failed = res["full_width"]["failed"]
+        if res["reference_loaded"]:
+            failed = failed + ["imports the reference"]
+        if failed:
+            raise AssertionError(f"pipeline gates failed: {failed}")
+    except BaseException:
+        print(json.dumps(dict(phase="pipeline", failed=True, **res),
+                         default=str), file=sys.stderr, flush=True)
+        raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res["kernel_launches"] = res["full_width"]["kernel_launches"]
     return res
 
 
@@ -3695,8 +4099,8 @@ def main(argv) -> int:
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
              "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
-             "colocated, mesh_engines, audit, registry, day, graft, "
-             "analysis) without the "
+             "colocated, pipeline, mesh_engines, audit, registry, day, "
+             "graft, analysis) without the "
              "result lines; "
              "default: "
              "all",
@@ -3761,6 +4165,9 @@ def main(argv) -> int:
         colo = run("colocated", colocated_phase, dev,
                    os.path.join(scratch, f"colo-{os.getpid()}"),
                    profile_s=args.profile_colocated)
+    if want("pipeline"):
+        pipe = run("pipeline", pipeline_phase, dev,
+                   os.path.join(scratch, f"pipe-{os.getpid()}"))
     if want("mesh_engines"):
         mesh = run("mesh_engines", mesh_engines_phase, dev,
                    os.path.join(scratch, f"mesh-{os.getpid()}"))
@@ -3916,6 +4323,8 @@ def main(argv) -> int:
         row["launches_mesh_nodehost"] = m_nh.get(row["name"], 0)
         row["launches_audit"] = aud["kernel_launches"].get(row["name"], 0)
         row["launches_day"] = day["kernel_launches"].get(row["name"], 0)
+        row["launches_pipeline"] = pipe["kernel_launches"].get(
+            row["name"], 0)
         row["launches_registry"] = reg["launches"].get(row["name"], 0)
         row["launches_graft"] = graft["kernel_launches"].get(row["name"], 0)
         if row["name"] == "xlane_pack":

@@ -20,7 +20,12 @@
 * no port test writes a fixed ``/tmp`` path: every ``"/tmp/...`` literal
   in ``tests/test_torch_*.py`` is the old side of a rewrite (a
   ``replace=`` pair of ``load_on_port`` or a ``str.replace``), so a
-  checkout's own ``TMPDIR`` holds everything its tests write.
+  checkout's own ``TMPDIR`` holds everything its tests write;
+* the loader of the reference's test modules (``tests/port_loader.py``)
+  rewrites every sibling import, ``from test_x import`` and ``import
+  test_x [as y]`` at any indent, refuses a ``dragonboat_tpu`` import it
+  cannot rewrite, and its namespace scan finds a reference name left in
+  a loaded module.
 """
 from __future__ import annotations
 
@@ -247,3 +252,61 @@ def test_fixed_tmp_scan_catches_a_literal(tmp_path):
            'e = f"@T/nh-{k}"\n')
     f.write_text(src.replace("@T", "/" + "tmp"))
     assert _tmp_literals(f) == [1, 4]
+
+
+def test_loader_rewrites_sibling_imports_at_any_indent():
+    from port_loader import port_source
+
+    loaded = []
+    src = ("import test_chaos_colocated as tcc\n"
+           "def f():\n"
+           "    import test_nodehost\n"
+           "    import raft_harness as rh\n"
+           "    from test_nodehost import set_cmd\n"
+           "    from dragonboat_tpu import Fault\n"
+           "    import test_nodehost_x, os\n")
+    got = port_source(src, tag="zz",
+                      load_sibling=lambda f, n: loaded.append((f, n)))
+    assert got.splitlines() == [
+        "import zz_test_chaos_colocated as tcc",
+        "def f():",
+        "    import zz_test_nodehost as test_nodehost",
+        "    import zz_raft_harness as rh",
+        "    from zz_test_nodehost import set_cmd",
+        "    from dragonboat_tpu_torch import Fault",
+        "    import test_nodehost_x, os",
+    ]
+    assert ("test_chaos_colocated.py", "zz_test_chaos_colocated") in loaded
+    assert ("raft_harness.py", "zz_raft_harness") in loaded
+    # without a tag, siblings are left to the ordinary import system
+    assert "import test_chaos_colocated as tcc" in port_source(src)
+
+
+@pytest.mark.parametrize("line", [
+    "    import os, dragonboat_tpu.ops.hostplane as hp",
+    "import json, dragonboat_tpu as ref",
+])
+def test_loader_refuses_a_reference_import_it_cannot_rewrite(line):
+    from port_loader import port_source
+
+    with pytest.raises(AssertionError):
+        port_source(f"def f():\n{line}\n", "t.py")
+
+
+def test_port_only_scan_catches_a_reference_name():
+    import types
+
+    from dragonboat_tpu.ops import hostplane as ref_hp
+    from port_loader import assert_port_only
+
+    mod = types.ModuleType("zz_loaded")
+    exec("from dragonboat_tpu_torch.ops import hostplane as hp\n"
+         "import numpy as np\n", mod.__dict__)
+    assert_port_only(mod)
+    mod.hp2 = ref_hp
+    with pytest.raises(AssertionError):
+        assert_port_only(mod)
+    del mod.hp2
+    mod.Plan = ref_hp.UpdateSyncPlan
+    with pytest.raises(AssertionError):
+        assert_port_only(mod)

@@ -23,13 +23,8 @@ from __future__ import annotations
 import io
 import os
 import random
-import tempfile
-import re
-import sys
 import threading
 import time
-import types
-from pathlib import Path
 
 import pytest
 
@@ -55,51 +50,7 @@ from test_torch_engine import (
     wait_for_leader,
 )
 
-TESTS = Path(__file__).resolve().parent
-
-
-_SIBLING = re.compile(r"^(\s*)from (test_\w+|raft_harness) import", re.M)
-
-
-def load_on_port(filename: str, name: str, *, port: bool = True,
-                 tag: str = "", replace=()) -> types.ModuleType:
-    """A module of the reference's suite, executed from its source with
-    every ``dragonboat_tpu`` import taken from the port (``port=False``
-    keeps the reference's, for a side-by-side run of the same source).
-
-    ``replace`` holds ``(old, new, count)`` edits made first, each of
-    which must occur exactly ``count`` times.  With a ``tag``, the
-    module's ``/tmp/nh-`` directories become ``<tmp>/nh-<tag>-``, under
-    ``tempfile.gettempdir()`` (so a
-    run never shares a directory with the reference's own test, which
-    may run at the same time in another worker), and every sibling
-    module it imports (``test_*``, ``raft_harness``) is loaded the same
-    way as ``<tag>_<module>``."""
-    if name in sys.modules:
-        return sys.modules[name]
-    src = (TESTS / filename).read_text()
-    for old, new, count in replace:
-        assert src.count(old) == count, (filename, old, src.count(old))
-        src = src.replace(old, new)
-    if port:
-        src = re.sub(r"\b(from|import) dragonboat_tpu\b",
-                     r"\1 dragonboat_tpu_torch", src)
-        assert not re.search(r"^\s*(from|import)\s.*\bdragonboat_tpu\b"
-                             r"(?!_torch)", src, re.M), filename
-    if tag:
-        src = src.replace("/tmp/nh-", f"{tempfile.gettempdir()}/nh-{tag}-")
-
-        def sibling(m):
-            dep = f"{tag}_{m.group(2)}"
-            load_on_port(f"{m.group(2)}.py", dep, port=port, tag=tag)
-            return f"{m.group(1)}from {dep} import"
-
-        src = _SIBLING.sub(sibling, src)
-    mod = types.ModuleType(name)
-    mod.__file__ = str(TESTS / filename)
-    sys.modules[name] = mod
-    exec(compile(src, mod.__file__, "exec"), mod.__dict__)
-    return mod
+from port_loader import load_on_port  # noqa: F401 (re-exported)
 
 
 @pytest.fixture(scope="module")
