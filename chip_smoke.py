@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only registry,day
     python3 chip_smoke.py --only graft,analysis
     python3 chip_smoke.py --only pipeline
+    python3 chip_smoke.py --only scale [--scale-shards 10000]
 
 Phases, each printing one JSON line:
 
@@ -91,8 +92,12 @@ Phases, each printing one JSON line:
                1,000 shards x 3 replicas on three NodeHosts sharing ONE
                ``ColocatedEngineGroup(device="cuda")`` with the tan WAL;
                8 workers keep 8 proposals in flight per shard through the
-               asynchronous ``propose`` future for 30 s; every
-               acknowledged write is read back from all three replicas.
+               asynchronous ``propose`` future for 30 s, after 5 s of the
+               same drive as warm-up traffic; every acknowledged write is
+               read back from all three replicas.  The post-warm-up
+               sentry (``analysis/jitcheck.py``) is marked after the
+               warm-up: the window must build nothing and make no
+               allocator retry, device allocation or pinned allocation.
 8b. pipeline — the launch pipeline's contracts (tests/test_pipeline.py:
                F1 fence, F2 parity, F3 exactly-once, W1 one readback window
                a generation) on the colocated path at the engine's default
@@ -108,6 +113,27 @@ Phases, each printing one JSON line:
                stop_shard/detach fence, the depth-2 escalation), the probe
                on every core; ``tests/port_loader.py`` executes
                ``tests/test_pipeline.py`` with the port's modules.
+8c. scale    — the reference's scale path (tests/test_scale.py's
+               ``run_scale``, executed on the port by
+               ``tests/port_loader.py``) on ONE
+               ``ColocatedEngineGroup(device="cuda")``, on-disk state
+               machines, capacity = pow2(rows), W=16, M=8, E=2, O=32,
+               budget 8, rtt 50 ms, parity self-check every 20th launch:
+               (a) BASELINE config 3, 2,000 shards x 5 replicas on 5
+               NodeHosts (P = 5, capacity 16,384; ``--scale-shards N``
+               sets the count, 10,000 is the config's own), 100 sampled
+               proposals, 5 leader kills, cold where the shard parks;
+               (b) config 4's ragged 3/5/7 memberships, 1,050 shards on 7
+               NodeHosts (P = 7, capacity 8,192), 2 kills.  The
+               reference's gates (coverage >= 98%, committed >= 90%,
+               every kill re-elected, no leaked future) and the port's
+               (no divergence halt, every parity check passed, every
+               path kernel launched, no engine error).  Leg (a) arms the
+               post-warm-up sentry (``analysis/jitcheck.py``): marked
+               when the propose window opens, after the election storm;
+               no build or allocator retry after the mark, no device or
+               pinned allocation in the propose window; the storm's and
+               the churn's counts are reported.
 9. mesh_engines — both engines' ``mesh=`` modes on ``GroupsMesh([cuda:0]
                * 4)``: (a) the colocated phase's drive for 10 s; (b) the
                same engine at 1,365 shards x 3 = 4,095 rows for 5 s, shards
@@ -2274,6 +2300,17 @@ COLO_INFLIGHT = 8
 # heartbeat_rtt 2
 COLO_RTT_MS, COLO_ELECTION_RTT, COLO_HEARTBEAT_RTT = 20, 20, 2
 COLO_PARITY_EVERY = 20
+# the post-warm-up sentry (analysis/jitcheck.py): the colocated window's
+# warm-up traffic, and the counters whose growth after the mark fails a
+# gated window (cuda.sync_all_streams is reported only)
+COLO_SENTRY_WARM_S = 5.0
+SENTRY_GATED = ("native.builds", "cuda.alloc_retries", "cuda.device_alloc",
+                "cuda.host_alloc")
+
+
+def sentry_stalls(rows, gated) -> list:
+    """The sentry's (name, at mark, now) rows of the ``gated`` counters."""
+    return [r for r in rows if r[0] in gated]
 COLO_PARITY_KERNELS = ("raft_step", "summarize_flags", "gather_pack",
                        "merge_escalated", "route", "inbox",
                        "select_and_blob")
@@ -2479,7 +2516,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                     window_s: float = COLO_WINDOW_S,
                     profile_s: float = 0.0,
                     parity_kernels: tuple = COLO_PARITY_KERNELS,
-                    mesh=None, need_lane: bool = False) -> dict:
+                    mesh=None, need_lane: bool = False,
+                    sentry: bool = False) -> dict:
     """1,000 shards x 3 replicas on three NodeHosts in one process (the
     in-proc transport), all stepped by ONE ``ColocatedEngineGroup`` on
     the card with the tan WAL; phase C's drive: ``COLO_WORKERS`` workers
@@ -2494,12 +2532,19 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
     ``mesh`` (a ``GroupsMesh``) runs the engine in mesh mode: its rows
     cut into the mesh's blocks, cross-block traffic on the lane (whose
     two kernels join the parity and launch checks); ``need_lane``
-    requires that the lane carried messages and dropped none."""
+    requires that the lane carried messages and dropped none.
+
+    ``sentry`` arms the post-warm-up sentry (``analysis/jitcheck.py``):
+    after the election, the window's drive runs ``COLO_SENTRY_WARM_S``
+    seconds as warm-up traffic (its writes are read back too), the
+    sentry is marked, and the window must then build nothing and make
+    no allocator retry, device allocation or pinned host allocation."""
     import pickle
     import shutil
     import threading
 
     from dragonboat_tpu_torch import IStateMachine, Result
+    from dragonboat_tpu_torch.analysis import jitcheck
     from dragonboat_tpu_torch.logger import get_logger
     from dragonboat_tpu_torch.ops import _native
     from dragonboat_tpu_torch.ops.colocated import ColocatedEngineGroup
@@ -2533,6 +2578,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
     geom = dict(capacity=cap, P=3, W=16, M=8, E=4, O=32, budget=4)
     if mesh is not None:
         parity_kernels = parity_kernels + ("xlane_pack", "xlane_scatter")
+    sentry_was = jitcheck.ENABLED
+    jitcheck.enable(sentry or sentry_was)
     group = ColocatedEngineGroup(
         **geom, parity_every=COLO_PARITY_EVERY,
         **(dict(device=dev) if mesh is None else dict(mesh=mesh)))
@@ -2556,16 +2603,19 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             return [nhs[1]._nodes[s].peer.raft.term
                     for s in range(1, shards + 1)]
 
-        term0 = terms()
-        stats0 = group.core.stats_snapshot()
-        stop = time.perf_counter() + window_s
-        acked = [dict() for _ in range(COLO_WORKERS)]
-        lat_ms = [[] for _ in range(COLO_WORKERS)]
-        errors = [0] * COLO_WORKERS
+        stop = 0.0  # set when the window starts
+        win = dict(acked=[dict() for _ in range(COLO_WORKERS)],
+                   lat=[[] for _ in range(COLO_WORKERS)],
+                   errors=[0] * COLO_WORKERS)
+        acked, lat_ms, errors = win["acked"], win["lat"], win["errors"]
         probe_ms = []
         probe_acked = {}
 
         def worker(w):
+            drive(w, stop, win, "w")
+
+        def drive(w, stop, sink, prefix):
+            acked, lat_ms, errors = sink["acked"], sink["lat"], sink["errors"]
             my = list(range(1 + w, shards + 1, COLO_WORKERS))
             nh = nhs[1 + (w % replicas)]
             sessions = {s: nh.get_noop_session(s) for s in my}
@@ -2595,7 +2645,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                 for s in my:
                     while by_shard.get(s, 0) < COLO_INFLIGHT:
                         seq += 1
-                        k = f"w{w}-{seq}"
+                        k = f"{prefix}{w}-{seq}"
                         v = seq.to_bytes(8, "little") * 2
                         try:
                             rs = nh.propose(sessions[s], pickle.dumps((k, v)),
@@ -2631,6 +2681,41 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                 probe_ms.append((time.perf_counter() - t1) * 1e3)
                 probe_acked[(s, k)] = b"p"
 
+        warm_acked = {}
+        if sentry:
+            # warm-up traffic: the window's own drive, before the mark
+            t0 = time.perf_counter()
+            warm = dict(acked=[dict() for _ in range(COLO_WORKERS)],
+                        lat=[[] for _ in range(COLO_WORKERS)],
+                        errors=[0] * COLO_WORKERS)
+            warm_stop = t0 + COLO_SENTRY_WARM_S
+            threads = [threading.Thread(
+                target=drive, args=(w, warm_stop, warm, "warm"),
+                name=f"smoke-colo-warm-{w}", daemon=True)
+                for w in range(COLO_WORKERS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=COLO_SENTRY_WARM_S + 90.0)
+            for a in warm["acked"]:
+                warm_acked.update(a)
+            st = group.core.stats_snapshot()
+            res["sentry"] = dict(
+                warm_s=time.perf_counter() - t0,
+                warm_acked=len(warm_acked),
+                warm_launches=st["launches"],
+                warm_fused_waves=st["fused_waves"],
+                warm_parity_checks=st["parity_checks_raft_step"],
+                since_engine_warm=jitcheck.retraces())
+            if st["parity_checks_raft_step"] < 1 or st["fused_waves"] < 1:
+                raise AssertionError(
+                    f"the sentry's warm-up ran no parity check or no fused "
+                    f"wave: {res['sentry']}")
+            jitcheck.mark_warm()
+            res["sentry"]["at_mark"] = jitcheck._DEFAULT.snapshot()
+        term0 = terms()
+        stats0 = group.core.stats_snapshot()
+        stop = time.perf_counter() + window_s
         threads = [threading.Thread(target=worker, args=(w,),
                                     name=f"smoke-colo-writer-{w}", daemon=True)
                    for w in range(COLO_WORKERS)]
@@ -2649,6 +2734,8 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             for t in threads:
                 t.join(timeout=window_s + 90.0)
         dt = time.perf_counter() - t0
+        if sentry:
+            res["sentry"]["window"] = jitcheck.retraces()
         res["gpu_utilization"] = util.summary()
         res["host_stacks"] = stacks.summary()
         stats1 = group.core.stats_snapshot()
@@ -2678,7 +2765,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
         # every acknowledged write, read back from all three replicas'
         # state machines (polled until each replica has applied it)
         by_shard = {}
-        for (s, k), v in all_acked.items():
+        for (s, k), v in list(all_acked.items()) + list(warm_acked.items()):
             by_shard.setdefault(s, {})[k] = v
         t0 = time.perf_counter()
         missing = 0
@@ -2707,6 +2794,7 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
                 len({core.device_coordinate(s, r) for r in nhs}) > 1
                 for s in range(1, shards + 1))
     finally:
+        jitcheck.enable(sentry_was)
         engine_log.removeHandler(errors_logged)
         for nh in nhs.values():
             nh.pause_ticks()
@@ -2766,6 +2854,14 @@ def colocated_phase(dev, workdir: str, shards: int = COLO_SHARDS,
             f"the lane carried {st['lane_sent']}, delivered "
             f"{st['lane_delivered']} and dropped "
             f"{st['lane_dropped_xlane']} messages")
+    if sentry:
+        stalls = sentry_stalls(res["sentry"]["window"], SENTRY_GATED)
+        if stalls:
+            print(json.dumps(dict(phase="colocated", sentry=res["sentry"])),
+                  file=sys.stderr, flush=True)
+            raise AssertionError(
+                "post-warm-up stalls in the colocated window:\n"
+                + jitcheck.format_retraces(stalls))
     return res
 
 
@@ -3139,6 +3235,267 @@ def pipeline_phase(dev, workdir: str) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     res["kernel_launches"] = res["full_width"]["kernel_launches"]
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the scale path (BASELINE configs 3 and 4)
+# ---------------------------------------------------------------------------
+# tests/test_scale.py's run_scale on the port: every replica of every
+# shard on ONE ColocatedEngineGroup, on-disk state machines, capacity =
+# pow2(rows), W=16, M=8, E=2, O=32, budget 8, rtt 50 ms, sampled
+# proposals, then leader kills that prefer a cold (quiesce-parked) shard
+SCALE_TAG = "csc"
+SCALE_SHARDS_A = 2000     # config 3's 10,000 shards x 5, cut
+SCALE_SHARDS_B = 1050     # config 4's 100k ragged shards, cut
+SCALE_PROPOSALS = 100
+SCALE_CHURN_A, SCALE_CHURN_B = 5, 2
+SCALE_PARITY_EVERY = 20
+# run_scale waits for full leader coverage up to max(300 s, 0.3 s a
+# shard); the phase caps that wait (the gate is 98% coverage)
+SCALE_ELECTION_WAIT_S = 120.0
+SCALE_STATS = ("launches", "device_steps", "device_rows_stepped",
+               "host_rows_stepped", "escalations", "divergence_halts",
+               "fused_waves", "routed_delivered", "routed_dropped",
+               "routed_dropped_budget", "routed_dropped_ring",
+               "routed_host_carried", "sel_fallbacks", "evict_host_plan",
+               "parity_failures", "t_device_ms", "t_updates_ms")
+
+
+def reference_scale(tmp: str, mixed: bool):
+    """``tests/test_scale.py`` executed on the port (``port_loader``), its
+    directories under ``tmp``, with ``SCALE_MIXED`` set for config 4.
+    The edits: the on-disk state machines' ``/tmp/scale-sm`` under
+    ``tmp``; the import of the reference's vector engine factory naming
+    the port's; the election wait capped by ``SCALE_ELECTION_WAIT_S``
+    (a module global the phase sets)."""
+    import tempfile
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from port_loader import load_on_port
+
+    tag = f"{SCALE_TAG}{4 if mixed else 3}"
+    saved, tempfile.tempdir = tempfile.tempdir, tmp
+    saved_env = os.environ.get("SCALE_MIXED")
+    os.environ["SCALE_MIXED"] = "1" if mixed else "0"
+    try:
+        mod = load_on_port(
+            "test_scale.py", f"{tag}_scale", tag=tag,
+            replace=[
+                ("/tmp/scale-sm", os.path.join(tmp, "scale-sm"), 2),
+                ("from dragonboat_tpu.ops.engine import "
+                 "vector_step_engine_factory",
+                 "from dragonboat_tpu.ops.engine import "
+                 "torch_step_engine_factory as vector_step_engine_factory",
+                 1),
+                ("deadline = time.time() + max(300.0, shards * 0.3)",
+                 "deadline = time.time() + min(SCALE_ELECTION_WAIT_S, "
+                 "max(300.0, shards * 0.3))", 1),
+            ])
+    finally:
+        tempfile.tempdir = saved
+        if saved_env is None:
+            os.environ.pop("SCALE_MIXED", None)
+        else:
+            os.environ["SCALE_MIXED"] = saved_env
+    return mod
+
+
+def scale_leg(dev, mod, shards: int, churn: int, sentry: bool,
+              election_wait_s: float) -> dict:
+    """One ``run_scale`` of ``mod`` on ``ColocatedEngineGroup(device=dev,
+    parity_every=SCALE_PARITY_EVERY)``; returns the reference's report
+    (its engine stats cut to ``SCALE_STATS``), the port's figures and a
+    list of the gates that failed.  ``sentry`` arms the post-warm-up
+    sentry: the election storm is the warm-up traffic, the mark is the
+    start of the propose window (the first ``LatencyBudget``), the
+    window ends with the last proposal, and the churn follows."""
+    import contextlib
+    import threading
+
+    from dragonboat_tpu_torch.analysis import jitcheck
+    from dragonboat_tpu_torch.logger import get_logger
+    from dragonboat_tpu_torch.ops import _native
+
+    groups = []
+    base = mod.ColocatedEngineGroup
+
+    class ScaleGroup(base):
+        def __init__(self, **kw):
+            super().__init__(device=dev, parity_every=SCALE_PARITY_EVERY,
+                             **kw)
+            groups.append((self, dict(kw)))
+
+    tiers = {}
+    stop = threading.Event()
+
+    def watch_tiers():
+        while not stop.wait(0.05):
+            if groups and groups[0][0].core is not None:
+                t = groups[0][0].core._sel_tier
+                tiers[t] = tiers.get(t, 0) + 1
+
+    sent = dict(window=None, proposals=0)
+    sentry_lock = threading.Lock()
+    win = jitcheck.Sentry()
+    budget_cls = mod.LatencyBudget
+    propose = mod.propose_with_retry
+
+    def budget_at_window(*a, **kw):
+        # the propose window starts: the storm's growth, then the mark
+        sent["storm"] = jitcheck.retraces()
+        win.mark()
+        sent["at_mark"] = dict(win._snap)
+        return budget_cls(*a, **kw)
+
+    def propose_read(*a, **kw):
+        try:
+            return propose(*a, **kw)
+        finally:
+            snap = win.snapshot()
+            with sentry_lock:
+                sent["window"] = snap
+                sent["proposals"] += 1
+
+    errors_logged = ErrorRecords()
+    engine_log = get_logger("engine")
+    engine_log.addHandler(errors_logged)
+    sentry_was = jitcheck.ENABLED
+    jitcheck.enable(sentry or sentry_was)
+    mod.ColocatedEngineGroup = ScaleGroup
+    mod.SCALE_ELECTION_WAIT_S = election_wait_s
+    if sentry:
+        mod.LatencyBudget = budget_at_window
+        mod.propose_with_retry = propose_read
+    watcher = threading.Thread(target=watch_tiers, name="smoke-scale-tiers",
+                               daemon=True)
+    _native.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        watcher.start()
+        with UtilizationSampler() as util, \
+                contextlib.redirect_stdout(sys.stderr):
+            report = mod.run_scale(shards, engine="colocated",
+                                   proposals=SCALE_PROPOSALS,
+                                   churn_kills=churn)
+        end_snap = win.snapshot() if sentry else None
+    finally:
+        stop.set()
+        watcher.join()
+        jitcheck.enable(sentry_was)
+        engine_log.removeHandler(errors_logged)
+        mod.ColocatedEngineGroup = base
+        mod.LatencyBudget = budget_cls
+        mod.propose_with_retry = propose
+    launches = dict(_native.LAUNCHES)
+    [(group, kw)] = groups
+    st = dict(group.core.stats)
+    res = {k: v for k, v in report.items() if k != "engine_stats"}
+    res.update(
+        run_s=time.perf_counter() - t0,
+        geometry=dict(kw, device=str(dev), parity_every=SCALE_PARITY_EVERY),
+        engine={k: st.get(k, 0) for k in SCALE_STATS},
+        parity={k: [st[f"parity_attempts_{k}"], st[f"parity_checks_{k}"]]
+                for k in COLO_PARITY_KERNELS},
+        tiers_sampled=dict(sorted(tiers.items())),
+        gpu_utilization=util.summary(),
+        kernel_launches=launches,
+        engine_errors=errors_logged.lines[:3])
+    gates = [
+        ("leader coverage >= 98%",
+         report["leader_coverage"] >= shards * 0.98),
+        ("committed >= 90% of attempted",
+         report["proposals_committed"]
+         >= report["proposals_attempted"] * 0.9),
+        ("device rows stepped", st["device_rows_stepped"] > 0),
+        ("divergence halts", st["divergence_halts"] == 0),
+        ("parity self-check", st["parity_failures"] == 0
+         and group.core.parity_failure is None
+         and all(0 < b == a for a, b in res["parity"].values())),
+        ("path kernels launched",
+         all(launches.get(k, 0) > 0 for k in colo_path_kernels())),
+        ("engine errors", not errors_logged.lines),
+    ]
+    if churn:
+        ch = report["churn"]
+        gates += [
+            ("re-elected every kill",
+             ch["reelected"] == ch["kills"] >= max(1, churn - 1)),
+            ("leaked futures", ch["leaked_futures"] == 0),
+        ]
+    if sentry:
+        def growth(a, b):
+            return [(k, a[k], b[k]) for k in a if b[k] > a[k]]
+
+        at_mark = sent.get("at_mark")
+        window = sent["window"] or at_mark
+        res["sentry"] = dict(
+            storm=sent.get("storm"), proposals_read=sent["proposals"],
+            window=growth(at_mark, window) if at_mark else None,
+            churn=growth(window, end_snap) if at_mark else None,
+            after_mark=growth(at_mark, end_snap) if at_mark else None)
+        after = res["sentry"]["after_mark"] or []
+        gates += [
+            ("sentry marked at the propose window", at_mark is not None),
+            ("no build or allocator retry after the mark",
+             not sentry_stalls(after, ("native.builds",
+                                       "cuda.alloc_retries"))),
+            ("no device or pinned allocation in the propose window",
+             not sentry_stalls(res["sentry"]["window"] or [],
+                               ("cuda.device_alloc", "cuda.host_alloc"))),
+        ]
+    res["failed"] = [name for name, ok in gates if not ok]
+    return res
+
+
+def scale_phase(dev, workdir: str, shards_a: int = SCALE_SHARDS_A,
+                shards_b: int = SCALE_SHARDS_B) -> dict:
+    """(a) config 3: ``shards_a`` shards x 5 on 5 NodeHosts, P = 5, 5
+    leader kills, the post-warm-up sentry armed; (b) config 4's ragged
+    3/5/7 memberships: ``shards_b`` shards on 7 NodeHosts, P = 7, 2
+    leader kills.  Every gate of both legs is checked after both ran;
+    a failed gate prints the phase's numbers to stderr as one JSON line
+    before the exception."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    res = {}
+    try:
+        for leg, mixed, shards, churn in (("a", False, shards_a,
+                                           SCALE_CHURN_A),
+                                          ("b", True, shards_b,
+                                           SCALE_CHURN_B)):
+            tmp = os.path.join(workdir, leg)
+            os.makedirs(tmp)
+            mod = reference_scale(tmp, mixed)
+            wait = max(SCALE_ELECTION_WAIT_S, shards * 0.03)
+            res[leg] = scale_leg(dev, mod, shards, churn,
+                                 sentry=not mixed, election_wait_s=wait)
+            shutil.rmtree(tmp, ignore_errors=True)
+        res["reference_loaded"] = sorted(
+            m for m in sys.modules
+            if m == "jax" or m.startswith(("jax.", "jaxlib"))
+            or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
+        failed = [f"{leg}: {g}" for leg in ("a", "b")
+                  for g in res[leg]["failed"]]
+        if res["reference_loaded"]:
+            failed.append("imports the reference")
+        if failed:
+            raise AssertionError(f"scale gates failed: {failed}")
+    except BaseException:
+        print(json.dumps(dict(phase="scale", failed=True, **res),
+                         default=str), file=sys.stderr, flush=True)
+        raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res["kernel_launches"] = {
+        k: res["a"]["kernel_launches"].get(k, 0)
+        + res["b"]["kernel_launches"].get(k, 0)
+        for k in set(res["a"]["kernel_launches"])
+        | set(res["b"]["kernel_launches"])}
     return res
 
 
@@ -4096,11 +4453,16 @@ def main(argv) -> int:
              "seconds of the colocated window (slows the host)",
     )
     ap.add_argument(
+        "--scale-shards", type=int, default=SCALE_SHARDS_A, metavar="N",
+        help="shards of the scale phase's leg (a), BASELINE config 3 "
+             f"(default {SCALE_SHARDS_A}; its full size is 10000)",
+    )
+    ap.add_argument(
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
              "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
-             "colocated, pipeline, mesh_engines, audit, registry, day, "
-             "graft, analysis) without the "
+             "colocated, pipeline, scale, mesh_engines, audit, registry, "
+             "day, graft, analysis) without the "
              "result lines; "
              "default: "
              "all",
@@ -4164,10 +4526,14 @@ def main(argv) -> int:
     if want("colocated"):
         colo = run("colocated", colocated_phase, dev,
                    os.path.join(scratch, f"colo-{os.getpid()}"),
-                   profile_s=args.profile_colocated)
+                   profile_s=args.profile_colocated, sentry=True)
     if want("pipeline"):
         pipe = run("pipeline", pipeline_phase, dev,
                    os.path.join(scratch, f"pipe-{os.getpid()}"))
+    if want("scale"):
+        scale = run("scale", scale_phase, dev,
+                    os.path.join(scratch, f"scale-{os.getpid()}"),
+                    shards_a=args.scale_shards)
     if want("mesh_engines"):
         mesh = run("mesh_engines", mesh_engines_phase, dev,
                    os.path.join(scratch, f"mesh-{os.getpid()}"))
@@ -4325,6 +4691,7 @@ def main(argv) -> int:
         row["launches_day"] = day["kernel_launches"].get(row["name"], 0)
         row["launches_pipeline"] = pipe["kernel_launches"].get(
             row["name"], 0)
+        row["launches_scale"] = scale["kernel_launches"].get(row["name"], 0)
         row["launches_registry"] = reg["launches"].get(row["name"], 0)
         row["launches_graft"] = graft["kernel_launches"].get(row["name"], 0)
         if row["name"] == "xlane_pack":

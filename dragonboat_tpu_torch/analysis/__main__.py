@@ -8,9 +8,12 @@
 ``python -m dragonboat_tpu_torch.analysis --wire [--baseline F]``
     the wire-compat audit against the reference's goldens.
 
-There is no recompile sentry (the reference's ``jitcheck``): the port's
-kernels are built ahead of time and keyed on no shape, so nothing
-compiles after warm-up until the mesh round becomes a CUDA graph.
+The reference's recompile sentry has a runtime counterpart, not a CLI
+pass: ``analysis/jitcheck.py`` (armed by ``DRAGONBOAT_TPU_JITCHECK=1``)
+watches, from the engines' warm-up on, the caching allocator's device
+allocations, retries and all-stream syncs, the pinned pool's host
+allocations and the kernel extension's builds — the mid-run stalls the
+warm-up should have paid for.
 """
 import argparse
 import sys

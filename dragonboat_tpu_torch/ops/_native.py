@@ -15,7 +15,9 @@ survives a later ``load`` that compiles nothing (``build_log``).
 ``LAUNCHES`` counts, per kernel, the launches its wrappers made, and
 ``ENTRY_LAUNCHES`` the same per bound entry point (a kernel such as
 ``inbox`` has several, ``ENTRIES``); a run resets both to show which
-kernels its path went through.
+kernels its path went through.  ``BUILDS`` counts the times this process
+built or loaded the module (the post-warm-up sentry,
+``analysis/jitcheck.py``, watches it).
 """
 from __future__ import annotations
 
@@ -73,6 +75,7 @@ CUDA_FLAGS = (
 
 LAUNCHES = {k: 0 for k in KERNELS}
 ENTRY_LAUNCHES: dict = {}
+BUILDS = 0
 
 _module = None
 _lock = threading.Lock()
@@ -126,7 +129,7 @@ def module():
     """The extension module, built on first use.  The compiler's output
     goes to ``_build/build.log`` instead of standard output, and each
     compiled source's part of it to ``_build/ptxas/``."""
-    global _module
+    global _module, BUILDS
     with _lock:
         if _module is not None:
             return _module
@@ -160,6 +163,7 @@ def module():
             os.dup2(saved, 1)
             os.close(saved)
         _keep_sections((BUILD / "build.log").read_text())
+        BUILDS += 1
         return _module
 
 

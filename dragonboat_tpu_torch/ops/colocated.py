@@ -71,6 +71,7 @@ messages are dispatched (the reference's save -> send -> apply order).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -461,6 +462,18 @@ PROGRAM_CONSUMES: Dict[str, Tuple[int, ...]] = {
 }
 
 
+def _device_of(x):
+    """The device of the first tensor among a program's arguments."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            d = _device_of(y)
+            if d is not None:
+                return d
+    return None
+
+
 def _tensors(x):
     """The tensors of a program's output (nested tuples flattened)."""
     if isinstance(x, torch.Tensor):
@@ -565,6 +578,9 @@ class ColocatedTorchEngine(TorchStepEngine):
                  fused_rounds: Optional[int] = None,
                  parity_every: int = 0):
         self.budget = budget
+        # the parity self-check's allocator pools, one a CUDA device
+        # (see _parity_pool)
+        self._parity_pools: Dict[int, "torch.cuda.MemPool"] = {}
         self._pending: Optional[Inbox] = None
         self._pending_live = False  # last route delivered > 0 messages
         self._host_shard = np.zeros((capacity,), np.int64)
@@ -824,35 +840,57 @@ class ColocatedTorchEngine(TorchStepEngine):
                          for i in range(len(res[0])))
         return placement.Sharded(tuple(res))
 
-    def _run(self, name: str, fn, *args, parity: bool = False, **kw):
+    def _run(self, name: str, fn, *args, parity: bool = False,
+             counted: bool = True, **kw):
         """Run the device program ``fn`` (``name`` in
         ``colocated_ref.PROGRAMS``); with ``parity`` run it again through
         its plain version on the same inputs and require bit equality on
         every output tensor.  Each check begun counts one
         ``parity_attempts_<kernel>`` for every kernel the program
         launches on CUDA, and one ``parity_checks_<kernel>`` once it has
-        passed; a mismatch is counted, latched and raised
-        (``_parity_fail``).  The argument a program consumes
-        (``PROGRAM_CONSUMES``) reaches the plain version as a copy taken
-        before the kernels ran."""
+        passed (unless not ``counted``: the warm-up's checks); a mismatch
+        is counted, latched and raised (``_parity_fail``).  The argument
+        a program consumes (``PROGRAM_CONSUMES``) reaches the plain
+        version as a copy taken before the kernels ran.  The copies and
+        the plain version allocate in the parity pool."""
         if not parity:
             return fn(*args, **kw)
+        dev = _device_of(args)
         ref_args = list(args)
-        for i in PROGRAM_CONSUMES.get(name, ()):
-            a = args[i]
-            ref_args[i] = (a.clone() if isinstance(a, torch.Tensor)
-                           else type(a)(*(t.clone() for t in a)))
+        with self._parity_pool(dev):
+            for i in PROGRAM_CONSUMES.get(name, ()):
+                a = args[i]
+                ref_args[i] = (a.clone() if isinstance(a, torch.Tensor)
+                               else type(a)(*(t.clone() for t in a)))
         got = fn(*args, **kw)
-        kernels = PROGRAM_KERNELS[name]
+        kernels = PROGRAM_KERNELS[name] if counted else ()
         for k in kernels:
             self.stats[f"parity_attempts_{k}"] += 1
-        want = colocated_ref.PROGRAMS[name](*ref_args, **kw)
-        for i, (a, b) in enumerate(zip(_tensors(got), _tensors(want))):
-            if not torch.equal(a, b):
-                self._parity_fail(f"{name} output {i}")
+        with self._parity_pool(dev):
+            want = colocated_ref.PROGRAMS[name](*ref_args, **kw)
+            for i, (a, b) in enumerate(zip(_tensors(got), _tensors(want))):
+                if not torch.equal(a, b):
+                    self._parity_fail(f"{name} output {i}")
         for k in kernels:
             self.stats[f"parity_checks_{k}"] += 1
         return got
+
+    def _parity_pool(self, device):
+        """Where the parity self-check allocates: on a CUDA device, an
+        allocator pool of its own (``torch.cuda.MemPool``).  The plain
+        versions' temporaries are few and large (the plain route's
+        [G, O, P, B] selections: hundreds of MB at 65,536 rows); in the
+        shared pool the launches between two checks split their cached
+        blocks, and the next check allocates again mid-run.  In a pool of
+        their own the blocks stay whole, and a check after the warm-up's
+        (``_warm_parity``) allocates nothing new.  On the CPU, the
+        default allocator."""
+        if device is None or device.type != "cuda":
+            return contextlib.nullcontext()
+        pool = self._parity_pools.get(device.index)
+        if pool is None:
+            pool = self._parity_pools[device.index] = torch.cuda.MemPool()
+        return torch.cuda.use_mem_pool(pool, device)
 
     # -- row identity ---------------------------------------------------
     def _row_key(self, node):
@@ -1096,7 +1134,11 @@ class ColocatedTorchEngine(TorchStepEngine):
         """Run every program of a launch once on the inert state, so the
         kernels are built and loaded before the first real step (torch
         runs eagerly; there is nothing to trace), and set up the routed
-        pending regions."""
+        pending regions.  The select runs at every tier of the ladder,
+        and each tier's blobs go through the pinned readback as many
+        times at once as a full pipeline holds in flight, so that a tier
+        change mid-run finds its device and pinned blocks cached (the
+        reference warms every tier for its trace cache)."""
         G, P, B, E, O = self.capacity, self.P, self.budget, self.E, self.O
         D, per = self._blocks.D, self._blocks.per
         self._pending = self._fresh_pending()
@@ -1104,7 +1146,9 @@ class ColocatedTorchEngine(TorchStepEngine):
         # their (empty) host inbox region from it ON DEVICE — ticks and
         # host slots are fed exactly once, in round 1
         self._zero_combo = self._put_rows(np.zeros((G, 4), np.int32))
-        caps = self._block_caps(self._tier_caps(0))
+        tiers = [self._block_caps(self._tier_caps(t))
+                 for t in range(len(_SEL_TIERS))]
+        in_flight = self._pipeline_depth * self._fuse_rounds
         xbufs = []
         for d in range(D):
             st, combo = self._state.parts[d], self._zero_combo.parts[d]
@@ -1123,11 +1167,18 @@ class ColocatedTorchEngine(TorchStepEngine):
                               PB=P * B, E=E, budget=B, **kw)
             merged_w, _regions_w, stats_w, packed_w, flags_w = res[:5]
             xbufs.append(res[5:])
-            _select_and_blob(
-                merged_w, out, stats_w, packed_w, flags_w, combo,
-                CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
-                CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=P * B,
-            )
+            for caps in tiers:
+                blobs = _select_and_blob(
+                    merged_w, out, stats_w, packed_w, flags_w, combo,
+                    CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
+                    CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=P * B,
+                )
+                reads = [_Readback(t) for _ in range(in_flight)
+                         for t in blobs]
+                for r in reads:
+                    r.numpy()
+            if self._parity_every > 0 and combo.device.type == "cuda":
+                self._warm_parity(d, st, dest, rank, kw, tiers[-1])
             _zero_inbox_rows(self._pending.parts[d],
                              self._put(np.zeros((per,), np.int32), d))
             idx = self._put(np.zeros((1,), np.int32), d)
@@ -1141,6 +1192,47 @@ class ColocatedTorchEngine(TorchStepEngine):
                 _lane_scatter(self._pending.parts[d], recv[d], xbufs[d][1],
                               budget=B)
         super()._warm()
+
+    def _warm_parity(self, d: int, st, dest, rank, kw, caps) -> None:
+        """One parity self-check of a launch's programs on row block
+        ``d`` (not counted in the stats), so that the parity pool
+        (``_parity_pool``) holds what a check under traffic needs before
+        the first launch: every row alive and a host inbox carrying
+        every hot message type (the plain step allocates for each type it
+        meets), the route over the block's tables, the select at the
+        storm tier ``caps``."""
+        from .convert import inbox_from_numpy, to_numpy
+        from .fuzz import fuzz_inbox_np
+
+        P, B, E = self.P, self.budget, self.E
+        per = self._blocks.per
+        combo_np = np.zeros((per, 4), np.int32)
+        combo_np[:, _C_ALIVE] = 1
+        combo_np[:, _C_BATCH] = 1
+        combo = self._put(combo_np, d)
+        dev = combo.device
+        sub = inbox_from_numpy(fuzz_inbox_np(
+            to_numpy(st), np.random.default_rng(0), self.M, E), dev)
+
+        def check(name, fn, *args, **kw_):
+            return self._run(name, fn, *args, parity=True, counted=False,
+                             **kw_)
+
+        host = check("host_inbox_from_ticks", _host_inbox_from_ticks, combo,
+                     M=self.M, E=E)
+        host = check("scatter_inbox_rows", _scatter_inbox_rows, host,
+                     self._put(np.arange(per, dtype=np.int32), d), sub)
+        new_st, out = check("assemble_and_step", _assemble_and_step, st,
+                            host, self._pending.parts[d], combo,
+                            out_capacity=self.O)
+        merged, _regions, stats, packed, flags = check(
+            "lane_route_step" if kw else "route_step", _route_step, st,
+            new_st, out, dest, rank, combo, PB=P * B, E=E, budget=B,
+            **kw)[:5]
+        check("select_and_blob", _select_and_blob, merged, out, stats,
+              packed, flags, combo, CAP_B=caps["b"], CAP_SL=caps["sl"],
+              CAP_N=caps["n"], CAP_A=caps["a"], CAP_S=caps["s"],
+              HOST_OFF=P * B)
 
     def _evict_rows_to_host(self, gs, cause: str = "other") -> None:
         """Move resident rows to the host path losing nothing.  Order is

@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import jitcheck
 from ..engine.execengine import IStepEngine
 from ..logger import get_logger
 from ..pb import Entry, EntryType, Message, MessageType, Snapshot
@@ -919,6 +920,11 @@ class TorchStepEngine(IStepEngine):
                                 self._put(np.zeros((4, 1), np.int32), d), idx)
             _set_remote_snapshot(st, idx, idx, idx)
         self._sync()
+        if jitcheck.ENABLED:
+            # the post-warm-up sentry's baseline (analysis/jitcheck):
+            # from here on nothing should build, or allocate what the
+            # warm-up allocated
+            jitcheck.mark_warm()
 
     # ------------------------------------------------------------------
     # row lifecycle

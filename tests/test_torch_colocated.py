@@ -17,6 +17,9 @@ cluster ends with ``divergence_halts == 0``.
 The eager torch step is slower per launch than JAX's compiled CPU step,
 so the clocks are those of ``test_torch_engine.py`` (rtt 20 ms,
 election_rtt 20) and client calls retry.
+Under ``DRAGONBOAT_TPU_JITCHECK=1`` every case runs under the port's
+post-warm-up sentry (``test_torch_jitcheck.port_stall_sentry``), as the
+reference's conftest arms its recompile sentry over its engine modules.
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ from test_torch_engine import (
     set_cmd,
     wait_for_leader,
 )
+
+from test_torch_jitcheck import port_stall_sentry  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("port_stall_sentry")
 
 GEOM = dict(capacity=16, P=5, W=32, M=8, E=4, O=32, budget=4)
 

@@ -1,10 +1,16 @@
-"""The reference's colocated quiesce and close cases on the port.
+"""The reference's colocated quiesce, close and live-parity cases on
+the port.
 
 ``test_colocated.py``'s ``TestColocatedQuiesce`` (device-resident rows
 whose only input is the tick lane take the fast-lane quiesce path, park
-on every member and wake on a proposal) and ``test_lifecycle.py``'s
+on every member and wake on a proposal), ``test_lifecycle.py``'s
 ``test_colocated_cluster_close_leaks_no_threads`` (closing a live
-colocated cluster joins every ``tpu-raft-*`` thread), their source
+colocated cluster joins every ``tpu-raft-*`` thread) and
+``test_hostplane.py``'s ``TestLiveClusterParity`` (the port's
+``hostplane.PARITY`` / ``RECORD`` switches on over a live chaos cluster
+that elects, commits, takes nemesis-forced and real kernel escalations
+and a membership change; every recorded generation replayed through the
+vectorized merge sets and their scalar oracle), their source
 executed with every ``dragonboat_tpu`` import taken from
 ``dragonboat_tpu_torch`` (``load_on_port``), on the port's
 ``ColocatedEngineGroup(device="cpu")``.
@@ -13,7 +19,10 @@ The edits to the reference's sources are those of
 ``port_loader.load_colocated_siblings`` (the engines' device, and
 ``test_vector_engine.py``'s import of the reference's engine factory,
 which names the port's ``torch_step_engine_factory``), the close case's
-own ``ColocatedEngineGroup`` call on ``device="cpu"``, and one clock: the
+own ``ColocatedEngineGroup`` call on ``device="cpu"`` (the live-parity
+case's cluster is ``test_chaos_colocated.py``'s, on the CPU through the
+siblings' edit; ``test_hostplane.py`` itself is not edited), and one
+clock: the
 quiesce case's cluster ticks every 20 ms, not 2 ms (election_rtt 10, so
 a 200 ms election timeout, not 20 ms).  A plain-step launch on a loaded
 CPU takes tens of ms, so at 2 ms a follower's election timer fired
@@ -68,6 +77,7 @@ _life = load_on_port(
     replace=[("capacity=16, P=5, W=32, M=8, E=4, O=32, budget=2\n",
               'capacity=16, P=5, W=32, M=8, E=4, O=32, budget=2,\n'
               '            device="cpu",\n', 1)])
+_hp = load_on_port("test_hostplane.py", f"{TAG}_hostplane", tag=TAG)
 
 
 def test_cases_run_on_the_port():
@@ -87,7 +97,9 @@ def test_cases_run_on_the_port():
     names = close_case.__code__.co_names
     assert "dragonboat_tpu_torch.ops.colocated" in names
     assert not [n for n in names if n.startswith("dragonboat_tpu.")]
-    for mod in (_life, *_sib.values(), __import__(f"{TAG}_test_nodehost")):
+    assert _hp.hp is hostplane
+    for mod in (_life, _hp, *_sib.values(),
+                __import__(f"{TAG}_test_nodehost")):
         assert_port_only(mod)
 
 
@@ -100,3 +112,7 @@ class TestColocatedQuiesce(_colo.TestColocatedQuiesce):
 class TestColocatedClose:
     test_colocated_cluster_close_leaks_no_threads = (
         _life.TestProfiling.test_colocated_cluster_close_leaks_no_threads)
+
+
+class TestLiveClusterParity(_hp.TestLiveClusterParity):
+    pass

@@ -7,7 +7,11 @@ tier of ``_SEL_TIERS`` clamped to a small G, and capacities below the
 row counts) and ``_zero_inbox_rows`` — runs on the same int32 inputs
 through the JAX program (CPU backend) and through the port's program on
 CPU tensors (its plain PyTorch version), round after round of a routed
-cluster; every output must be bit-equal.
+cluster; every output must be bit-equal.  The same rounds run at the
+scale path's geometries (``tests/test_scale.py``: W=16, E=2, O=32,
+budget 8, 8 host slots) on about 64 shards: BASELINE config 3's 5
+replicas a shard at P=5, and config 4's ragged 3/5/7 memberships at P=7
+(a short membership's unused peer slots masked).
 
 Then capture and replay: a port colocated cluster (``device="cpu"``)
 runs for a few dozen launches with the real inputs and outputs of every
@@ -24,17 +28,20 @@ import pytest
 
 import test_route as TR
 from dragonboat_tpu.ops import colocated as JC
+from dragonboat_tpu.ops import route as JR
 from dragonboat_tpu.ops import sync as JS
 from dragonboat_tpu.ops import types as JT
 from dragonboat_tpu_torch.ops import colocated as PC
 from dragonboat_tpu_torch.ops import convert
 from dragonboat_tpu_torch.ops import types as PT
+from dragonboat_tpu.raft.raft import Raft
 
 P, W, E, O = 5, 32, 4, 32
 B = 4
 PB = P * B
 MH = 8
 SEED = 20261018
+SCALE_ROUNDS = 16
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -137,22 +144,53 @@ def _cluster():
     return to_np(st), np.asarray(dest), np.asarray(rank)
 
 
-def test_programs_match_reference_round_by_round():
-    st, dest, rank = _cluster()
+def _scale_cluster(sizes, P_: int, W_: int, E_: int):
+    """One routed cluster of the reference's rafts, shard s (from 1) of
+    ``sizes[s - 1]`` replicas, packed at P_ / W_ with its route tables
+    (a short membership's unused peer slots hold id 0, masked)."""
+    rafts = []
+    for shard, k in enumerate(sizes, start=1):
+        voters = {r: f"a{r}" for r in range(1, k + 1)}
+        for rid in range(1, k + 1):
+            rafts.append(Raft(shard_id=shard, replica_id=rid,
+                              peers=dict(voters), election_timeout=10,
+                              heartbeat_timeout=2,
+                              max_entries_per_replicate=E_))
+    st = JS.state_from_rafts(rafts, P_, W_)
+    peer_ids = np.zeros((len(rafts), P_), np.int32)
+    for g, r in enumerate(rafts):
+        for slot, (pid, _kind) in enumerate(JS.peer_layout(r)):
+            peer_ids[g, slot] = pid
+    dest, rank = JR.build_route_tables(
+        np.array([r.shard_id for r in rafts], np.int32),
+        np.array([r.replica_id for r in rafts], np.int32), peer_ids)
+    return to_np(st), np.asarray(dest), np.asarray(rank)
+
+
+def _programs_round_by_round(cluster, *, P_: int, E_: int, O_: int,
+                             B_: int, MH_: int, rounds: int, seed: int):
+    """Every colocated program, the reference's and the port's, on the
+    same inputs round after round of ``cluster`` (state, dest, rank):
+    from_ticks, a host-slot scatter, assemble, the fused step, the route
+    step, the select at every tier of ``_SEL_TIERS`` clamped to G (and
+    at capacities below the row counts), then zero rows.  Returns what
+    the rounds exercised."""
+    st, dest, rank = cluster
     G = dest.shape[0]
-    rng = np.random.default_rng(SEED)
-    pending = to_np(JT.make_inbox(G, PB, E))
+    PB_ = P_ * B_
+    rng = np.random.default_rng(seed)
+    pending = to_np(JT.make_inbox(G, PB_, E_))
     tiers = [{k: min(G, v) for k, v in t.items()} for t in JC._SEL_TIERS]
     tiers.append({"b": 2, "sl": 3, "n": 1, "a": 2, "s": 5})
     seen = {"delivered": 0, "esc": 0, "sel": np.zeros(5, np.int64)}
-    for rnd in range(28):
+    for rnd in range(rounds):
         combo = np.zeros((G, 4), np.int32)
         combo[:, JC._C_ALIVE] = rng.random(G) < 0.92
         combo[:, JC._C_BATCH] = rng.random(G) < 0.5
         combo[:, JC._C_PROP] = rng.random(G) < 0.2
         combo[:, JC._C_TICKS] = rng.integers(0, 4, G)
         host = both(JC._host_inbox_from_ticks, PC._host_inbox_from_ticks,
-                    (combo,), dict(M=MH, E=E), f"from_ticks {rnd}")
+                    (combo,), dict(M=MH_, E=E_), f"from_ticks {rnd}")
         # a few rows with real host slots: a one-entry PROPOSE in slot 1
         rows = sorted(rng.choice(G, size=3, replace=False).tolist())
         sub = {k: np.asarray(getattr(host, k))[rows].copy()
@@ -174,12 +212,12 @@ def test_programs_match_reference_round_by_round():
         assert_same(want, got, f"assemble {rnd}")
         new_st, out = both(JC._assemble_and_step, PC._assemble_and_step,
                            (st, host_np, pending, combo),
-                           dict(out_capacity=O), f"assemble_and_step {rnd}")
+                           dict(out_capacity=O_), f"assemble_and_step {rnd}")
         new_np, out_np = to_np(new_st), to_np(out)
         merged, regions, stats, packed, flags = both(
             JC._route_step, PC._route_step,
             (st, new_np, out_np, dest, rank, combo),
-            dict(PB=PB, E=E, budget=B), f"route_step {rnd}")
+            dict(PB=PB_, E=E_, budget=B_), f"route_step {rnd}")
         seen["delivered"] += int(stats[0])
         seen["esc"] += int((np.asarray(out.escalate) != 0).sum())
         m_np, s_np = to_np(merged), to_np(stats)
@@ -189,10 +227,10 @@ def test_programs_match_reference_round_by_round():
                 JC._select_and_blob, PC._select_and_blob,
                 (m_np, out_np, s_np, p_np, f_np, combo),
                 dict(CAP_B=caps["b"], CAP_SL=caps["sl"], CAP_N=caps["n"],
-                     CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=PB),
+                     CAP_A=caps["a"], CAP_S=caps["s"], HOST_OFF=PB_),
                 f"select_and_blob tier {t} round {rnd}")
             if t == 0:
-                nw = (O + 31) // 32
+                nw = (O_ + 31) // 32
                 seen["sel"] += np.asarray(head)[G + G * nw + 6:
                                                 G + G * nw + 11]
         regions_np = to_np(regions)
@@ -200,7 +238,35 @@ def test_programs_match_reference_round_by_round():
         pending = to_np(both(JC._zero_inbox_rows, PC._zero_inbox_rows,
                              (regions_np, mask), None, f"zero rows {rnd}"))
         st = m_np
+    return seen
+
+
+def test_programs_match_reference_round_by_round():
+    seen = _programs_round_by_round(_cluster(), P_=P, E_=E, O_=O, B_=B,
+                                    MH_=MH, rounds=28, seed=SEED)
     # the rounds exercised routing and every selected section
+    assert seen["delivered"] > 0
+    assert (seen["sel"][[0, 1, 3, 4]] > 0).all(), seen
+
+
+# the scale path's geometries (tests/test_scale.py:160-178): W=16, E=2,
+# O=32, budget 8, 8 host slots; (a) BASELINE config 3, 5 replicas a
+# shard, P=5; (b) config 4's ragged 3/5/7 memberships, P=7
+SCALE_GEOMETRIES = {
+    "config3_p5_b8": dict(sizes=[5] * 64, P_=5),
+    "config4_p7_ragged_b8": dict(sizes=[3, 5, 7] * 21, P_=7),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCALE_GEOMETRIES))
+def test_programs_match_reference_at_scale_geometry(name):
+    """Every colocated program bit-exact against the reference's at the
+    scale path's geometries (about 64 shards), with every select tier."""
+    g = SCALE_GEOMETRIES[name]
+    cluster = _scale_cluster(g["sizes"], g["P_"], 16, 2)
+    seen = _programs_round_by_round(cluster, P_=g["P_"], E_=2, O_=32, B_=8,
+                                    MH_=8, rounds=SCALE_ROUNDS,
+                                    seed=SEED + len(name))
     assert seen["delivered"] > 0
     assert (seen["sel"][[0, 1, 3, 4]] > 0).all(), seen
 

@@ -13,6 +13,9 @@ contents on every replica.
 
 The eager torch step is slower per launch than JAX's compiled CPU step,
 so the clocks are slower (rtt 20 ms, election_rtt 20) and reads retry.
+Under ``DRAGONBOAT_TPU_JITCHECK=1`` every case runs under the port's
+post-warm-up sentry (``test_torch_jitcheck.port_stall_sentry``), as the
+reference's conftest arms its recompile sentry over its engine modules.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ from dragonboat_tpu_torch.request import SystemBusy
 from dragonboat_tpu_torch.statemachine import IStateMachine, Result
 from dragonboat_tpu_torch.storage.logdb import in_mem_logdb_factory
 from dragonboat_tpu_torch.transport.inproc import reset_inproc_network
+
+from test_torch_jitcheck import port_stall_sentry  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("port_stall_sentry")
 
 GEOM = dict(capacity=16, P=5, W=32, M=8, E=4, O=32)
 ADDRS = {1: "tnh-1", 2: "tnh-2", 3: "tnh-3"}

@@ -1,6 +1,7 @@
 """The port's raft step against the reference JAX step and the oracle.
 
-Every scenario of ``test_kernel_parity.py`` (fuzz seeds included) runs
+Every scenario of ``test_kernel_parity.py`` (fuzz seeds included) and
+the four of ``test_raft_protocol3.py``'s ``TestKernelFlowParity`` run
 on ``kernel_harness.Cluster`` with the harness's device step replaced by
 a dual step: at each harness step the same int32 state and inbox go
 through ``dragonboat_tpu.ops.kernel.step`` (JAX, CPU backend) and
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 
 import kernel_harness
 import test_kernel_parity as TKP
+import test_raft_protocol3 as TRP3
 from dragonboat_tpu.ops import kernel as JK
 from dragonboat_tpu.ops import sync as JS
 from dragonboat_tpu.ops import types as JT
@@ -101,6 +103,26 @@ def test_scenario_matches_reference_and_oracle(dual, name):
 def test_randomized_fuzz_matches_reference_and_oracle(dual, seed):
     TKP.test_randomized_fuzz(seed)
     assert dual.calls > 0
+
+
+# test_raft_protocol3.py's kernel-parity section (:429-500): the remote
+# flow-state scenarios (probe pause and resume, duplicated and reordered
+# acks, the unreachable hint, two groups in one batch)
+_FLOW = sorted(n for n in vars(TRP3.TestKernelFlowParity)
+               if n.startswith("test_"))
+
+
+@pytest.mark.parametrize("name", _FLOW)
+def test_flow_scenario_matches_reference_and_oracle(dual, name):
+    getattr(TRP3.TestKernelFlowParity(), name)()
+    assert dual.calls > 0
+
+
+def test_flow_scenarios_are_the_four_of_the_reference():
+    assert _FLOW == ["test_duplicate_and_reordered_acks_parity",
+                     "test_mixed_groups_progress_independently",
+                     "test_probe_pause_resume_parity",
+                     "test_unreachable_hint_parity"]
 
 
 class GappedDualStep(DualStep):
