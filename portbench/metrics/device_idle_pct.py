@@ -1,0 +1,10 @@
+"""Percent of the traced window in which no kernel, copy or set ran on
+the device: one less the union of the profiler's device intervals over
+the window's length."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if not tr or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
