@@ -2427,23 +2427,27 @@ class StackSampler:
 
 
 def device_busy_share(seconds: float) -> dict:
-    """Device activity over ``seconds`` of wall time: the summed duration
-    of every CUDA kernel, memset and copy ``torch.profiler`` records
-    (from every thread of the process), its share of the wall time, and
-    the five kernels with the most device time."""
+    """Device activity over ``seconds`` of wall time: the union of the
+    intervals of every CUDA kernel, memset and copy ``torch.profiler``
+    records (from every thread of the process; overlapping operations
+    count once), its share of the wall time, and the five kernels with
+    the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from dragonboat_tpu_torch.profiling import interval_union
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(seconds)
     wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    busy_s = sum(by_name.values()) / 1e6
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_s = interval_union(spans) / 1e6  # the ranges are in microseconds
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_s=wall, busy_s=busy_s,
                 busy_share=busy_s / wall if wall > 0 else None,

@@ -15,9 +15,11 @@ survives a later ``load`` that compiles nothing (``build_log``).
 ``LAUNCHES`` counts, per kernel, the launches its wrappers made, and
 ``ENTRY_LAUNCHES`` the same per bound entry point (a kernel such as
 ``inbox`` has several, ``ENTRIES``); a run resets both to show which
-kernels its path went through.  ``BUILDS`` counts the times this process
-built or loaded the module (the post-warm-up sentry,
-``analysis/jitcheck.py``, watches it).
+kernels its path went through.  While a profiler runs, each launch is
+also the span ``launch.<entry>`` of the port's recorder
+(``profiling.py``), whose count is the same launch count.  ``BUILDS``
+counts the times this process built or loaded the module (the
+post-warm-up sentry, ``analysis/jitcheck.py``, watches it).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import re
 import sys
 import threading
 from pathlib import Path
+
+from .. import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -72,6 +76,9 @@ CUDA_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-Xptxas=-v",
 )
+
+# each entry point's recorder span
+SPANS = {e: "launch." + e for e in ENTRIES}
 
 LAUNCHES = {k: 0 for k in KERNELS}
 ENTRY_LAUNCHES: dict = {}
@@ -170,7 +177,11 @@ def module():
 def launch(entry: str, *args) -> None:
     """Call the bound entry point ``entry`` with ``args``, counting one
     launch of it and of its kernel (``ENTRIES``).  The binding checks the
-    tensors and the launch and raises on either."""
+    tensors and the launch and raises on either.  The span
+    ``launch.<entry>`` covers the module lookup, the binding's argument
+    conversion and checks, and the launch."""
+    t0 = profiling.begin()
     getattr(module(), entry)(*args)
+    profiling.end(SPANS[entry], t0)
     LAUNCHES[ENTRIES[entry]] += 1
     ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1

@@ -81,6 +81,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..engine.execengine import IStepEngine
 from . import _native
 from . import colocated_ref
@@ -700,11 +701,13 @@ class ColocatedTorchEngine(TorchStepEngine):
         self.stats.update(
             launches=0, routed_delivered=0, routed_host_carried=0,
             routed_dropped=0, coalesced_rows=0, shard_rebases=0,
-            # cumulative wall-time breakdown (ms) of the launch path —
-            # the single-core CPU backend hides where a 65k-row launch
-            # goes without it
-            t_coalesce_ms=0, t_plan_ms=0, t_upload_ms=0, t_device_ms=0,
-            t_detail_ms=0, t_updates_ms=0, t_persist_ms=0,
+            # cumulative wall-time breakdown (float ms) of the launch
+            # path — the single-core CPU backend hides where a 65k-row
+            # launch goes without it; each stage is also the recorder
+            # span colocated.<stage> (profiling.stage)
+            t_coalesce_ms=0.0, t_plan_ms=0.0, t_upload_ms=0.0,
+            t_device_ms=0.0, t_detail_ms=0.0, t_updates_ms=0.0,
+            t_persist_ms=0.0,
             # pipeline observability: host work overlapped with an
             # in-flight readback request (the double-buffering win),
             # fences (drains to depth 0 forced by membership mutation),
@@ -1733,13 +1736,12 @@ class ColocatedTorchEngine(TorchStepEngine):
         updates: List[Tuple] = []
         host_rows: List[Tuple] = []
         batch: List[Tuple] = []
-        _t0 = _time.perf_counter()
+        _t0 = _time.time_ns()
         nodes = self._coalesce(nodes)
         self._maybe_rebase_shards(nodes)
-        self.stats["t_coalesce_ms"] += int(
-            (_time.perf_counter() - _t0) * 1000
-        )
-        _t0 = _time.perf_counter()
+        self.stats["t_coalesce_ms"] += profiling.stage(
+            "colocated.coalesce", _t0)
+        _t0 = _time.time_ns()
         n_fast = 0
         # ---- batched plan classifier --------------------------------
         # ONE vectorized pass over the SoA lanes (ops/hostplane.py)
@@ -1875,11 +1877,11 @@ class ColocatedTorchEngine(TorchStepEngine):
             self.stats["fast_lane_rows"] = self.stats.get(
                 "fast_lane_rows", 0
             ) + n_fast
-        self.stats["t_plan_ms"] += int((_time.perf_counter() - _t0) * 1000)
+        self.stats["t_plan_ms"] += profiling.stage("colocated.plan", _t0)
         launched = False
         if batch or self._pending_live:
             if self._pending_live or any(plan for _, _, _, plan in batch):
-                _t0 = _time.perf_counter()
+                _t0 = _time.time_ns()
                 dirty_lane = self._lanes.dirty  # one load; np bool [G]
                 self._upload_rows(
                     [
@@ -1888,12 +1890,8 @@ class ColocatedTorchEngine(TorchStepEngine):
                         if dirty_lane[g]
                     ]
                 )
-                # float ms: lazy upload streams many sub-ms batches and
-                # int truncation under-reports the aggregate (same fix
-                # as t_up_pack_ms/t_up_scatter_ms)
-                self.stats["t_upload_ms"] += (
-                    (_time.perf_counter() - _t0) * 1000.0
-                )
+                self.stats["t_upload_ms"] += profiling.stage(
+                    "colocated.upload", _t0)
                 self._launch_generation(batch)
                 launched = True
             else:
@@ -1932,11 +1930,10 @@ class ColocatedTorchEngine(TorchStepEngine):
 
         self._drain_update_retries(updates)
         if updates:
-            _t0 = _time.perf_counter()
+            _t0 = _time.time_ns()
             self._persist_and_process(updates, worker_id)
-            self.stats["t_persist_ms"] += int(
-                (_time.perf_counter() - _t0) * 1000
-            )
+            self.stats["t_persist_ms"] += profiling.stage(
+                "colocated.persist", _t0)
         if self._inflight:
             # completion guarantee: a dispatched generation must be
             # merged even if no member ever has work again — poke ONE
@@ -2363,8 +2360,6 @@ class ColocatedTorchEngine(TorchStepEngine):
         old_state = self._state
         import time as _time
 
-        from ..profiling import annotate
-
         if self._pending is None:
             # a prior launch failure dropped the pending inbox and could
             # not rebuild it (see the handler below)
@@ -2385,25 +2380,22 @@ class ColocatedTorchEngine(TorchStepEngine):
                 f"ticks_max={int(tick_counts.max())}",
                 file=_sys.stderr, flush=True,
             )
-        _t0 = _time.perf_counter()
+        _t0 = _time.time_ns()
         try:
-            with annotate("raft-colocated-step"):
+            with profiling.annotate("raft-colocated-step"):
+                _t1 = profiling.begin()
                 new_state, out = self._on_blocks(
                     "assemble_and_step", _assemble_and_step,
                     old_state, host_inbox, self._pending, combo,
                     out_capacity=self.O, parity=parity,
                 )
-                self.stats["t_dev_step_ms"] = self.stats.get(
-                    "t_dev_step_ms", 0
-                ) + int((_time.perf_counter() - _t0) * 1000)
-                _t1 = _time.perf_counter()
+                profiling.end("colocated.step", _t1)
+                _t1 = profiling.begin()
                 merged, regions, stats_dev, packed_dev, flags_dev, lane_k = (
                     self._route_blocks(old_state, new_state, out, combo,
                                        combo_all, parity)
                 )
-                self.stats["t_dev_route_ms"] = self.stats.get(
-                    "t_dev_route_ms", 0
-                ) + int((_time.perf_counter() - _t1) * 1000)
+                profiling.end("colocated.route", _t1)
         except BaseException:
             # the launch failed part-way (an out-of-memory allocation,
             # a refused launch, a parity mismatch): drop the in-flight
@@ -2426,8 +2418,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         self._pending = regions
         self._state = merged
         try:
-            with annotate("raft-colocated-select"):
-                _t1 = _time.perf_counter()
+            with profiling.annotate("raft-colocated-select"):
                 # the wave's one commit-proving readback, requested NOW
                 # and collected at merge time: flags + delivered +
                 # counts + row ids + vals in each round's head, heavy
@@ -2487,13 +2478,10 @@ class ColocatedTorchEngine(TorchStepEngine):
                     lane_dev = tuple(
                         _Readback(torch.stack([r[d] for r in lane_l]))
                         for d in range(self._blocks.D))
-                self.stats["t_dev_sel_ms"] = self.stats.get(
-                    "t_dev_sel_ms", 0
-                ) + int((_time.perf_counter() - _t1) * 1000)
         except BaseException:
             self._reset_after_pipeline_failure()
             raise
-        self.stats["t_device_ms"] += int((_time.perf_counter() - _t0) * 1000)
+        self.stats["t_device_ms"] += profiling.stage("colocated.device", _t0)
         self.stats["launches"] += 1
         self.stats["device_steps"] += rounds
         self.stats["device_rows_stepped"] += len(batch)
@@ -2726,7 +2714,7 @@ class ColocatedTorchEngine(TorchStepEngine):
                 "detail_skipped", 0
             ) + 1
             return
-        _t0 = _time.perf_counter()
+        _t0 = _time.time_ns()
         cover = self._sel_cover(
             G, caps,
             (n_buf_d, n_slot_d, n_need_d, n_append_d, n_sum_d),
@@ -2933,9 +2921,8 @@ class ColocatedTorchEngine(TorchStepEngine):
                 w_abs[_R_COMMIT] += b_abs
                 w_abs[_R_LAST] += b_abs
                 self._ulanes.words[:, gs_ok] = w_abs
-        self.stats["t_updates_ms"] += int(
-            (_time.perf_counter() - _t0) * 1000
-        )
+        self.stats["t_updates_ms"] += profiling.stage(
+            "colocated.updates", _t0)
 
     def _complete_generation(self, rec: _InFlightGen) -> List[Tuple]:  # sync-hot
         """Merge one in-flight generation: collect each round's head
@@ -2982,7 +2969,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         for rnd in range(K):
             final = rnd == K - 1
             round_props = prop_gs if rnd == 0 else empty_gs
-            _t0 = _time.perf_counter()
+            _t0 = _time.time_ns()
             _tc = _time.monotonic()
             head = self._round_head(rec, rnd, lane)
             if rnd == 0 and self._pipeline_depth > 1:
@@ -2997,12 +2984,10 @@ class ColocatedTorchEngine(TorchStepEngine):
                 _metrics.counter(
                     "pipeline_overlap_seconds_total"
                 ).add(overlap)
+            _ms = profiling.stage("colocated.blob", _t0)
             self.stats["t_dev_blob_ms"] = self.stats.get(
-                "t_dev_blob_ms", 0
-            ) + int((_time.perf_counter() - _t0) * 1000)
-            self.stats["t_device_ms"] += int(
-                (_time.perf_counter() - _t0) * 1000
-            )
+                "t_dev_blob_ms", 0.0) + _ms
+            self.stats["t_device_ms"] += _ms
             (flags, delivered_bits, rstats, sel_counts, sel_rows,
              sel_vals) = head
             (sel_rows_buf, sel_rows_slot, sel_rows_need,
@@ -3123,7 +3108,7 @@ class ColocatedTorchEngine(TorchStepEngine):
         n_buf_d, n_slot_d, n_need_d, n_append_d, n_sum_d = (
             int(x) for x in sel_counts
         )
-        _t0 = _time.perf_counter()
+        _t0 = _time.time_ns()
         # device-selected detail (the split-blob fast path): the head
         # already carries counts/row-ids/vals for the rows the DEVICE
         # selected with the same flag logic; verify the host's sets are
@@ -3253,9 +3238,8 @@ class ColocatedTorchEngine(TorchStepEngine):
                 self._sel_fit_streak = 0
         else:
             self._sel_fit_streak = 0
-        self.stats["t_detail_ms"] += int(
-            (_time.perf_counter() - _t0) * 1000
-        )
+        self.stats["t_detail_ms"] += profiling.stage(
+            "colocated.detail", _t0)
         # device-plane lease evidence (ROADMAP 4b): advance each batch
         # row's CheckQuorum window mirror and anchor the scalar voting
         # remotes when the quorum-active flag holds — BEFORE the bulk
@@ -3280,7 +3264,7 @@ class ColocatedTorchEngine(TorchStepEngine):
 
         from .engine import SLOT_DROPPED
 
-        _t0 = _time.perf_counter()
+        _t0 = _time.time_ns()
         # ---- per-row effect merge, batch-indexed ---------------------
         # Everything the loop used to look up per row (gather positions
         # via the *_at dicts, flag probes, bases, delivered-bit unpack,
@@ -3458,7 +3442,8 @@ class ColocatedTorchEngine(TorchStepEngine):
             node.dispatch_dropped(u)
             updates.append((node, u))
             node._check_leader_change()
-        self.stats["t_updates_ms"] += int((_time.perf_counter() - _t0) * 1000)
+        self.stats["t_updates_ms"] += profiling.stage(
+            "colocated.updates", _t0)
 
         lanes = [t for t in snapshot_sends if t[2] is not None]
         if lanes:

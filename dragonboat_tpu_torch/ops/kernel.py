@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from .. import profiling
 from . import _native
 from . import convert
 from . import kernel_ref
@@ -152,10 +153,17 @@ def _view_plan(shapes: tuple):
     return tuple(sizes), total, tuple(cut), tuple(offs)
 
 
+# _step_cuda's recorder spans, by layout (internal): (check, alloc)
+_SPANS = {False: ("raft_step.check", "raft_step.alloc"),
+          True: ("raft_step_internal.check", "raft_step_internal.alloc")}
+
+
 def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
                internal: bool = False):
     """Check the operands, allocate the outputs and launch the kernel of
-    either layout."""
+    either layout: the recorder spans ``<kernel>.check`` and
+    ``<kernel>.alloc``, then ``launch.<kernel>``."""
+    t0 = profiling.begin()
     G = state.term.shape[0]
     P = state.peer_id.shape[0 if internal else 1]
     W = state.ring_term.shape[0 if internal else 1]
@@ -191,11 +199,14 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
         if tuple(getattr(inbox, f).shape) != want[kind]:
             raise ValueError(f"{name}: inbox.{f} has shape "
                              f"{tuple(getattr(inbox, f).shape)}")
+    profiling.end(_SPANS[internal][0], t0)
+    t0 = profiling.begin()
     dev = state.term.device
-    new = DeviceState(*_views(tuple(tuple(t.shape) for t in state), dev))
+    new = DeviceState(*_views(tuple(tuple(x.shape) for x in state), dev))
     out = DeviceOut(*_views((
         shape(O, N_FIELDS), (G,), (G,), shape(P), shape(M), shape(M),
         shape(M, E), (G,), (G,), (G,)), dev))
+    profiling.end(_SPANS[internal][1], t0)
     if G == 0:
         return new, out
     _native.launch(name, list(state), list(new), list(inbox), list(out), G,

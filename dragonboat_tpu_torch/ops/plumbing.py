@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import profiling
 from . import _native
 from . import engine_ref
 from . import kernel as K
@@ -174,7 +175,9 @@ def merge_escalated(
     if escalate.dim() != 1:
         raise ValueError("merge_escalated: escalate must be [G]")
     G = escalate.shape[0]
+    t0 = profiling.begin()
     _row_shapes("merge_escalated", G, _shapes(new), _shapes(old), True)
+    profiling.end("merge_escalated.check", t0)
     if G:
         _native.launch("merge_escalated", escalate, list(old), list(new))
     return list(new)

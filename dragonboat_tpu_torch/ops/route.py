@@ -41,6 +41,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _native
 from . import kernel as K
 from . import plumbing
@@ -193,7 +194,9 @@ def route_cuda(
     ``base_inbox``.  ``packed`` and ``undeliv`` are optional outputs the
     kernel fills: the [G, ceil(O/32)] delivered bits and the [G]
     undelivered-row word; with ``delivered`` it also fills the [G, O]
-    bool delivered mask it returns (else None)."""
+    bool delivered mask it returns (else None).  Recorder spans:
+    ``route.check``, ``route.alloc``, then ``launch.route``."""
+    t0 = profiling.begin()
     G, O, nf = out.buf.shape
     P = state.peer_id.shape[1]
     W = state.ring_term.shape[1]
@@ -213,8 +216,11 @@ def route_cuda(
         or base_inbox.ent_term.shape[2] != E
     ):
         raise ValueError("route: base_inbox does not cover the prefix")
+    profiling.end("route.check", t0)
+    t0 = profiling.begin()
     inbox, scratch, cnt, own_stats, deliv = _route_buffers(
         G, P, O, M, E, B, out.buf.device, stats is None, delivered)
+    profiling.end("route.alloc", t0)
     if stats is None:
         stats = own_stats
     tick, propose_leaders, propose_n = prefill
@@ -376,7 +382,9 @@ def fused_rounds(
 
     Returns ``(state', inbox', stats [rounds, 6], n_esc [rounds])``.  On
     CUDA each round's kernels write their stats row straight into one
-    [rounds, 7] buffer, so the wave runs kernels only."""
+    [rounds, 7] buffer, so the wave runs kernels only; the whole call is
+    the recorder span ``fused_rounds``."""
+    t0 = profiling.begin()
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if _device(state.term) == "cpu":
@@ -394,7 +402,9 @@ def fused_rounds(
             propose_leaders=propose_leaders, propose_n=propose_n,
             stats_out=stats_all[k],
         )
-    return state, inbox, stats_all[:, :6], stats_all[:, 6]
+    res = state, inbox, stats_all[:, :6], stats_all[:, 6]
+    profiling.end("fused_rounds", t0)
+    return res
 
 
 # ---------------------------------------------------------------------------
