@@ -369,12 +369,21 @@ def ptxas_by_kernel(log: str) -> dict:
     """{kernel: registers, stack frame, spill stores and loads, static
     shared memory} of each ``__global__`` in the build's ptxas report
     (``devicecheck.ptxas_table``, which takes the names from the
-    registry)."""
+    registry); an instantiation of a ``bool`` template as
+    ``<kernel><false>`` / ``<kernel><true>`` (``raft_step_kernel``: the
+    full step and the routed round's)."""
+    import re
+
     from dragonboat_tpu_torch.analysis import devicecheck
 
     keys = ("regs", "stack", "spill_stores", "spill_loads", "static_smem")
-    return {r["kernel"]: {k: r[k] for k in keys}
-            for r in devicecheck.ptxas_table(log)}
+    out = {}
+    for r in devicecheck.ptxas_table(log):
+        m = re.search(r"ILb([01])EE", r["mangled"])
+        name = r["kernel"] + (("<false>", "<true>")[int(m.group(1))]
+                              if m else "")
+        out[name] = {k: r[k] for k in keys}
+    return out
 
 
 def kernel_split(fn, reps: int = 20) -> dict:
@@ -4592,9 +4601,10 @@ def main(argv) -> int:
                        if n in ("place_rows_kernel",
                                 "place_snapshot_kernel")})
         if k == "raft_step":
-            rows[-1]["block"] = block("raft_step_kernel",
+            rows[-1]["block"] = block("raft_step_kernel<false>",
                                       kern["rows_per_block"],
                                       (P, W, M, E, O), False)
+            rows[-1]["routed_ptxas"] = ptxas["raft_step_kernel<true>"]
             rows[-1]["small_grids"] = {
                 g: dict(v["routed"], rows_per_block=v["rows_per_block"],
                         fuzz_device_ms=v["fuzz"]["device_ms"])

@@ -68,8 +68,9 @@ void* stream_of(const at::Device& dev) {
 
 }  // namespace
 
-// raft_step.cu in either layout (internal = 1: G-last), R rows a block
-static void step_launch(const char* name, int internal,
+// raft_step.cu's kernel `kind`, R rows a block; the routed step's outputs
+// are buf, count and escalate
+static void step_launch(const char* name, dbt::StepKind kind,
                         const Tensors& state, const Tensors& new_state,
                         const Tensors& inbox, const Tensors& outs_,
                         int64_t G, int64_t P, int64_t W, int64_t M,
@@ -83,13 +84,16 @@ static void step_launch(const char* name, int internal,
   auto si = ins(state, dbt::N_STATE, dev, name);
   auto so = outs(new_state, dbt::N_STATE, dev, name);
   auto ib = ins(inbox, dbt::N_INBOX, dev, name);
-  auto o = outs(outs_, dbt::N_OUT, dev, name);
+  auto o = outs(outs_, kind == dbt::STEP_ROUTED ? dbt::N_ROUTED_OUT
+                                                 : dbt::N_OUT,
+                dev, name);
+  o.resize(dbt::N_OUT, nullptr);
   if (G == 0) return;
   const c10::cuda::CUDAGuard guard(dev);
   dbt::raft_step_launch(si.data(), so.data(), ib.data(), o.data(),
                         dim(G, name), dim(P, name), dim(W, name),
                         dim(M, name), dim(E, name), dim(O, name),
-                        internal, dim(R, name), dim(K, name),
+                        kind, dim(R, name), dim(K, name),
                         stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -98,16 +102,24 @@ void raft_step(const Tensors& state, const Tensors& new_state,
                const Tensors& inbox, const Tensors& outs_, int64_t G,
                int64_t P, int64_t W, int64_t M, int64_t E, int64_t O,
                int64_t R, int64_t K) {
-  step_launch("raft_step", 0, state, new_state, inbox, outs_, G, P, W, M, E,
-              O, R, K);
+  step_launch("raft_step", dbt::STEP_EXTERNAL, state, new_state, inbox,
+              outs_, G, P, W, M, E, O, R, K);
+}
+
+void raft_step_routed(const Tensors& state, const Tensors& new_state,
+                      const Tensors& inbox, const Tensors& outs_, int64_t G,
+                      int64_t P, int64_t W, int64_t M, int64_t E, int64_t O,
+                      int64_t R, int64_t K) {
+  step_launch("raft_step_routed", dbt::STEP_ROUTED, state, new_state, inbox,
+              outs_, G, P, W, M, E, O, R, K);
 }
 
 void raft_step_internal(const Tensors& state, const Tensors& new_state,
                         const Tensors& inbox, const Tensors& outs_,
                         int64_t G, int64_t P, int64_t W, int64_t M,
                         int64_t E, int64_t O, int64_t R, int64_t K) {
-  step_launch("raft_step_internal", 1, state, new_state, inbox, outs_, G, P,
-              W, M, E, O, R, K);
+  step_launch("raft_step_internal", dbt::STEP_INTERNAL, state, new_state,
+              inbox, outs_, G, P, W, M, E, O, R, K);
 }
 
 void summarize_flags(const Tensors& srcs,
@@ -621,6 +633,8 @@ void select_and_blob(const at::Tensor& flags, const at::Tensor& combo,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("raft_step", &raft_step, "csrc/raft_step.cu, external layout");
+  m.def("raft_step_routed", &raft_step_routed,
+        "csrc/raft_step.cu, external layout, the routed round's outputs");
   m.def("raft_step_internal", &raft_step_internal,
         "csrc/raft_step.cu, internal (G-last) layout");
   m.def("summarize_flags", &summarize_flags, "csrc/flags.cu");

@@ -14,6 +14,8 @@ namespace dbt {
 constexpr int N_STATE = 31;
 constexpr int N_INBOX = 12;
 constexpr int N_OUT = 10;
+// the routed step's outputs: DeviceOut's first three (buf, count, escalate)
+constexpr int N_ROUTED_OUT = 3;
 // the [G] and [G, P] sources of the flag word, in flags.cu's order
 constexpr int N_FLAG_SRCS = 22;
 // gather_pack: the detail sources and the values block's sources
@@ -34,13 +36,18 @@ constexpr int N_LANE_STATS = 7;
 // the colocated pack's stats row: the seven, then the refused messages
 constexpr int N_LANE_STATS_X = 8;
 
-// raft_step.cu — every array in the field order of ops/types.py; the
-// external [G, ...] layout (internal = 0) or the G-last one (1); blocks of
-// rows_per_block rows (32, 64 or 128), the first `staged` (<= O) outbox
+// raft_step.cu's kernels: the full step in the external [G, ...] layout
+// or in the G-last one, and the routed round's step (external layout:
+// out[N_ROUTED_OUT ..] may be null, and of buf only each row's messages
+// below its count are written)
+enum StepKind { STEP_EXTERNAL = 0, STEP_INTERNAL = 1, STEP_ROUTED = 2 };
+
+// raft_step.cu — every array in the field order of ops/types.py; blocks
+// of rows_per_block rows (32, 64 or 128), the first `staged` (<= O) outbox
 // messages of a row staged in shared memory
 void raft_step_launch(const int* const* st_in, int* const* st_out,
                       const int* const* inbox, int* const* out, int G,
-                      int P, int W, int M, int E, int O, int internal,
+                      int P, int W, int M, int E, int O, StepKind kind,
                       int rows_per_block, int staged, void* stream);
 
 // flags.cu — srcs: old term, vote, committed, leader_id, role,

@@ -45,9 +45,19 @@
 //      device memory.
 //   4. store: the block writes the tile's arrays and staged messages
 //      out, coalesced, as in phase 1.
-// The row logic is one piece of code for both layouts: the two kernels
-// differ only in phases 1, 2 and 4 and in the stride they hand it (an
-// inbox or output element k of row g sits at g * n + k in the external
+// raft_step_kernel is a template on ROUTED.  raft_step_kernel<false> is
+// the full step above, whose outputs are DeviceOut's every field (the
+// engines read the side channels).  raft_step_kernel<true> is the routed
+// round's (ops/route.routed_round), whose outbox goes only to the route,
+// which reads a row's count, escalate and messages below the count: it
+// skips phase 2 and its barrier, phase 1's staged fill and first-slot
+// scan, and the row logic's writes of need_snapshot, slot_base,
+// slot_term, ent_drop, append_lo and the barrier pair; phase 3 leaves the
+// row's count in the tile's row word and phase 4 stores only the staged
+// messages below it.  No other output word is written.
+// The row logic is one piece of code for both layouts: the two layouts'
+// kernels differ only in phases 1, 2 and 4 and in the stride they hand it
+// (an inbox or output element k of row g sits at g * n + k in the external
 // layout, es = 1, and at g + k * G in the G-last one, es = G).  The Row
 // holds no pointer into device memory: its outputs are addressed from
 // the kernel's arguments when written.  Shared memory a block:
@@ -210,7 +220,10 @@ DBT_RI bool is_hot(int mt) {
 }
 
 // One row: its scalars by value, its arrays in its column of the tile.
-struct Row {
+// ROUTED: the routed round's row (`raft_step_kernel<true>`), which writes
+// of its outputs only the messages, `count` and `escalate`.
+template <bool ROUTED>
+struct RowLogic {
   int shard_id, replica_id, self_slot, election_timeout, heartbeat_timeout,
       check_quorum, pre_vote;
   int term, vote, leader_id, role, committed, last_index, first_index,
@@ -482,7 +495,8 @@ struct Row {
     int prev = wsub(nxt, 1);
     if (prev < wsub(first_index, 1)) {
       // compacted below the resolvable boundary -> snapshot path
-      if (in_p(slot)) need_snapshot(slot) = 1;
+      if constexpr (!ROUTED)
+        if (in_p(slot)) need_snapshot(slot) = 1;
       set_col(PA_RSTATE, slot, RS_WAIT);
       return;
     }
@@ -835,7 +849,8 @@ struct Row {
       for (int i = 0; i < E && i < n; ++i) {
         bool is_cc = m.ecc(i) == 1;
         if (is_cc && pending_cc == 1) {
-          ent_drop(slot_i * E + i) = 1;  // config-change gate
+          // config-change gate
+          if constexpr (!ROUTED) ent_drop(slot_i * E + i) = 1;
           continue;
         }
         if (is_cc) pending_cc = 1;
@@ -845,8 +860,12 @@ struct Row {
     }
     if (appended_any && num_voters() == 1 && self_is_voter()) try_commit();
     if (appended_any) broadcast_replicate();
-    int sb = accept ? base : (drop_all ? SLOT_DROPPED : slot_base(slot_i));
-    int stm = accept ? term : slot_term(slot_i);
+    // the routed step has no slot outputs, so reads and writes none
+    int sb = 0, stm = 0;
+    if constexpr (!ROUTED) {
+      sb = accept ? base : (drop_all ? SLOT_DROPPED : slot_base(slot_i));
+      stm = accept ? term : slot_term(slot_i);
+    }
     bool foll = role == ROLE_FOLLOWER || role == ROLE_NON_VOTING ||
                 role == ROLE_WITNESS;
     if (foll && leader_id != 0) {
@@ -856,8 +875,10 @@ struct Row {
     if ((foll && leader_id == 0) || role == ROLE_CANDIDATE ||
         role == ROLE_PRE_CANDIDATE)
       sb = SLOT_DROPPED;
-    slot_base(slot_i) = sb;
-    slot_term(slot_i) = stm;
+    if constexpr (!ROUTED) {
+      slot_base(slot_i) = sb;
+      slot_term(slot_i) = stm;
+    }
   }
 
   // -- candidate / follower blocks ------------------------------------------
@@ -969,14 +990,19 @@ struct Row {
   }
 };
 
+// the full step's row, whose outputs are DeviceOut's every field
+using Row = RowLogic<false>;
+
 // The row logic of row g, the block's row t: layout-blind, given the
 // element stride es of its inbox and outputs (element k of an array with
 // n elements a row at g * n + k in the external layout, es = 1, and at
-// g + k * G in the G-last one, es = G).
+// g + k * G in the G-last one, es = G).  The routed row leaves its count
+// in the tile's word of the row for phase 4.
+template <bool ROUTED>
 DBT_RI void step_row(const StepArgs& a, int* tile, int g, int t, int es) {
   const long long ib0 = row_off(g, a.M, es);
   const long long e0 = row_off(g, a.M * a.E, es);
-  Row r;
+  RowLogic<ROUTED> r;
   const int* const* si = a.st_in;
   r.shard_id = si[0][g];
   r.replica_id = si[1][g];
@@ -1066,9 +1092,13 @@ DBT_RI void step_row(const StepArgs& a, int* tile, int g, int t, int es) {
   so[20][g] = r.transfer_target;
   a.out[1][g] = r.count;
   a.out[2][g] = r.escalate;
-  a.out[7][g] = r.append_lo;
-  a.out[8][g] = r.barrier_idx;
-  a.out[9][g] = r.barrier_term;
+  if constexpr (ROUTED) {
+    tile[a.T() * a.S + t] = r.count;
+  } else {
+    a.out[7][g] = r.append_lo;
+    a.out[8][g] = r.barrier_idx;
+    a.out[9][g] = r.barrier_term;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1180,13 +1210,15 @@ DBT_RI int block_rows(const StepArgs& a, int blk) {
 
 // Phase 1: the peer and ring arrays into the tile (asynchronous copies on
 // the card: wait for them before the barrier); the row's first occupied
-// inbox slot.
-template <bool GL>
+// inbox slot and its staged messages' fill (not in the routed step, which
+// stores only the messages its rows emit).
+template <bool GL, bool ROUTED = false>
 DBT_RI void step_load(const StepArgs& a, int* tile, int blk, int t) {
   const int g0 = blk * a.R, n_rows = block_rows(a, blk);
   for (int f = 0; f < 10; ++f)
     copy_in<GL>(a, tile, a.st_in[N_SCALARS + f], a.arr(f), f < 8 ? a.P : a.W,
                 f < 8 ? a.mP : a.mW, g0, n_rows, t);
+  if constexpr (ROUTED) return;
   if (t >= n_rows) return;
   const int es = row_stride<GL>(a);
   const long long ib0 = row_off(g0 + t, a.M, es);
@@ -1253,56 +1285,84 @@ DBT_RI void step_prefill(const StepArgs& a, const int* tile, int blk, int t) {
 }
 
 // Phase 3: the row logic of the block's row t.
-template <bool GL>
+template <bool GL, bool ROUTED = false>
 DBT_RI void step_rows(const StepArgs& a, int* tile, int blk, int t) {
   if (t >= block_rows(a, blk)) return;
   const int g = blk * a.R + t;
-  step_row(a, tile, g, t, row_stride<GL>(a));
+  step_row<ROUTED>(a, tile, g, t, row_stride<GL>(a));
 }
 
-// Phase 4: the tile's arrays out.
-template <bool GL>
+// The routed step's staged messages out (external layout): of row r's
+// staged words, those of its first min(count, K) messages, coalesced as
+// copy_out's; the counts are the tile's row words (phase 3).
+DBT_RI void store_sent(const StepArgs& a, const int* tile, int g0,
+                       int n_rows, int t) {
+  const int n = a.K * N_FIELDS, rs = a.O * N_FIELDS, b = a.t_buf();
+  const int* cnt = tile + a.T() * a.S;
+  int* d = a.out[0] + (long long)g0 * rs;
+  const int total = n_rows * n;
+  for (int i = t; i < total; i += a.R) {
+    const int r = div_by(i, a.mK), k = i - r * n;
+    if (k < cnt[r] * N_FIELDS)
+      d[(long long)r * rs + k] = tile[(b + k) * a.S + r];
+  }
+}
+
+// Phase 4: the tile's arrays out, and the staged messages: all K of every
+// row, or in the routed step those emitted.
+template <bool GL, bool ROUTED = false>
 DBT_RI void step_store(const StepArgs& a, const int* tile, int blk, int t) {
   const int g0 = blk * a.R, n_rows = block_rows(a, blk);
   for (int f = 0; f < 10; ++f)
     copy_out<GL>(a, tile, a.st_out[N_SCALARS + f], a.arr(f),
                  f < 8 ? a.P : a.W, f < 8 ? a.mP : a.mW, g0, n_rows, t);
-  if (a.K)
+  if constexpr (ROUTED) {
+    static_assert(!GL, "the routed step runs on the external layout");
+    store_sent(a, tile, g0, n_rows, t);
+  } else if (a.K) {
     copy_out<GL>(a, tile, a.out[0], a.t_buf(), a.K * N_FIELDS, a.mK, g0,
                  n_rows, t, a.O * N_FIELDS);
+  }
 }
 
 }  // namespace dbt
 
 #ifdef __CUDACC__
-template <bool GL>
+// ROUTED: no prefill (and no barrier after it), the routed row logic, and
+// only the emitted staged messages stored
+template <bool GL, bool ROUTED>
 __device__ __forceinline__ void step_block(const dbt::StepArgs& a) {
   extern __shared__ int4 dbt_step_tile[];
   int* tile = reinterpret_cast<int*>(dbt_step_tile);
   const int blk = blockIdx.x, t = threadIdx.x;
-  dbt::step_load<GL>(a, tile, blk, t);
+  dbt::step_load<GL, ROUTED>(a, tile, blk, t);
   dbt::async_wait_all();
   __syncthreads();
-  dbt::step_prefill<GL>(a, tile, blk, t);
+  if constexpr (!ROUTED) {
+    dbt::step_prefill<GL>(a, tile, blk, t);
+    __syncthreads();
+  }
+  dbt::step_rows<GL, ROUTED>(a, tile, blk, t);
   __syncthreads();
-  dbt::step_rows<GL>(a, tile, blk, t);
-  __syncthreads();
-  dbt::step_store<GL>(a, tile, blk, t);
+  dbt::step_store<GL, ROUTED>(a, tile, blk, t);
 }
 
+template <bool ROUTED>
 __global__ void raft_step_kernel(const __grid_constant__ dbt::StepArgs a) {
-  step_block<false>(a);
+  step_block<false, ROUTED>(a);
 }
 
 __global__ void raft_step_internal_kernel(
     const __grid_constant__ dbt::StepArgs a) {
-  step_block<true>(a);
+  step_block<true, false>(a);
 }
 
 void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
                            const int* const* inbox, int* const* out, int G,
-                           int P, int W, int M, int E, int O, int internal,
-                           int rows_per_block, int staged, void* stream) {
+                           int P, int W, int M, int E, int O,
+                           dbt::StepKind kind, int rows_per_block,
+                           int staged, void* stream) {
+  const bool internal = kind == dbt::STEP_INTERNAL;
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
@@ -1311,15 +1371,19 @@ void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
   dbt::step_args_init(a, G, P, W, M, E, O, internal, rows_per_block, staged);
   const size_t smem = ((size_t)a.S * a.T() + a.R) * sizeof(int);
   const void* fn = internal ? (const void*)raft_step_internal_kernel
-                            : (const void*)raft_step_kernel;
+                   : kind == dbt::STEP_ROUTED
+                       ? (const void*)raft_step_kernel<true>
+                       : (const void*)raft_step_kernel<false>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   const int blocks = (G + a.R - 1) / a.R;
   if (internal)
     raft_step_internal_kernel<<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
+  else if (kind == dbt::STEP_ROUTED)
+    raft_step_kernel<true><<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
   else
-    raft_step_kernel<<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
+    raft_step_kernel<false><<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
 }
 #endif
 

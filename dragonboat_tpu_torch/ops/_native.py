@@ -56,6 +56,7 @@ KERNELS = {
 # launch it counts as
 ENTRIES = {
     "raft_step": "raft_step",
+    "raft_step_routed": "raft_step",
     "raft_step_internal": "raft_step_internal",
     "summarize_flags": "summarize_flags",
     "gather_pack": "gather_pack",

@@ -1,4 +1,4 @@
-"""The raft step: ``step``, ``step_internal`` and ``make_step_sharded``.
+"""The raft step (``step``, ``step_routed``, ``step_internal``, sharded).
 
 Port of ``dragonboat_tpu/ops/kernel.py`` ``step`` (:1652, external
 ``[G, ...]`` layout in and out), ``step_internal`` (:1674, the internal
@@ -12,7 +12,10 @@ row, blocks of ``rows_per_block`` rows whose arrays are staged in shared
 memory, one row logic for both layouts) and nothing else —
 ``step_internal`` does not transpose around the external kernel; on CPU
 tensors they run the plain PyTorch versions in ``kernel_ref.py``.  Any
-other device raises.
+other device raises.  ``step_routed`` is ``step`` for a caller that reads
+only the emitted messages, their count and the escalation word (the
+routed round): on CUDA its instantiation of ``raft_step_kernel`` writes
+no other output.
 
 Escalation contract (unchanged from the reference): if a row needs
 anything the device cannot resolve (a log term outside the W-ring, an
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -103,6 +106,31 @@ def step(
     return _step_cuda(state, inbox, out_capacity)
 
 
+class RoutedOut(NamedTuple):
+    """``step_routed``'s outputs, ``DeviceOut``'s first three fields: on
+    CUDA only ``buf[g, :count[g]]`` of ``buf`` is written."""
+
+    buf: torch.Tensor       # [G, O, N_FIELDS]
+    count: torch.Tensor     # [G] messages emitted
+    escalate: torch.Tensor  # [G] ESC_* bitmask
+
+
+def step_routed(
+    state: DeviceState, inbox: Inbox, out_capacity: int = 32
+) -> Tuple[DeviceState, RoutedOut]:
+    """``step`` writing only what a routed round reads: the new state,
+    ``count``, ``escalate`` and each row's messages below its count (the
+    other words of ``buf`` are left as allocated).  On CPU tensors the
+    plain step's outputs."""
+    dev = state.term.device
+    if dev.type == "cpu":
+        new, out = kernel_ref.step(state, inbox, out_capacity)
+        return new, RoutedOut(out.buf, out.count, out.escalate)
+    if dev.type != "cuda":
+        raise ValueError(f"step_routed: unsupported device {dev}")
+    return _step_cuda(state, inbox, out_capacity, routed=True)
+
+
 def step_internal(
     state: DeviceState, inbox: Inbox, out_capacity: int = 32
 ) -> Tuple[DeviceState, DeviceOut]:
@@ -153,23 +181,25 @@ def _view_plan(shapes: tuple):
     return tuple(sizes), total, tuple(cut), tuple(offs)
 
 
-# _step_cuda's recorder spans, by layout (internal): (check, alloc)
-_SPANS = {False: ("raft_step.check", "raft_step.alloc"),
-          True: ("raft_step_internal.check", "raft_step_internal.alloc")}
+# _step_cuda's recorder spans, by entry point: (check, alloc)
+_SPANS = {e: (e + ".check", e + ".alloc")
+          for e in ("raft_step", "raft_step_routed", "raft_step_internal")}
 
 
 def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
-               internal: bool = False):
+               internal: bool = False, routed: bool = False):
     """Check the operands, allocate the outputs and launch the kernel of
-    either layout: the recorder spans ``<kernel>.check`` and
-    ``<kernel>.alloc``, then ``launch.<kernel>``."""
+    either layout (``routed``: the external one, the outputs of
+    ``RoutedOut`` only): the recorder spans ``<entry>.check`` and
+    ``<entry>.alloc``, then ``launch.<entry>``."""
     t0 = profiling.begin()
     G = state.term.shape[0]
     P = state.peer_id.shape[0 if internal else 1]
     W = state.ring_term.shape[0 if internal else 1]
     M = inbox.mtype.shape[0 if internal else 1]
     E = inbox.ent_term.shape[1 if internal else 2]
-    name = "raft_step_internal" if internal else "raft_step"
+    name = ("raft_step_internal" if internal
+            else "raft_step_routed" if routed else "raft_step")
     if not 1 <= P <= PMAX:
         raise ValueError(f"{name}: P={P} outside [1, {PMAX}]")
     if W < 1 or W & (W - 1):
@@ -199,14 +229,17 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
         if tuple(getattr(inbox, f).shape) != want[kind]:
             raise ValueError(f"{name}: inbox.{f} has shape "
                              f"{tuple(getattr(inbox, f).shape)}")
-    profiling.end(_SPANS[internal][0], t0)
+    profiling.end(_SPANS[name][0], t0)
     t0 = profiling.begin()
     dev = state.term.device
     new = DeviceState(*_views(tuple(tuple(x.shape) for x in state), dev))
-    out = DeviceOut(*_views((
-        shape(O, N_FIELDS), (G,), (G,), shape(P), shape(M), shape(M),
-        shape(M, E), (G,), (G,), (G,)), dev))
-    profiling.end(_SPANS[internal][1], t0)
+    if routed:
+        out = RoutedOut(*_views(((G, O, N_FIELDS), (G,), (G,)), dev))
+    else:
+        out = DeviceOut(*_views((
+            shape(O, N_FIELDS), (G,), (G,), shape(P), shape(M), shape(M),
+            shape(M, E), (G,), (G,), (G,)), dev))
+    profiling.end(_SPANS[name][1], t0)
     if G == 0:
         return new, out
     _native.launch(name, list(state), list(new), list(inbox), list(out), G,

@@ -80,6 +80,7 @@ BASE_ROUTE = M_ROUTE - CANON["PB"]
 # m.def name -> the __global__ functions it launches
 GLOBALS: Dict[str, Tuple[str, ...]] = {
     "raft_step": ("raft_step_kernel",),
+    "raft_step_routed": ("raft_step_kernel",),
     "raft_step_internal": ("raft_step_internal_kernel",),
     "summarize_flags": ("summarize_flags_kernel",),
     "gather_pack": ("gather_pack_kernel",),
@@ -554,10 +555,12 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
                ("place_rows",),
                _l_scatter_inbox_rows),
     EntryPoint("route.routed_round", R.routed_round, _plain_routed_round,
-               _b_routed_round, ("raft_step", "merge_escalated", "route"),
+               _b_routed_round,
+               ("raft_step_routed", "merge_escalated", "route"),
                _l_routed_round),
     EntryPoint("route.fused_rounds", R.fused_rounds, route_ref.fused_rounds,
-               _b_fused_rounds, ("raft_step", "merge_escalated", "route"),
+               _b_fused_rounds,
+               ("raft_step_routed", "merge_escalated", "route"),
                _l_fused_rounds),
 )
 

@@ -21,12 +21,15 @@ and the ``[0, base)`` prefix, copied from ``base_inbox`` or generated as
 ``merge_and_route``, ``routed_round`` and ``fused_rounds`` are then
 compositions of kernels only — ``raft_step``, the in-place escalation
 merge (``merge_escalated``, csrc/place_rows.cu) and ``route`` — with no
-plain-torch compute between them.  The router and the lane pack
-(``csrc/xlane.cu``) walk a row's outbox with a sub-warp of 8 lanes, one
-a message (``csrc/walk.cuh``);
-the pack counts in blocks of ``lane_rows_per_block`` rows.  On CPU tensors
-every function runs its plain version (``route_ref.py``).  Any other
-device raises.
+plain-torch compute between them.  ``routed_round`` (and so
+``fused_rounds``) steps with ``kernel.step_routed``: its outbox goes
+nowhere but into the route, which reads only the messages, their count
+and the escalation word, so the step writes nothing else.  The router
+and the lane pack (``csrc/xlane.cu``) walk a row's outbox with a
+sub-warp of 8 lanes, one a message (``csrc/walk.cuh``); the pack counts
+in blocks of ``lane_rows_per_block`` rows.  On CPU tensors every
+function runs its plain version (``route_ref.py``).  Any other device
+raises.
 
 Static tables (host-precomputed, see ``build_route_tables``):
   dest_row[g, p]      device row hosting (shard_id[g], peer_id[g, p]),
@@ -298,7 +301,7 @@ def route(
 def merge_and_route(
     old_state: DeviceState,
     new_state: DeviceState,
-    out: DeviceOut,
+    out,
     dest_row: torch.Tensor,
     rank_in_dest: torch.Tensor,
     *,
@@ -316,7 +319,9 @@ def merge_and_route(
     tick/proposal prefill.  Returns (state', inbox', stats,
     escalated_row_count).  Consumes ``new_state``: the escalated rows
     are merged into it in place and state' is that tree, so a caller
-    that still reads ``new_state`` afterwards passes a copy.  On CUDA:
+    that still reads ``new_state`` afterwards passes a copy.  ``out`` is
+    the step's ``DeviceOut`` or ``kernel.RoutedOut``: of it only ``buf``
+    below each row's count, ``count`` and ``escalate`` are read.  On CUDA:
     ``merge_escalated`` (the in-place escalation merge) then ``route``;
     ``stats_out`` is the [7] vector the kernel fills."""
     if _device(out.buf) == "cpu":
@@ -350,10 +355,11 @@ def routed_round(
     propose_n: int = 1,
     stats_out: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceState, Inbox, RouteStats, torch.Tensor]:
-    """One full consensus round: step every row through ``inbox``, then
-    ``merge_and_route`` the outboxes into the next round's inbox."""
+    """One full consensus round: step every row through ``inbox``
+    (``kernel.step_routed``), then ``merge_and_route`` the outboxes into
+    the next round's inbox."""
     M, E = inbox.mtype.shape[1], inbox.ent_term.shape[2]
-    new_state, out = K.step(state, inbox, out_capacity=out_capacity)
+    new_state, out = K.step_routed(state, inbox, out_capacity=out_capacity)
     return merge_and_route(
         state, new_state, out, dest_row, rank_in_dest,
         M=M, E=E, budget=budget, base=base,

@@ -54,6 +54,10 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "card: needs a CUDA card; skipped without one",
+    )
+    config.addinivalue_line(
+        "markers",
         "flaky_isolated: load-scheduling-sensitive tests that pass in "
         "isolation (ROADMAP's rotating tier-1 flakes).  A failed run is "
         "retried ONCE after the process quiesces (gc + settle sleep) so "

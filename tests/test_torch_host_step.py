@@ -20,6 +20,13 @@ plain PyTorch versions on seeded inputs:
   state under seeded fuzz inboxes over every hot message type, at 32 and
   128 rows a block, with ragged last blocks, a G that is not a multiple
   of 4 and P up to 16;
+* the routed step (``raft_step_kernel<true>``: no prefill, the routed row
+  logic, only the emitted staged messages stored) against the full one
+  on the same rows and inboxes: the same state, ``count``, ``escalate``
+  and messages below the count, and every other outbox word still the
+  poison, at 32 and 128 rows a block with ragged last blocks, P up to
+  16, the benchmark cells' geometries, and rows that emit past the
+  staged messages;
 * the quorum index counted without an array against the insertion sort
   it replaces, exhaustively over small P;
 * the lane's pack in its three passes, in the kernels' order (the count
@@ -86,6 +93,23 @@ static void run_blocks(dbt::StepArgs& a) {
   }
 }
 
+// the routed step's phases in raft_step_kernel<true>'s order: no prefill;
+// the tile's poison is not the outputs', so a store of a tile word no
+// phase wrote shows
+static void run_routed_blocks(dbt::StepArgs& a) {
+  std::vector<int> tile((size_t)a.S * a.T() + a.R);
+  const int blocks = (a.G + a.R - 1) / a.R;
+  for (int b = 0; b < blocks; ++b) {
+    std::fill(tile.begin(), tile.end(), -0x7EED);
+    for (int t = 0; t < a.R; ++t)
+      dbt::step_load<false, true>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t)
+      dbt::step_rows<false, true>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t)
+      dbt::step_store<false, true>(a, tile.data(), b, t);
+  }
+}
+
 // the quorum index as the kernel computed it before: an insertion sort
 static int quorum_sorted(const dbt::Row& r) {
   int s[16], n_voters = 0;
@@ -121,6 +145,21 @@ void host_step(const int* const* st_in, int* const* st_out,
     run_blocks<true>(a);
   else
     run_blocks<false>(a);
+}
+
+// the routed step: out holds buf, count and escalate only (the other
+// outputs are null, so a write to one faults)
+void host_step_routed(const int* const* st_in, int* const* st_out,
+                      const int* const* ib, int* const* out, int G, int P,
+                      int W, int M, int E, int O, int R, int K) {
+  dbt::StepArgs a;
+  for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
+  for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
+  for (int f = 0; f < dbt::N_INBOX; ++f) a.ib[f] = ib[f];
+  for (int f = 0; f < dbt::N_OUT; ++f)
+    a.out[f] = f < dbt::N_ROUTED_OUT ? out[f] : nullptr;
+  dbt::step_args_init(a, G, P, W, M, E, O, 0, R, K);
+  run_routed_blocks(a);
 }
 
 // n cases of P slots each: out[2c] the counted index, out[2c+1] the sorted
@@ -318,6 +357,7 @@ def shim(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     so.host_step.restype = None
+    so.host_step_routed.restype = None
     so.host_quorum.restype = None
     so.host_xlane_pack.restype = None
     so.host_xlane_scatter.restype = None
@@ -363,6 +403,25 @@ def host_step(so, st: dict, ib: dict, O: int, internal: bool, R: int = 32,
                  *_ints(G, P, W, M, E, O, internal, R, K))
     return (dict(zip(PT.DeviceState._fields, st_out)),
             dict(zip(PT.DeviceOut._fields, outs)))
+
+
+def host_step_routed(so, st: dict, ib: dict, O: int, R: int = 32,
+                     K: int = 8):
+    """The shim's routed step on numpy fields of the external layout,
+    blocks of R rows: the new state and ``kernel.RoutedOut``'s fields,
+    every output word poisoned first."""
+    G = st["term"].shape[0]
+    P, W = st["peer_id"].shape[1], st["ring_term"].shape[1]
+    M, E = ib["mtype"].shape[1], ib["ent_term"].shape[2]
+    st_in = [np.ascontiguousarray(st[f]) for f in PT.DeviceState._fields]
+    ib_in = [np.ascontiguousarray(ib[f]) for f in PT.Inbox._fields]
+    st_out = [np.full_like(a, POISON) for a in st_in]
+    outs = [np.full(s, POISON, np.int32)
+            for s in ((G, O, PT.N_FIELDS), (G,), (G,))]
+    so.host_step_routed(_ptrs(st_in), _ptrs(st_out), _ptrs(ib_in),
+                        _ptrs(outs), *_ints(G, P, W, M, E, O, R, K))
+    return (dict(zip(PT.DeviceState._fields, st_out)),
+            dict(zip(PK.RoutedOut._fields, outs)))
 
 
 def _padded_cluster(G: int, P: int, W: int, seed: int) -> dict:
@@ -431,6 +490,51 @@ BLOCK_CASES = [
 def test_step_blocks_match_plain_versions(shim, case):
     G, P, W, M, E, O, R, K = case
     _run_steps(shim, 7, G, P, W, M, E, O, R=R, K=K, n_steps=10, n_routed=7)
+
+
+# (G, P, W, M, E, O, R, K): one ragged block of 128; ragged blocks of 32
+# with 3 staged, so most rows emit past the tile; P = 16 with outboxes
+# that overflow; the c4 cell's geometry (ragged second block of 128); the
+# ns cell's with nothing staged
+ROUTED_CASES = [
+    (48, 5, 32, 8, 4, 32, 128, 8),
+    (51, 5, 32, 8, 4, 32, 32, 3),
+    (45, 16, 16, 6, 2, 8, 32, 8),
+    (150, 7, 16, 58, 2, 32, 128, 8),
+    (40, 3, 32, 14, 4, 16, 32, 0),
+]
+
+
+@pytest.mark.parametrize("case", ROUTED_CASES,
+                         ids=[f"G{c[0]}-P{c[1]}-M{c[3]}-R{c[6]}-K{c[7]}"
+                              for c in ROUTED_CASES])
+def test_routed_step_writes_only_what_the_round_reads(shim, case):
+    G, P, W, M, E, O, R, K = case
+    rng = np.random.default_rng(SEED + G)
+    ext = _padded_cluster(G, P, W, SEED + G)
+    out_np = {"buf": np.zeros((G, O, PT.N_FIELDS), np.int32),
+              "count": np.zeros((G,), np.int32)}
+    sent = past_k = escalated = 0
+    for k in range(12):
+        # routed steps first (elections and commits), then fuzz
+        ib = (chip_smoke.route_np(ext, out_np, rng, M, E) if k < 8
+              else chip_smoke.fuzz_inbox_np(ext, rng, M, E))
+        want_st, want_out = host_step(shim, ext, ib, O, False, R, K)
+        got_st, got_out = host_step_routed(shim, ext, ib, O, R, K)
+        TM.assert_fields_equal(want_st, got_st, f"state step {k}")
+        for f in ("count", "escalate"):
+            assert np.array_equal(got_out[f], want_out[f]), (f, k)
+        cnt = got_out["count"]
+        live = np.arange(O)[None, :] < cnt[:, None]
+        assert np.array_equal(got_out["buf"][live], want_out["buf"][live]), k
+        assert (got_out["buf"][~live] == POISON).all(), k
+        sent += int(live.sum())
+        past_k += int((cnt > K).sum())
+        escalated += int((got_out["escalate"] != 0).sum())
+        ext, out_np = want_st, want_out
+    assert sent > G and escalated > 0
+    if K <= 3:  # these cases emit past the staged messages
+        assert past_k > 0
 
 
 def _quorum_cases(P: int):

@@ -200,8 +200,9 @@ def _stub_cuda_path(monkeypatch):
     monkeypatch.setattr(_native, "_module", _FakeBinding())
     monkeypatch.setattr(route, "_device", lambda t: "cuda")
     monkeypatch.setattr(plumbing, "_device", lambda t: "cuda")
-    monkeypatch.setattr(K, "step", lambda st, ib, out_capacity: K._step_cuda(
-        st, ib, out_capacity))
+    monkeypatch.setattr(K, "step_routed",
+                        lambda st, ib, out_capacity: K._step_cuda(
+                            st, ib, out_capacity, routed=True))
 
 
 def _wave_inputs(G=6, P=3, W=8, E=2, budget=2, base=2):
@@ -223,10 +224,10 @@ def test_fused_rounds_records_the_dispatch_split(recorder, monkeypatch,
     tot = profiling.totals()
     assert {k: n for k, (n, _) in tot.items()} == {
         "fused_rounds": 1,
-        "raft_step.check": rounds, "raft_step.alloc": rounds,
+        "raft_step_routed.check": rounds, "raft_step_routed.alloc": rounds,
         "merge_escalated.check": rounds,
         "route.check": rounds, "route.alloc": rounds,
-        "launch.raft_step": rounds, "launch.merge_escalated": rounds,
+        "launch.raft_step_routed": rounds, "launch.merge_escalated": rounds,
         "launch.route": rounds,
     }
     recs = profiling.spans()
@@ -237,6 +238,18 @@ def test_fused_rounds_records_the_dispatch_split(recorder, monkeypatch,
     assert launches == 3.0
     parts = sum(manifest.metric_reader(m).read(ctx) for m in _MS_READERS)
     assert parts == pytest.approx(tot["fused_rounds"][1] / 1e6 / rounds)
+
+
+def test_fused_rounds_launch_the_routed_step_only(monkeypatch):
+    # the engagement count: the wave's step is the routed entry, once a
+    # round, and the full entry never runs on its path
+    _stub_cuda_path(monkeypatch)
+    st, ib, tab, kw = _wave_inputs()
+    _native.reset_launch_counts()
+    route.fused_rounds(st, ib, tab, tab, rounds=4, **kw)
+    assert _native.ENTRY_LAUNCHES == {
+        "raft_step_routed": 4, "merge_escalated": 4, "route": 4}
+    assert _native.LAUNCHES["raft_step"] == 4
 
 
 # -- the benchmark's readers -------------------------------------------------

@@ -202,7 +202,7 @@ def test_entries_cover_every_kernel():
 
 def test_unregistered_kernel_scan_is_clean():
     defs, globs = registry.scan_sources()
-    assert len(defs) == 14 and len(set(defs)) == 14
+    assert len(defs) == 15 and len(set(defs)) == 15
     assert len(globs) >= 18
     assert registry.unregistered_kernels() == []
 
