@@ -81,16 +81,16 @@ def state_unchanged(state, inbox, dest, rank, **kw):
     return state, ib, stats, n_esc
 
 
-def _half_rows(dest) -> int:
-    """The first row of the group that holds row G // 2 (rows of a group
-    route to each other, so its lowest destination is its first row)."""
-    G = dest.shape[0]
-    d = dest[G // 2]
-    return int(d[d >= 0].min())
+def _half_rows(rank) -> int:
+    """The first row of the group that holds row G // 2: rows of a group
+    lie side by side, and a row's rank in every peer's table (slot 0 is
+    always a member) is its place in the group."""
+    G = rank.shape[0]
+    return G // 2 - int(rank[G // 2, 0])
 
 
 def half_batch(state, inbox, dest, rank, **kw):
-    h = _half_rows(dest)
+    h = _half_rows(rank)
     st, ib, stats, n_esc = program_rounds(state, inbox, dest, rank, **kw)
     st = type(st)(*[torch.cat([a[:h], b[h:]]) for a, b in zip(st, state)])
     ib = type(ib)(*[torch.cat([a[:h], torch.zeros_like(a[h:])]) for a in ib])

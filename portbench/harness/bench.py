@@ -18,7 +18,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from . import check, layout
+from . import check, layout, partition
 from .loop import Loop, program_rounds
 from .manifest import metric_reader, roofline_modules
 
@@ -48,18 +48,18 @@ def _sync(dev) -> None:
 
 
 class _Holder:
-    """Keeps the operands of the launches the check will recompute: the
-    launch numbered ``sample`` and always the latest one."""
+    """Keeps the operands (and the phase) of the launches the check will
+    recompute: the launch numbered ``sample`` and always the latest one."""
 
     def __init__(self, sample: Optional[int]):
         self.sample = sample
         self.held = None
         self.last = None
 
-    def __call__(self, n, inputs, outputs):
+    def __call__(self, n, inputs, outputs, phase):
         if n == self.sample:
-            self.held = (n, inputs, outputs)
-        self.last = (n, inputs, outputs)
+            self.held = (n, inputs, outputs, phase)
+        self.last = (n, inputs, outputs, phase)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
@@ -86,6 +86,9 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
     dest = torch.from_numpy(lay.dest_row).to(dev)
     rank = torch.from_numpy(lay.rank_in_dest).to(dev)
     gid = torch.from_numpy(lay.group.astype(np.int64)).to(dev)
+    phase_list = partition.phases(cfg)
+    sched = (partition.Schedule(lay, phase_list, seed, dest)
+             if phase_list else None)
     _sync(dev)
     phases["upload"] = time.perf_counter() - t_start
 
@@ -120,6 +123,11 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
         if int(led.sum()) == groups:
             break
     phases["elections"] = time.perf_counter() - t_start
+    if sched is not None:
+        # the schedule starts with the steady launches (a table is not a
+        # new shape: nothing about it needs warming)
+        sched.start = loop.n
+        loop.schedule = sched
     warm_hold = _Holder(sample=loop.n + 1)
     for _ in range(STEADY_LAUNCHES):
         loop.launch(hold=warm_hold)
@@ -127,6 +135,8 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
     loop.drain()
     _sync(dev)
     setup_launches = loop.n
+    term0 = (check.group_commit_max(loop.state.term, gid, groups).cpu()
+             if sched is not None else None)
     del warm_hold
     gc.collect()
     sentry = Sentry()
@@ -170,6 +180,11 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
     final = (loop.state, loop.inbox)
     held, last = holder.held, holder.last
     loop.state = loop.inbox = None
+    terms_advanced = None
+    if sched is not None:
+        # the groups whose highest term rose over the window: churn ran
+        term1 = check.group_commit_max(final[0].term, gid, groups).cpu()
+        terms_advanced = int((term1 > term0).sum())
 
     # -- the checks ---------------------------------------------------------------
     t_check = time.perf_counter()
@@ -181,11 +196,12 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
         checked = [last]
     n_checked = len(checked)
     words = counters = 0
-    for n, inputs, outputs in checked:
+    for n, inputs, outputs, phase in checked:
         i = n - loop.first
         res = check.compare_launch(
             lay, loop.kw, inputs, outputs, loop.launch_stats[i],
-            loop.launch_esc[i], dev, block_rows, rooflines=rooflines)
+            loop.launch_esc[i], dev, block_rows, rooflines=rooflines,
+            dest_row=None if phase is None else sched.host[phase])
         words += res["words"]
         counters += res["counters"]
         for k, v in res["round_bytes"].items():
@@ -215,6 +231,10 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
     attempted = groups * rounds
     failed = (totals["escalated_rows"] + totals["dropped_off_device"]
               + totals["dropped_budget"] + totals["dropped_ring"])
+    if sched is not None:
+        # every replica is resident: each off-device drop is a cut's
+        totals["partition_dropped"] = totals["dropped_off_device"]
+        failed -= totals["dropped_off_device"]
     e2e = dict(
         group_rounds_per_s=(attempted - totals["escalated_rows"]) / window_s,
         entries_committed_per_s=entries / window_s,
@@ -252,4 +272,5 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float, *,
         window_s=window_s, entries=entries, grown=grown, check_s=check_s,
         setup_phases=phases, check_parts=check_parts, after_window=card,
         leaders=int((final[0].role == T.ROLE_LEADER).sum()),
+        terms_advanced=terms_advanced,
     )

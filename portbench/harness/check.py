@@ -2,10 +2,11 @@
 own outputs, and the guarantees of the configuration on every group.
 
 * ``compare_launch``: a launch of the timed window recomputed by the
-  reference from that launch's inputs, over every row, in blocks of
-  whole groups (groups never exchange messages, so a block is a complete
-  problem).  Every int32 word of the state and the next inbox, and every
-  per-round route counter and escalated-row count, is compared.
+  reference from that launch's inputs and peer table, over every row,
+  in blocks of whole groups (groups never exchange messages, so a block
+  is a complete problem).  Every int32 word of the state and the next
+  inbox, and every per-round route counter and escalated-row count, is
+  compared.
 * ``start_check``: a seeded sample of groups followed by the reference
   from the seed's own initial rows through the first launches of
   set-up (the elections), against the program's rows at that point.
@@ -56,22 +57,27 @@ def group_blocks(lay, block_rows: int) -> List[tuple]:
     return out
 
 
-def _local_tables(lay, r0: int, r1: int, dev):
-    d = lay.dest_row[r0:r1]
+def _local_tables(dest_row: np.ndarray, rank_in_dest: np.ndarray, r0: int,
+                  r1: int, dev):
+    d = dest_row[r0:r1]
     dest = torch.from_numpy(np.where(d >= 0, d - r0, -1).astype(np.int32)).to(dev)
-    rank = torch.from_numpy(lay.rank_in_dest[r0:r1].copy()).to(dev)
+    rank = torch.from_numpy(rank_in_dest[r0:r1].copy()).to(dev)
     return dest, rank
 
 
 def compare_launch(lay, kw: dict, inputs, outputs, stats: np.ndarray,
                    n_esc: np.ndarray, dev, block_rows: int,
-                   rooflines: Optional[dict] = None) -> Dict[str, object]:
+                   rooflines: Optional[dict] = None,
+                   dest_row: Optional[np.ndarray] = None) -> Dict[str, object]:
     """Recompute one launch with the reference over every row and count
     what differs.  ``inputs`` / ``outputs`` are the program's (state,
     inbox) before and after the launch, ``stats`` [K, 6] and ``n_esc``
-    [K] its counters as read back.  With ``rooflines`` ({kernel:
-    module}) also sums each kernel's ``round_bytes`` over the launch's
-    rounds."""
+    [K] its counters as read back, ``dest_row`` the peer table the
+    launch was given (default ``lay.dest_row``).  With ``rooflines``
+    ({kernel: module}) also sums each kernel's ``round_bytes`` over the
+    launch's rounds."""
+    if dest_row is None:
+        dest_row = lay.dest_row
     s_in, i_in = inputs
     s_out, i_out = outputs
     K = int(kw["rounds"])
@@ -81,7 +87,7 @@ def compare_launch(lay, kw: dict, inputs, outputs, stats: np.ndarray,
     nbytes = {k: 0 for k in (rooflines or {})}
     for r0, r1 in group_blocks(lay, block_rows):
         sl = slice(r0, r1)
-        dest, rank = _local_tables(lay, r0, r1, dev)
+        dest, rank = _local_tables(dest_row, lay.rank_in_dest, r0, r1, dev)
         rec: Optional[list] = [] if rooflines else None
         st, ib, rs, re_ = RR.fused_rounds(
             to_ref(s_in, RL.DeviceState, sl), to_ref(i_in, RL.Inbox, sl),

@@ -31,9 +31,11 @@ class Loop:
     of them: per-launch counters, host spans and device events.
 
     ``rounds_fn`` is the program's fused wave (tests put a broken one in
-    its place).  ``hold`` is called with (launch index, inputs, outputs)
-    after every launch is enqueued, so a caller can keep the operands of
-    the launches it will check.  With ``spans`` a list, the host spans
+    its place).  With ``schedule`` (a ``partition.Schedule``) set, each
+    launch is passed its phase's peer table in place of ``dest``.
+    ``hold`` is called with (launch index, inputs, outputs, phase) after
+    every launch is enqueued, so a caller can keep the operands of the
+    launches it will check.  With ``spans`` a list, the host spans
     ``dispatch`` and ``readback_wait`` are appended to it as (label,
     start, end) in ``time.time_ns()`` (the profiler's clock)."""
 
@@ -49,6 +51,7 @@ class Loop:
                        propose_n=int(cell.traffic["propose_n"]))
         self.state, self.inbox, self.dest, self.rank = state, inbox, dest, rank
         self.rounds_fn = rounds_fn
+        self.schedule = None
         self.cuda = state.term.device.type == "cuda"
         nbuf = self.depth + 1
         pin = self.cuda
@@ -93,10 +96,12 @@ class Loop:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
         s_in, i_in = self.state, self.inbox
+        phase = None if self.schedule is None else self.schedule.phase_of(self.n)
+        dest = self.dest if phase is None else self.schedule.device[phase]
         a = time.time_ns()
         t = time.perf_counter()
         st, ib, stats, n_esc = self.rounds_fn(
-            s_in, i_in, self.dest, self.rank, **self.kw)
+            s_in, i_in, dest, self.rank, **self.kw)
         self.dispatch_s += time.perf_counter() - t
         if self.spans is not None:
             self.spans.append(("dispatch", a, time.time_ns()))
@@ -109,7 +114,7 @@ class Loop:
         self._inflight.append((self.n, ev1, slot, t_req))
         self.state, self.inbox = st, ib
         if hold is not None:
-            hold(self.n, (s_in, i_in), (st, ib))
+            hold(self.n, (s_in, i_in), (st, ib), phase)
         self.n += 1
 
     def drain(self) -> None:

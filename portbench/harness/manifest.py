@@ -16,6 +16,8 @@ from pathlib import Path
 from types import ModuleType
 from typing import List
 
+from . import partition
+
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
 
@@ -54,6 +56,7 @@ def cell(name: str, root: Path = ROOT) -> Cell:
     w = wl[name]
     cfgs = {c["name"]: c for c in man["configs"]}
     config = json.loads((root / cfgs[w["config"]]["file"]).read_text())
+    partition.phases(config)  # a malformed schedule fails here, at load
     traffic = json.loads(
         (root / BENCH_DIR.name / "traffic" / f"{w['traffic']}.json").read_text())
     return Cell(

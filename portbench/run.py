@@ -58,6 +58,8 @@ def result_line(res: dict, trace: bool, count: int, kind: str) -> dict:
                   memory_peak_bytes=res["peak"])
     out = dict(correct=res["correct"], attempted=res["attempted"],
                failed=res["failed"], metrics=res["metrics"], device=device)
+    if res.get("terms_advanced") is not None:
+        out["terms_advanced"] = res["terms_advanced"]
     tr = res["trace"]
     if trace and tr:
         device["busy_s"] = tr["busy_s"]
