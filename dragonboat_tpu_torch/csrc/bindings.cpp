@@ -296,7 +296,7 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
            const std::optional<at::Tensor>& delivered,
            const at::Tensor& scratch, const at::Tensor& cnt, int64_t B,
            int64_t base, int64_t tick, int64_t propose_leaders,
-           int64_t propose_n) {
+           int64_t propose_n, const std::optional<at::Tensor>& census) {
   const char* name = "route";
   const at::Device dev = buf.device();
   auto s = ins(st, dbt::N_ROUTE_STATE, dev, name);
@@ -360,6 +360,16 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
                 name, ": delivered must be a contiguous [G, O] bool tensor");
     dl = static_cast<unsigned char*>(delivered->data_ptr());
   }
+  unsigned long long* cen = nullptr;
+  if (census) {
+    TORCH_CHECK(census->is_cuda() && census->device() == dev &&
+                    census->scalar_type() == at::kLong &&
+                    census->is_contiguous() &&
+                    census->numel() == dbt::N_ROUTE_CENSUS,
+                name, ": census must be a contiguous [", dbt::N_ROUTE_CENSUS,
+                "] int64 tensor");
+    cen = reinterpret_cast<unsigned long long*>(census->data_ptr<int64_t>());
+  }
   int* stt = out(stats, dev, name);
   int* scr = out(scratch, dev, name);
   int* cn = out(cnt, dev, name);
@@ -372,7 +382,7 @@ void route(const Tensors& st, const at::Tensor& buf, const at::Tensor& count,
                     dim(G, name), dim(P, name), dim(W, name), dim(O, name),
                     dim(M, name), dim(E, name), dim(B, name), dim(base, name),
                     dim(tick, name), dim(propose_leaders, name),
-                    dim(propose_n, name), stream_of(dev));
+                    dim(propose_n, name), cen, stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

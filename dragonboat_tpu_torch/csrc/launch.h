@@ -28,6 +28,9 @@ constexpr int MAX_FIELDS = 32;
 // RouteStats, then the suppressed-row count)
 constexpr int N_ROUTE_STATE = 7;
 constexpr int N_ROUTE_STATS = 7;
+// route: the election census (pre-vote and vote requests, granted pre-vote
+// and vote responses), 64-bit counts a run adds to
+constexpr int N_ROUTE_CENSUS = 4;
 // xlane: the state sources (peer_id, replica_id, first_index,
 // last_index, ring_term, ring_cc) and the lane stats row (the five
 // CrossStats, then the suppressed and the live row counts)
@@ -90,7 +93,9 @@ void set_remote_snapshot_launch(const int* rstate, const int* snap_index,
 
 // route.cu — st: N_ROUTE_STATE sources; suppress, alive, base_inbox,
 // packed, undeliv and delivered may be null; stats is zeroed and filled;
-// scratch [G, P, B] and cnt [G, P] are the walk's workspace
+// scratch [G, P, B] and cnt [G, P] are the walk's workspace; census
+// (N_ROUTE_CENSUS counts, added to, not zeroed) may be null, and then the
+// walk is the kernel without it
 void route_launch(const int* const* st, const int* buf, const int* count,
                   const int* dest_row, const int* rank, const int* suppress,
                   const int* alive, int alive_stride,
@@ -99,7 +104,7 @@ void route_launch(const int* const* st, const int* buf, const int* count,
                   unsigned char* delivered, int* scratch, int* cnt, int G,
                   int P, int W, int O, int M, int E, int B, int base,
                   int tick, int propose_leaders, int propose_n,
-                  void* stream);
+                  unsigned long long* census, void* stream);
 
 // inbox.cu — every output inbox is one int32 allocation `out` laid out
 // by inbox_layout.  Fill (from_ticks): every word 0 but slot 0 of mtype

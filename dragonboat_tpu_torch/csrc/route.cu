@@ -58,13 +58,20 @@
 // memory and then each nonzero one to the [7] vector with one atomic
 // (integer sums do not depend on order).  stats[6] is the number of
 // suppressed rows (the escalation count of merge_and_route).
+// The election census (given a `census` vector, which the fused wave does
+// while the port's span recorder is on): the walk is then instantiated
+// with CENSUS, and each lane also counts its message's type, and for a
+// vote or pre-vote response its reject word, into four more sums, which
+// the block adds to the 64-bit vector the same way.  The vector is added
+// to across launches and never zeroed here, so a window's totals are read
+// back once.  Without it the walk is the kernel it was before the census.
 //
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
 // C++: then the per-slot, per-row and per-message steps (`route_slot`,
 // `route_row_scalars`, `route_lane_facts`, `lane_rank`,
-// `route_lane_emit`, `route_recv_slot`) are host functions, and a host
-// loop that runs them lane by lane, with the masks made from the lanes'
-// predicates, checks the walk without a card.
+// `route_lane_emit`, `route_lane_census`, `route_recv_slot`) are host
+// functions, and a host loop that runs them lane by lane, with the masks
+// made from the lanes' predicates, checks the walk without a card.
 #include "common.cuh"
 #include "launch.h"
 #include "walk.cuh"
@@ -101,6 +108,9 @@ struct RouteArgs {
   int* cnt;                // [G, P]
   int G, P, W, O, M, E, B, base;
   int tick, propose_leaders, propose_n;
+  // [N_ROUTE_CENSUS] election census, added to (never zeroed), or null;
+  // last, so every other field keeps its offset in the kernels' arguments
+  unsigned long long* census;
 };
 
 // One peer slot of a sending row.
@@ -217,6 +227,28 @@ DBT_FI bool route_lane_emit(const RouteArgs& a, const RouteRow& r,
   for (int p = 0; p < a.P; ++p)
     if ((f.hits >> p) & 1u) a.scratch[(pb + p) * a.B + b] = o;
   return in_budget;
+}
+
+// The election census of message o (`route_walk_kernel<true>`; the plain
+// version is ops/route_ref.py `census_counts`): a message the walk takes
+// from the outbox (o < count, its row not suppressed), whether it is then
+// delivered or dropped, adds one to e[0] if it is a pre-vote request, e[1]
+// a vote request, e[2] a pre-vote response that grants (reject 0), e[3] a
+// vote response that grants.  Only a response's reject word is read.  Each
+// count has a fixed index, so e[] stays in registers (an index computed at
+// run time would put it on the stack).
+DBT_FI void route_lane_census(const RouteArgs& a, const RouteRow& r,
+                              const RouteMsg& f, int o, int* e) {
+  if (!f.v) return;
+  const bool pv_resp = f.mt == MT_REQUEST_PREVOTE_RESP;
+  const bool v_resp = f.mt == MT_REQUEST_VOTE_RESP;
+  bool granted = false;
+  if (pv_resp || v_resp)
+    granted = a.buf[((long long)r.g * a.O + o) * N_FIELDS + F_REJECT] == 0;
+  e[0] += f.mt == MT_REQUEST_PREVOTE ? 1 : 0;
+  e[1] += f.mt == MT_REQUEST_VOTE ? 1 : 0;
+  e[2] += granted && pv_resp ? 1 : 0;
+  e[3] += granted && v_resp ? 1 : 0;
 }
 
 // dst[0, E) = src[0, E), or zeros when src is null; on the card one
@@ -361,8 +393,8 @@ namespace {
 // The block's counts s[0..N) added to stats: a warp sum each, a shared
 // sum over the warps, then one atomic a nonzero stat.  Every thread of the
 // block calls it.
-template <int N>
-__device__ __forceinline__ void block_add(int* stats, const int* s) {
+template <int N, typename T>
+__device__ __forceinline__ void block_add(T* stats, const int* s) {
   __shared__ int part[N];
   const unsigned full = 0xffffffffu;
   if (threadIdx.x < N) part[threadIdx.x] = 0;
@@ -374,13 +406,16 @@ __device__ __forceinline__ void block_add(int* stats, const int* s) {
   }
   __syncthreads();
   if (threadIdx.x < N && part[threadIdx.x])
-    atomicAdd(stats + threadIdx.x, part[threadIdx.x]);
+    atomicAdd(stats + threadIdx.x, static_cast<T>(part[threadIdx.x]));
 }
 
 // The walk: ROUTE_THREADS / WALK_LANES rows a block, a sub-warp a row.  A
 // warp walks as many chunks of WALK_LANES messages as the longest outbox
 // among its rows needs; the later chunks hold no valid message and only
-// write zeros.
+// write zeros.  CENSUS (a.census given) also counts the election messages
+// (`route_lane_census`) into a.census; without it the walk is the same
+// code as before the census existed.
+template <bool CENSUS>
 __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
     route_walk_kernel(const __grid_constant__ dbt::RouteArgs a) {
   constexpr int L = dbt::WALK_LANES;
@@ -408,6 +443,7 @@ __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
       0xffffffffu, dbt::imax(0, dbt::imin(r.count, a.O)));
   const auto ballot = [](int, bool pred) { return dbt::sub_ballot(pred); };
   int s[7] = {0, 0, 0, 0, 0, 0, 0};
+  int e[dbt::N_ROUTE_CENSUS] = {0, 0, 0, 0};
   dbt::LaneWords carry;  // deliverable messages toward each peer slot
   bool und = false;
   uint32_t word = 0;
@@ -418,6 +454,7 @@ __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
     if (c * L < n_live) {
       dbt::RouteMsg f;
       dbt::route_lane_facts(a, r, o, pid, f);
+      if constexpr (CENSUS) dbt::route_lane_census(a, r, f, o, e);
       const int b = dbt::lane_rank(a.P, f.deliverable ? f.hits : 0u, sub,
                                    ballot, carry);
       deliv = dbt::route_lane_emit(a, r, f, o, b, s);
@@ -442,6 +479,7 @@ __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
     if (r.sup && sub == 0) s[6] += 1;
   }
   block_add<7>(a.stats, s);
+  if constexpr (CENSUS) block_add<dbt::N_ROUTE_CENSUS>(a.census, e);
 }
 
 __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
@@ -465,7 +503,8 @@ void dbt::route_launch(const int* const* st, const int* buf, const int* count,
                        int* packed, int* undeliv, unsigned char* delivered,
                        int* scratch, int* cnt, int G, int P, int W, int O,
                        int M, int E, int B, int base, int tick,
-                       int propose_leaders, int propose_n, void* stream) {
+                       int propose_leaders, int propose_n,
+                       unsigned long long* census, void* stream) {
   dbt::RouteArgs a;
   a.peer_id = st[0];
   a.replica_id = st[1];
@@ -503,11 +542,16 @@ void dbt::route_launch(const int* const* st, const int* buf, const int* count,
   a.tick = tick;
   a.propose_leaders = propose_leaders;
   a.propose_n = propose_n;
+  a.census = census;
   cudaStream_t s = (cudaStream_t)stream;
   const int T = dbt::ROUTE_THREADS;
   cudaMemsetAsync(stats, 0, dbt::N_ROUTE_STATS * sizeof(int), s);
   const int rows = T / dbt::WALK_LANES;
-  route_walk_kernel<<<(unsigned)((G + rows - 1) / rows), T, 0, s>>>(a);
+  const unsigned walk_blocks = (unsigned)((G + rows - 1) / rows);
+  if (census)
+    route_walk_kernel<true><<<walk_blocks, T, 0, s>>>(a);
+  else
+    route_walk_kernel<false><<<walk_blocks, T, 0, s>>>(a);
   const long long slots = (long long)G * M;
   route_recv_kernel<<<(unsigned)((slots + T - 1) / T), T, 0, s>>>(a);
 }

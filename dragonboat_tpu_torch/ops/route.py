@@ -186,6 +186,7 @@ def route_cuda(
     packed: Optional[torch.Tensor] = None,
     undeliv: Optional[torch.Tensor] = None,
     delivered: bool = False,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[Inbox, torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``csrc/route.cu``.  Returns ``(inbox, stats, delivered)``
     with ``stats`` the kernel's [7] vector (RouteStats, then the
@@ -197,7 +198,9 @@ def route_cuda(
     ``base_inbox``.  ``packed`` and ``undeliv`` are optional outputs the
     kernel fills: the [G, ceil(O/32)] delivered bits and the [G]
     undelivered-row word; with ``delivered`` it also fills the [G, O]
-    bool delivered mask it returns (else None).  Recorder spans:
+    bool delivered mask it returns (else None).  With ``census`` (a [4]
+    int64 vector, ``profiling.CENSUS``) the walk adds its election census
+    to it (``route_walk_kernel<true>``).  Recorder spans:
     ``route.check``, ``route.alloc``, then ``launch.route``."""
     t0 = profiling.begin()
     G, O, nf = out.buf.shape
@@ -233,7 +236,7 @@ def route_cuda(
         alive_stride, list(base_inbox) if base_inbox is not None else [],
         list(inbox), stats, packed, undeliv, deliv, scratch, cnt, B,
         # raftlint: ignore[host-sync] the prefill's host scalars, not device values
-        base, int(tick), int(propose_leaders), int(propose_n),
+        base, int(tick), int(propose_leaders), int(propose_n), census,
     )
     return inbox, stats, deliv
 
@@ -312,6 +315,7 @@ def merge_and_route(
     propose_leaders: bool = False,
     propose_n: int = 1,
     stats_out: Optional[torch.Tensor] = None,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceState, Inbox, RouteStats, torch.Tensor]:
     """The post-step tail of a consensus round: undo escalated rows
     (their device effects are discarded — raft-safe message loss), then
@@ -323,12 +327,13 @@ def merge_and_route(
     the step's ``DeviceOut`` or ``kernel.RoutedOut``: of it only ``buf``
     below each row's count, ``count`` and ``escalate`` are read.  On CUDA:
     ``merge_escalated`` (the in-place escalation merge) then ``route``;
-    ``stats_out`` is the [7] vector the kernel fills."""
+    ``stats_out`` is the [7] vector the kernel fills.  ``census`` (a [4]
+    int64 vector) is added the route's election census."""
     if _device(out.buf) == "cpu":
         state, inbox, stats, n_esc = route_ref.merge_and_route(
             old_state, new_state, out, dest_row, rank_in_dest, M=M, E=E,
             budget=budget, base=base, propose_leaders=propose_leaders,
-            propose_n=propose_n,
+            propose_n=propose_n, census=census,
         )
         return state, inbox, RouteStats(*stats), n_esc
     state = DeviceState(*plumbing.merge_escalated(
@@ -338,6 +343,7 @@ def merge_and_route(
         state, out, dest_row, rank_in_dest, M=M, E=E, budget=budget,
         base=base, suppress=out.escalate,
         prefill=(True, propose_leaders, propose_n), stats=stats_out,
+        census=census,
     )
     return state, inbox, RouteStats(*stats[:6]), stats[6]
 
@@ -354,6 +360,7 @@ def routed_round(
     propose_leaders: bool = False,
     propose_n: int = 1,
     stats_out: Optional[torch.Tensor] = None,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceState, Inbox, RouteStats, torch.Tensor]:
     """One full consensus round: step every row through ``inbox``
     (``kernel.step_routed``), then ``merge_and_route`` the outboxes into
@@ -364,7 +371,7 @@ def routed_round(
         state, new_state, out, dest_row, rank_in_dest,
         M=M, E=E, budget=budget, base=base,
         propose_leaders=propose_leaders, propose_n=propose_n,
-        stats_out=stats_out,
+        stats_out=stats_out, census=census,
     )
 
 
@@ -380,6 +387,7 @@ def fused_rounds(
     base: int,
     propose_leaders: bool = False,
     propose_n: int = 1,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceState, Inbox, torch.Tensor, torch.Tensor]:
     """``rounds`` consecutive consensus rounds with no host sync between
     them — the fused commit wave.  Bit-exactness contract:
@@ -389,15 +397,22 @@ def fused_rounds(
     Returns ``(state', inbox', stats [rounds, 6], n_esc [rounds])``.  On
     CUDA each round's kernels write their stats row straight into one
     [rounds, 7] buffer, so the wave runs kernels only; the whole call is
-    the recorder span ``fused_rounds``."""
+    the recorder span ``fused_rounds``.  Each round's route adds its
+    election census to ``census`` (a [4] int64 vector on the wave's
+    device), by default the recorder's (``profiling.census_buffer``:
+    only while a profiler runs); with neither, nothing is counted and
+    the wave runs the kernels it runs without the census."""
     t0 = profiling.begin()
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if census is None:
+        census = profiling.census_buffer(state.term.device)
     if _device(state.term) == "cpu":
         return route_ref.fused_rounds(
             state, inbox, dest_row, rank_in_dest, rounds=rounds,
             out_capacity=out_capacity, budget=budget, base=base,
             propose_leaders=propose_leaders, propose_n=propose_n,
+            census=census,
         )
     stats_all = torch.empty((rounds, _N_KSTATS), dtype=I32,
                             device=state.term.device)
@@ -406,7 +421,7 @@ def fused_rounds(
             state, inbox, dest_row, rank_in_dest,
             out_capacity=out_capacity, budget=budget, base=base,
             propose_leaders=propose_leaders, propose_n=propose_n,
-            stats_out=stats_all[k],
+            stats_out=stats_all[k], census=census,
         )
     res = state, inbox, stats_all[:, :6], stats_all[:, 6]
     profiling.end("fused_rounds", t0)

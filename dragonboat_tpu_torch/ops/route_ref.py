@@ -39,6 +39,10 @@ from .types import (
     I32,
     MT_PROPOSE,
     MT_REPLICATE,
+    MT_REQUEST_PREVOTE,
+    MT_REQUEST_PREVOTE_RESP,
+    MT_REQUEST_VOTE,
+    MT_REQUEST_VOTE_RESP,
     MT_TICK,
     ROLE_LEADER,
     DeviceOut,
@@ -66,6 +70,23 @@ def check_layout(M: int, P: int, budget: int, base: int) -> None:
         )
 
 
+def census_counts(out, valid: torch.Tensor) -> torch.Tensor:
+    """The election census of one route call (``csrc/route.cu``
+    ``route_lane_census``): of the messages the route takes from the
+    outboxes (``valid``: below the row's count, row not suppressed),
+    delivered or dropped alike, the pre-vote requests, the vote requests,
+    the pre-vote responses that grant (reject 0) and the vote responses
+    that grant, as a [4] int64 vector (``profiling.CENSUS``'s order)."""
+    mtype = out.buf[:, :, F_MTYPE]
+    granted = valid & (out.buf[:, :, F_REJECT] == 0)
+    return torch.stack([
+        (valid & (mtype == MT_REQUEST_PREVOTE)).sum(),
+        (valid & (mtype == MT_REQUEST_VOTE)).sum(),
+        (granted & (mtype == MT_REQUEST_PREVOTE_RESP)).sum(),
+        (granted & (mtype == MT_REQUEST_VOTE_RESP)).sum(),
+    ]).to(torch.int64)
+
+
 def _gather_rows_clamped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` with the reference's gather rule: a negative index
     counts from the end, then the index clamps into range."""
@@ -88,13 +109,15 @@ def route(
     base_inbox: Optional[Inbox] = None,
     suppress: Optional[torch.Tensor] = None,
     dest_alive: Optional[torch.Tensor] = None,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[Inbox, torch.Tensor, torch.Tensor]:
     """Scatter ``out``'s messages into a fresh (or prefilled) Inbox.
 
     Returns ``(inbox, stats, delivered)``: ``stats`` is the [6] int32
     vector in RouteStats order (delivered, dropped_off_device,
     dropped_budget, dropped_ring, suppressed, host_carried),
-    ``delivered`` the [G, O] bool mask."""
+    ``delivered`` the [G, O] bool mask.  ``census`` (a [4] int64
+    vector) is added the call's ``census_counts``."""
     G, O, _ = out.buf.shape
     P = state.peer_id.shape[1]
     W = state.ring_term.shape[1]
@@ -115,6 +138,8 @@ def route(
         sup = suppress.bool()
         n_suppressed = (valid & sup[:, None]).sum(dtype=I32)
         valid = valid & ~sup[:, None]
+    if census is not None:
+        census += census_counts(out, valid)
 
     hits = (
         (state.peer_id[:, None, :] == to[:, :, None])
@@ -304,12 +329,13 @@ def merge_and_route(
     base: int,
     propose_leaders: bool = False,
     propose_n: int = 1,
+    census: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceState, Inbox, torch.Tensor, torch.Tensor]:
     """Undo escalated rows, then route the outboxes into the next
     round's inbox on top of a fresh tick/proposal prefill.  Returns
     (state', inbox', stats [6], escalated_row_count).  Consumes
     ``new_state``: the escalated rows are merged into it in place, and
-    state' is that tree."""
+    state' is that tree.  ``census``: ``route``'s."""
     esc = out.escalate != 0
     n_esc = esc.sum(dtype=I32)
     state = DeviceState(*engine_ref.merge_escalated(
@@ -320,7 +346,7 @@ def merge_and_route(
     inbox, stats, _delivered = route(
         state, out, dest_row, rank_in_dest,
         M=M, E=E, budget=budget, base=base,
-        base_inbox=prefill, suppress=esc,
+        base_inbox=prefill, suppress=esc, census=census,
     )
     return state, inbox, stats, n_esc
 
@@ -336,6 +362,7 @@ def routed_round(
     base: int,
     propose_leaders: bool = False,
     propose_n: int = 1,
+    census: Optional[torch.Tensor] = None,
 ):
     """One consensus round: step every row, then ``merge_and_route``."""
     M, E = inbox.mtype.shape[1], inbox.ent_term.shape[2]
@@ -343,7 +370,7 @@ def routed_round(
     return merge_and_route(
         state, new_state, out, dest_row, rank_in_dest,
         M=M, E=E, budget=budget, base=base,
-        propose_leaders=propose_leaders, propose_n=propose_n,
+        propose_leaders=propose_leaders, propose_n=propose_n, census=census,
     )
 
 
@@ -359,9 +386,11 @@ def fused_rounds(
     base: int,
     propose_leaders: bool = False,
     propose_n: int = 1,
+    census: Optional[torch.Tensor] = None,
 ):
     """``rounds`` consecutive ``routed_round`` calls.  Returns
-    ``(state', inbox', stats [rounds, 6], n_esc [rounds])``."""
+    ``(state', inbox', stats [rounds, 6], n_esc [rounds])``; each round
+    adds its ``census_counts`` to ``census`` when given."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     stats_l, esc_l = [], []
@@ -370,6 +399,7 @@ def fused_rounds(
             state, inbox, dest_row, rank_in_dest,
             out_capacity=out_capacity, budget=budget, base=base,
             propose_leaders=propose_leaders, propose_n=propose_n,
+            census=census,
         )
         stats_l.append(stats)
         esc_l.append(n_esc)

@@ -25,6 +25,13 @@ contains it; no stack is kept.  ``annotate(name)`` is the same span as
 a context manager, and ``stage(name, t0)`` closes a stage that is timed
 whether or not the recorder is on.
 
+While the recorder is on, the fused wave (``ops/route.py``
+``fused_rounds``) also takes the election census: the route counts the
+pre-vote and vote requests and the granted pre-vote and vote responses it
+takes from the outboxes into a per-device int64 vector
+(``census_buffer``), on the device and without a sync; ``census()`` reads
+the totals back once the work has been synchronized.
+
 ``trace(log_dir)`` is the operator's capture: CPU and (when present)
 CUDA activity, with the session's spans merged into the one Chrome
 trace it writes, ``log_dir/trace.json``::
@@ -42,8 +49,9 @@ import json
 import os
 import threading
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import torch
 import torch.autograd.profiler as _autograd_profiler
 
 # records the ring holds; a 10 s benchmark window records under 10^5
@@ -59,6 +67,12 @@ _seq = itertools.count()
 _lock = threading.Lock()      # registration, reset and the readers
 _local = threading.local()    # .totals: this thread's _Totals
 _all: list = []               # every recording thread's _Totals
+
+# the election census, in the order of its vector (csrc/route.cu
+# ``route_lane_census``, ops/route_ref.py ``census_counts``)
+CENSUS = ("prevote_requests", "vote_requests", "prevote_grants",
+          "vote_grants")
+_census: Dict[str, torch.Tensor] = {}  # device -> its [4] int64 vector
 
 
 class _Totals(dict):
@@ -187,14 +201,47 @@ def dropped() -> int:
     return max(0, _count() - CAPACITY)
 
 
+def census_buffer(device) -> Optional[torch.Tensor]:
+    """The census vector of ``device`` for a fused wave to add to while
+    the recorder is on, else None (the wave counts nothing).  Made, zeroed,
+    by the first wave that asks on that device, and kept."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    key = str(device)
+    buf = _census.get(key)
+    if buf is None:
+        with _lock:
+            buf = _census.get(key)
+            if buf is None:
+                buf = _census[key] = torch.zeros(
+                    len(CENSUS), dtype=torch.int64, device=device)
+    return buf
+
+
+def census() -> Dict[str, int]:
+    """{kind: count} of the election census since the last reset, over
+    every device (``CENSUS``'s kinds; 0 where no wave counted).  Reads each
+    device's vector back: call it after the counted work's closing
+    synchronize."""
+    out = dict.fromkeys(CENSUS, 0)
+    with _lock:
+        bufs = list(_census.values())
+    for buf in bufs:
+        for k, v in zip(CENSUS, buf.tolist()):
+            out[k] += v
+    return out
+
+
 def reset() -> None:
     """Forget every span, total and drop (the ring, once allocated, is
-    kept).  Call it while no profiler runs."""
+    kept), and zero the census.  Call it while no profiler runs."""
     global _seq
     with _lock:
         for mine in _all:
             mine.clear()
         _seq = itertools.count()
+        for buf in _census.values():
+            buf.zero_()
 
 
 def interval_union(intervals: Iterable[Tuple[float, float]]) -> float:
