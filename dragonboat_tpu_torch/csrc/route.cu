@@ -13,10 +13,12 @@
 // messages (11 words each), the sending rows' tables, row scalars and the
 // ring words of the entries they carry, and what it writes: the whole
 // inbox (G*M*(10+2E) words), the delivered bits and the undelivered word.
-// The inbox is most of it at every geometry of the repo.  The compares of
-// a message against the P peer slots are a few dozen integer operations;
-// what the card spends beyond the bytes is the latency of the loads each
-// step depends on, so the design keeps those chains short.
+// The inbox is most of it at every geometry of the repo, and 95-97% of
+// its slots are empty at the benchmark's (a fresh inbox each round, so
+// they are written as zeros).  The compares of a message against the P
+// peer slots are a few dozen integer operations; what the card spends
+// beyond the bytes is the latency of the loads each step depends on, so
+// the design keeps those chains short and off the path of the zeros.
 //
 // Design: a memset and two kernels on one stream.
 //   1. Walk (route_walk_kernel): a sub-warp of 8 lanes (walk.cuh) walks
@@ -42,22 +44,42 @@
 //      min(messages toward p, B) is written once the walk is done.
 //      Nothing else is written: an unused (p, b) slot is never touched,
 //      and no message is copied.
-//   2. Receive (route_recv_kernel), one thread per (dest row d, inbox
-//      slot m), stores coalesced (the E entry words as one 16- or 8-byte
-//      store where they allow).  Slots below `base` are the prefix
-//      (copied from base_inbox, or the tick / propose_leaders prefill);
-//      slot base + r*B + b selects (flat, b), flat = dest_row[d, r] * P +
-//      rank_in_dest[d, r] clamped as the reference's gather is, when
-//      b < cnt[flat] — the reference's pick_found — and then reads the
-//      message o = scratch[flat, b] of sender row flat / P: its wire
-//      fields from the outbox, `from` and the E entry words from that
-//      row (route.py:303-318).  It pulls, as the reference gathers: a
-//      push into destination rows would differ from it wherever the
-//      tables are not symmetric.
-// The stats are int32 sums: a block adds its threads' counts in shared
-// memory and then each nonzero one to the [7] vector with one atomic
-// (integer sums do not depend on order).  stats[6] is the number of
-// suppressed rows (the escalation count of merge_and_route).
+//   2. Receive (route_recv_kernel): persistent blocks, a few an SM, walk
+//      tiles of R destination rows with a grid stride (`recv_tile_rows`:
+//      about RECV_TILE_BYTES of inbox words, R * M a multiple of 4 words
+//      so that every plane's span of a tile, R * M or R * M * E contiguous
+//      words, starts on a 16-byte boundary; fewer rows where G is small).
+//      A block holds its tile's inbox in shared memory, all zeros, and a
+//      tile is three steps.  First, one thread a (row d, peer region r)
+//      decides the region once (`recv_decide`): the reference's clamped
+//      gather flat = dest_row[d, r] * P + rank_in_dest[d, r], and n =
+//      cnt[flat] when the source is another resident row (the reference's
+//      pick_found: slot base + r*B + b holds (flat, b) for b < n); it
+//      appends the region's n occupied slots to the tile's list.  Then
+//      one thread a listed slot writes it into the tile, so no gather lane
+//      idles beside a zero: each prefix slot, copied from base_inbox or
+//      generated as the tick / propose_leaders prefill (`recv_prefix`,
+//      which reads `role` for slot 1 only), and each occupied slot's
+//      message o = scratch[flat, b] of sender row flat / P
+//      (`recv_message`: its wire fields from the outbox, `from` and the E
+//      entry words from that row, route.py:303-318).  Last, the block
+//      copies the tile out plane by plane (`recv_copy`: consecutive
+//      threads on consecutive 16 bytes of a plane, each zeroed in the tile
+//      behind it), so every word of the inbox is stored once, whole
+//      16-byte stores, and an empty slot's zeros wait on no load of the
+//      device's memory.  The tile in shared memory is what keeps the
+//      stores whole: writing the listed slots' words straight to the
+//      inbox beside 16-byte zeros left sectors half written across the
+//      tile's loads, and the receive ran more than twice as long on the
+//      H100 at the c4 geometry (PERF.md, section 6).  The receive pulls,
+//      as the reference gathers: a push into destination rows would differ
+//      from it wherever the tables are not symmetric.
+// The stats are int32 sums: the walk's block adds its threads' counts in
+// shared memory and then each nonzero one to the [7] vector with one
+// atomic (integer sums do not depend on order); the receive sums its
+// delivered count over all of a block's tiles and adds it once.
+// stats[6] is the number of suppressed rows (the escalation count of
+// merge_and_route).
 // The election census (given a `census` vector, which the fused wave does
 // while the port's span recorder is on): the walk is then instantiated
 // with CENSUS, and each lane also counts its message's type, and for a
@@ -69,9 +91,11 @@
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
 // C++: then the per-slot, per-row and per-message steps (`route_slot`,
 // `route_row_scalars`, `route_lane_facts`, `lane_rank`,
-// `route_lane_emit`, `route_lane_census`, `route_recv_slot`) are host
-// functions, and a host loop that runs them lane by lane, with the masks
-// made from the lanes' predicates, checks the walk without a card.
+// `route_lane_emit`, `route_lane_census`) and the receive tile's steps
+// (`recv_tile_clear`, `recv_decide`, `recv_listed`, `recv_copy`) are host
+// functions: a host loop that runs the walk lane by lane, with the
+// masks made from the lanes' predicates, and the receive tile by tile,
+// step by step, checks both without a card.
 #include "common.cuh"
 #include "launch.h"
 #include "walk.cuh"
@@ -251,26 +275,6 @@ DBT_FI void route_lane_census(const RouteArgs& a, const RouteRow& r,
   e[3] += granted && v_resp ? 1 : 0;
 }
 
-// dst[0, E) = src[0, E), or zeros when src is null; on the card one
-// 16- or 8-byte store where E and the address allow it.
-DBT_FI void put_ents(int* dst, const int* src, int E) {
-#ifdef __CUDA_ARCH__
-  const unsigned long long at = (unsigned long long)dst;
-  if (E == 4 && (at & 15) == 0) {
-    *reinterpret_cast<int4*>(dst) = src ? make_int4(src[0], src[1], src[2],
-                                                    src[3])
-                                        : make_int4(0, 0, 0, 0);
-    return;
-  }
-  if (E == 2 && (at & 7) == 0) {
-    *reinterpret_cast<int2*>(dst) =
-        src ? make_int2(src[0], src[1]) : make_int2(0, 0);
-    return;
-  }
-#endif
-  for (int e = 0; e < E; ++e) dst[e] = src ? src[e] : 0;
-}
-
 // A routed message's E entry words: the sender's (row s) ring term and
 // cc at max(li + 1 + e, 0) & (W-1) while e < n_ent of a REPLICATE, else
 // 0, into dt[0, E) and dc[0, E).
@@ -317,72 +321,219 @@ DBT_FI void put_ring_ents(const RouteArgs& a, int s, bool is_repl,
   }
 }
 
-// Receiver for inbox slot m of row d; returns 1 if a routed message was
-// delivered there.
-DBT_FI int route_recv_slot(const RouteArgs& a, int d, int m) {
-  const int M = a.M, E = a.E, G = a.G, P = a.P, B = a.B;
-  const long long at = (long long)d * M + m;
-  int* et = a.inbox[10] + at * E;
-  int* ec = a.inbox[11] + at * E;
-  // Inbox order: mtype, from_id, term, log_term, log_index, commit,
-  // reject, hint, hint_high, n_entries, ent_term, ent_cc
-  if (m < a.base) {
-    if (a.base_inbox[0]) {
-      const long long bt = (long long)d * a.M_base + m;
-#pragma unroll
-      for (int i = 0; i < 10; ++i) a.inbox[i][at] = a.base_inbox[i][bt];
-      put_ents(et, a.base_inbox[10] + bt * E, E);
-      put_ents(ec, a.base_inbox[11] + bt * E, E);
-      return 0;
-    }
-    int mt = (a.tick && m == 0) ? MT_TICK : 0, n = 0;
-    if (a.propose_leaders && m == 1) {
-      const bool lead = a.role[d] == ROLE_LEADER;
-      mt = lead ? MT_PROPOSE : 0;
-      n = lead ? a.propose_n : 0;
-    }
-    a.inbox[0][at] = mt;
-#pragma unroll
-    for (int i = 1; i < 9; ++i) a.inbox[i][at] = 0;
-    a.inbox[9][at] = n;
-    put_ents(et, nullptr, E);
-    put_ents(ec, nullptr, E);
-    return 0;
-  }
-  const int j = m - a.base;
-  const int r = j / B, b = j - r * B;
-  const int src = a.dest_row[(long long)d * P + r];
+// bytes of shared memory a receive tile's inbox words take, about
+constexpr int RECV_TILE_BYTES = 32 * 1024;
+
+// Rows a receive tile: a multiple of the rows whose slots make a multiple
+// of 4 words (so every plane's span of a tile starts on a 16-byte
+// boundary where the plane does), about RECV_TILE_BYTES of inbox words,
+// and no more than G / tiles_wanted rounded up, so that a small G still
+// spreads over `tiles_wanted` tiles.
+DBT_HD int recv_tile_rows(int G, int M, int E, int tiles_wanted) {
+  const int unit = M % 4 == 0 ? 1 : (M % 2 == 0 ? 2 : 4);
+  const int by_size = RECV_TILE_BYTES / (4 * M * (10 + 2 * E)) / unit * unit;
+  const int per = (G + tiles_wanted - 1) / tiles_wanted;
+  const int by_g = (per + unit - 1) / unit * unit;
+  return imax(unit, imin(by_size, by_g));
+}
+
+// A receive tile: its rows d0 .. d0 + rows and the block's shared arrays
+// (R rows' worth; `recv_tile_layout`).
+struct RecvTile {
+  int d0, rows, R;
+  int* words;  // [R * M * (10 + 2E)] the tile's inbox, plane by plane
+  int* count;  // [2] the occupied list's length, by tile parity
+  int* pos;    // [R * P * B] the occupied list: the slot row * M + m
+  int* fb;     //   and its scratch word flat * B + b
+};
+
+// bytes of a tile of R rows, the inbox words first
+DBT_HD int recv_smem_bytes(int R, int M, int E, int P, int B) {
+  return 4 * R * M * (10 + 2 * E) + 16 + 8 * R * P * B;
+}
+
+DBT_HD RecvTile recv_tile_layout(void* smem, int R, int M, int E, int P,
+                                 int B) {
+  RecvTile t;
+  t.d0 = t.rows = 0;
+  t.R = R;
+  t.words = static_cast<int*>(smem);
+  t.count = t.words + R * M * (10 + 2 * E);
+  t.pos = t.count + 4;
+  t.fb = t.pos + R * P * B;
+  return t;
+}
+
+// The tile's words of plane `plane`: R * M (a header plane) or R * M * E
+// (an entry plane) words, laid out as the plane lays out the tile's rows.
+DBT_FI int* recv_plane(const RouteArgs& a, const RecvTile& t, int plane) {
+  const int rm = t.R * a.M;
+  return plane < 10 ? t.words + plane * rm
+                    : t.words + 10 * rm + (plane - 10) * rm * a.E;
+}
+
+// The tile's words all zero: each empty slot stays so.  Thread `lane` of
+// `lanes`, at the start (each tile's copy-out zeroes what it copied).
+DBT_FI void recv_tile_clear(const RouteArgs& a, const RecvTile& t, int lane,
+                            int lanes) {
+  const int n = t.R * a.M * (10 + 2 * a.E);
+  for (int w = lane; w < n; w += lanes) t.words[w] = 0;
+}
+
+// n slots of the tile's occupied list for the caller: the first one's index
+DBT_FI int recv_claim(int* count, int n) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(count, n);
+#else
+  const int k = *count;
+  *count += n;
+  return k;
+#endif
+}
+
+// Region r of the tile's row i / P (i < rows * P): the reference's
+// clamped gather picks flat = dest_row[d, r] * P + rank_in_dest[d, r],
+// and the region holds the first n = cnt[flat] messages the walk put at
+// (flat, 0 .. n) when its source row is another resident row.  Appends
+// the region's n occupied slots to the tile's list (`count`: the list's
+// length this tile); returns n.
+DBT_FI int recv_decide(const RouteArgs& a, const RecvTile& t, int* count,
+                       int i) {
+  const int G = a.G, P = a.P, B = a.B;
+  const int row = i / P, r = i - row * P;
+  const int d = t.d0 + row;
+  const long long at = (long long)d * P + r;
+  const int src = a.dest_row[at];
   const int src_c = src < 0 ? 0 : (src > G - 1 ? G - 1 : src);
-  long long flat = (long long)src_c * P + a.rank[(long long)d * P + r];
-  const long long n = (long long)G * P;
-  if (flat < 0) flat += n;
+  long long flat = (long long)src_c * P + a.rank[at];
+  const long long n_flat = (long long)G * P;
+  if (flat < 0) flat += n_flat;
   if (flat < 0) flat = 0;
-  if (flat > n - 1) flat = n - 1;
-  if (!(src >= 0 && src_c != d && b < a.cnt[flat])) {
-#pragma unroll
-    for (int i = 0; i < 10; ++i) a.inbox[i][at] = 0;
-    put_ents(et, nullptr, E);
-    put_ents(ec, nullptr, E);
-    return 0;
+  if (flat > n_flat - 1) flat = n_flat - 1;
+  const int n = src >= 0 && src_c != d ? imax(0, imin(a.cnt[flat], B)) : 0;
+  if (n) {
+    const int k0 = recv_claim(count, n);
+    const int q0 = row * a.M + a.base + r * B;
+    for (int b = 0; b < n; ++b) {
+      t.pos[k0 + b] = q0 + b;
+      t.fb[k0 + b] = (int)(flat * B + b);
+    }
   }
-  // the message sender row s put at (flat, b): its outbox words in
-  // Inbox order (mtype, from_id = the sender's id, term .. n_entries)
-  const int s = (int)(flat / P);
-  const int o = a.scratch[flat * B + b];
+  return n;
+}
+
+// Prefix slot i % base of the tile's row i / base, into the tile (whose
+// words are zero): the base_inbox slot, or the tick / propose_leaders
+// prefill (make_prefill, route.py:395), which reads `role` for slot 1
+// only.
+DBT_FI void recv_prefix(const RouteArgs& a, const RecvTile& t, int i) {
+  const int row = i / a.base, m = i - row * a.base;
+  const int d = t.d0 + row, q = row * a.M + m, E = a.E;
+  if (a.base_inbox[0]) {
+    const long long bt = (long long)d * a.M_base + m;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) recv_plane(a, t, k)[q] = a.base_inbox[k][bt];
+    for (int e = 0; e < E; ++e) {
+      recv_plane(a, t, 10)[q * E + e] = a.base_inbox[10][bt * E + e];
+      recv_plane(a, t, 11)[q * E + e] = a.base_inbox[11][bt * E + e];
+    }
+    return;
+  }
+  if (a.tick && m == 0) recv_plane(a, t, 0)[q] = MT_TICK;
+  if (a.propose_leaders && m == 1 && a.role[d] == ROLE_LEADER) {
+    recv_plane(a, t, 0)[q] = MT_PROPOSE;
+    recv_plane(a, t, 9)[q] = a.propose_n;
+  }
+}
+
+// Entry k of the tile's occupied list: the message sender row s put at
+// (flat, b), into every plane of its slot in the tile: its outbox words in
+// Inbox order (mtype, from_id = the sender's id, term .. n_entries), then
+// its E entry words from the sender's ring (route.py:303-318).
+DBT_FI void recv_message(const RouteArgs& a, const RecvTile& t, int k) {
+  const int fb = t.fb[k], q = t.pos[k];
+  const int s = fb / (a.P * a.B);
+  const int o = a.scratch[fb];
   const int* w = a.buf + ((long long)s * a.O + o) * N_FIELDS;
   const int mt = w[F_MTYPE], li = w[F_LOG_INDEX], n_ent = w[F_N_ENTRIES];
-  a.inbox[0][at] = mt;
-  a.inbox[1][at] = a.replica_id[s];
-  a.inbox[2][at] = w[F_TERM];
-  a.inbox[3][at] = w[F_LOG_TERM];
-  a.inbox[4][at] = li;
-  a.inbox[5][at] = w[F_COMMIT];
-  a.inbox[6][at] = w[F_REJECT];
-  a.inbox[7][at] = w[F_HINT];
-  a.inbox[8][at] = w[F_HINT_HIGH];
-  a.inbox[9][at] = n_ent;
-  put_ring_ents(a, s, mt == MT_REPLICATE, n_ent, li, et, ec);
-  return 1;
+  recv_plane(a, t, 0)[q] = mt;
+  recv_plane(a, t, 1)[q] = a.replica_id[s];
+  recv_plane(a, t, 2)[q] = w[F_TERM];
+  recv_plane(a, t, 3)[q] = w[F_LOG_TERM];
+  recv_plane(a, t, 4)[q] = li;
+  recv_plane(a, t, 5)[q] = w[F_COMMIT];
+  recv_plane(a, t, 6)[q] = w[F_REJECT];
+  recv_plane(a, t, 7)[q] = w[F_HINT];
+  recv_plane(a, t, 8)[q] = w[F_HINT_HIGH];
+  recv_plane(a, t, 9)[q] = n_ent;
+  put_ring_ents(a, s, mt == MT_REPLICATE, n_ent, li,
+                recv_plane(a, t, 10) + q * a.E,
+                recv_plane(a, t, 11) + q * a.E);
+}
+
+// The tile's list, entry j (j < rows * base + the occupied list's n): the
+// prefix slots, then the occupied ones.
+DBT_FI void recv_listed(const RouteArgs& a, const RecvTile& t, int j) {
+  const int n_pre = t.rows * a.base;
+  if (j < n_pre)
+    recv_prefix(a, t, j);
+  else
+    recv_message(a, t, j - n_pre);
+}
+
+// Words [4c, 4c + 4) of plane `plane`'s span in the tile (the tile's rows
+// of the plane, rows * M or rows * M * E words, contiguous in both the
+// tile and the inbox) copied out to the inbox and zeroed in the tile.  With
+// `vec` (the plane starts on a 16-byte boundary, and so does the span),
+// one 16-byte store whole: no word of the inbox is stored twice, and an
+// empty slot's zeros wait on no load of the device's memory.
+DBT_FI void recv_copy(const RouteArgs& a, const RecvTile& t, int plane,
+                      int c, bool vec) {
+  const int per = plane < 10 ? 1 : a.E;  // words a slot
+  const int span = t.rows * a.M * per;
+  const int w0 = 4 * c;
+  int* src = recv_plane(a, t, plane) + w0;
+  int* dst = a.inbox[plane] + (long long)t.d0 * a.M * per + w0;
+#ifdef __CUDA_ARCH__
+  if (vec && w0 + 4 <= span) {
+    int4* s4 = reinterpret_cast<int4*>(src);
+    *reinterpret_cast<int4*>(dst) = *s4;
+    *s4 = make_int4(0, 0, 0, 0);
+    return;
+  }
+#endif
+  for (int j = 0; j < 4 && w0 + j < span; ++j) {
+    dst[j] = src[j];
+    src[j] = 0;
+  }
+}
+
+// The tile's planes chunk by chunk: the caller (`lane` of `lanes`) takes
+// chunks lane, lane + lanes, ... of the planes one after another, so
+// consecutive lanes write consecutive 16 bytes of a plane.
+DBT_FI void recv_planes(const RouteArgs& a, const RecvTile& t, int lane,
+                        int lanes, bool vec) {
+  const int hc = (t.rows * a.M + 3) / 4;          // chunks of a header plane
+  const int ec = (t.rows * a.M * a.E + 3) / 4;    // of an entry plane
+  int plane = 0, c = lane;
+  while (plane < N_INBOX) {
+    const int nc = plane < 10 ? hc : ec;
+    if (c < nc) {
+      recv_copy(a, t, plane, c, vec);
+      c += lanes;
+    } else {
+      c -= nc;
+      ++plane;
+    }
+  }
+}
+
+// Whether every inbox plane starts on a 16-byte boundary.
+DBT_HD bool recv_vec(const RouteArgs& a) {
+  bool ok = true;
+  for (int i = 0; i < N_INBOX; ++i)
+    ok = ok && (reinterpret_cast<unsigned long long>(a.inbox[i]) & 15) == 0;
+  return ok;
 }
 
 }  // namespace dbt
@@ -482,13 +633,41 @@ __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
   if constexpr (CENSUS) block_add<dbt::N_ROUTE_CENSUS>(a.census, e);
 }
 
+// The receive: persistent blocks, a few an SM, walk the tiles of R rows
+// (`recv_tile_rows`) with a grid stride.  A tile is three steps: each
+// (row, region) decided by one thread; its list written into the tile in
+// shared memory; the tile copied out plane by plane in 16-byte chunks
+// (and zeroed for the next).  The copy-out needs no barrier after it: the
+// next tile's decisions touch only the list, and its list is written
+// after the next barrier.  The delivered count is summed over all of a
+// block's tiles and added once.
 __global__ void __launch_bounds__(dbt::ROUTE_THREADS)
-    route_recv_kernel(const __grid_constant__ dbt::RouteArgs a) {
-  const int t = blockIdx.x * dbt::ROUTE_THREADS + threadIdx.x;
+    route_recv_kernel(const __grid_constant__ dbt::RouteArgs a, int R) {
+  extern __shared__ int4 recv_smem[];
+  const int T = dbt::ROUTE_THREADS;
+  dbt::RecvTile t =
+      dbt::recv_tile_layout(recv_smem, R, a.M, a.E, a.P, a.B);
+  const bool vec = dbt::recv_vec(a);
+  dbt::recv_tile_clear(a, t, threadIdx.x, T);
+  if (threadIdx.x < 2) t.count[threadIdx.x] = 0;
+  __syncthreads();
   int hit[1] = {0};
-  if (t < a.G * a.M) {
-    const int d = t / a.M;
-    hit[0] = dbt::route_recv_slot(a, d, t - d * a.M);
+  const int n_tiles = (a.G + R - 1) / R;
+  int par = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    t.d0 = tile * R;
+    t.rows = dbt::imin(R, a.G - t.d0);
+    for (int i = threadIdx.x; i < t.rows * a.P; i += T)
+      hit[0] += dbt::recv_decide(a, t, t.count + par, i);
+    // the next tile's list starts empty: its count was last read before
+    // this tile began
+    if (threadIdx.x == 0) t.count[par ^ 1] = 0;
+    __syncthreads();
+    const int n = t.rows * a.base + t.count[par];
+    for (int j = threadIdx.x; j < n; j += T) dbt::recv_listed(a, t, j);
+    __syncthreads();
+    dbt::recv_planes(a, t, threadIdx.x, T, vec);
+    par ^= 1;
   }
   block_add<1>(a.stats, hit);
 }
@@ -552,7 +731,18 @@ void dbt::route_launch(const int* const* st, const int* buf, const int* count,
     route_walk_kernel<true><<<walk_blocks, T, 0, s>>>(a);
   else
     route_walk_kernel<false><<<walk_blocks, T, 0, s>>>(a);
-  const long long slots = (long long)G * M;
-  route_recv_kernel<<<(unsigned)((slots + T - 1) / T), T, 0, s>>>(a);
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int R = dbt::recv_tile_rows(G, M, E, 2 * sms);
+  const int smem = dbt::recv_smem_bytes(R, M, E, P, B);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(route_recv_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, route_recv_kernel, T,
+                                                smem);
+  const int n_tiles = (G + R - 1) / R;
+  const int blocks = dbt::imin(n_tiles, sms * dbt::imax(per_sm, 1));
+  route_recv_kernel<<<(unsigned)blocks, T, smem, s>>>(a, R);
 }
 #endif

@@ -25,6 +25,14 @@ against the plain version:
   routes it (P=3, W=16, E=2, O=16, budget 4, M = 14, base 2, the local
   view of the tables, the tick and propose prefill, escalated rows
   suppressed);
+* ``route/C4`` and ``route/NS``: the benchmark's two geometries as its
+  routed round routes them (``portbench/configs``: ``c4-100k-ragged``,
+  499,998 ragged 3/5/7 rows at P=7, W=16, E=2, O=32, budget 8, M = 58;
+  ``ns-100k-x3``, 300,000 rows at P=3, W=32, E=4, O=16, budget 4,
+  M = 14; base 2): the configuration's rows elected and stepped by the
+  tree's ``fused_rounds`` with every leader proposing, then one routed
+  step and its escalation merge; the tick and propose prefill,
+  escalated rows suppressed;
 * ``lane/sized`` and ``lane/undersized``: ``xlane_pack`` on that block
   at leg 2's lane budget and at half the fullest edge's messages (the
   lane then drops some);
@@ -67,6 +75,54 @@ def _chip_smoke():
     return mod
 
 
+# the benchmark's configurations routed as ``route/<name>``
+BENCH_CASES = (("C4", "c4-100k-ragged"), ("NS", "ns-100k-x3"))
+BENCH_SEED = 20261020
+
+
+def bench_route_case(dev, config: str) -> dict:
+    """A routed round's route inputs at the geometry of the benchmark's
+    configuration ``config``: portbench's layout of its rows for
+    ``BENCH_SEED``, elected by the tree's ``fused_rounds`` with every
+    leader proposing until every group leads, 24 launches more, then one
+    ``kernel.step_routed`` and its escalation merge.  Returns the merged
+    state, the step's ``RoutedOut``, the tables and the geometry."""
+    import torch
+
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import plumbing
+    from dragonboat_tpu_torch.ops import route as R
+    from dragonboat_tpu_torch.ops import types as T
+    from portbench.harness import layout
+
+    cfg = json.loads((HERE / "portbench" / "configs" / f"{config}.json")
+                     .read_text())
+    lay = layout.build(cfg, BENCH_SEED)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    st = T.DeviceState(*(put(lay.state[f]) for f in T.DeviceState._fields))
+    ib = T.Inbox(*(put(lay.inbox[f]) for f in T.Inbox._fields))
+    dest, rank = put(lay.dest_row), put(lay.rank_in_dest)
+    gid = put(lay.group.astype(np.int64))
+    O, B, base = int(cfg["O"]), int(cfg["budget"]), int(cfg["base"])
+    kw = dict(rounds=int(cfg["rounds_per_launch"]), out_capacity=O,
+              budget=B, base=base, propose_leaders=True)
+    for n in range(1, 601):
+        st, ib, _s, _e = R.fused_rounds(st, ib, dest, rank, **kw)
+        if n % 8 == 0:
+            led = torch.zeros(lay.groups, dtype=torch.int32, device=dev)
+            led.index_add_(0, gid, (st.role == T.ROLE_LEADER).int())
+            if bool((led > 0).all()):
+                break
+    for _ in range(24):
+        st, ib, _s, _e = R.fused_rounds(st, ib, dest, rank, **kw)
+    new, out = K.step_routed(st, ib, out_capacity=O)
+    merged = T.DeviceState(*plumbing.merge_escalated(
+        out.escalate, list(st), list(new)))
+    return dict(merged=merged, out=out, dest=dest, rank=rank,
+                M=ib.mtype.shape[1], E=ib.ent_term.shape[2], B=B, base=base,
+                P=int(cfg["P"]))
+
+
 def _make_inputs(C, dev) -> dict:
     """{name: numpy array} of every case's inputs."""
     from dragonboat_tpu_torch.ops import convert
@@ -90,6 +146,14 @@ def _make_inputs(C, dev) -> dict:
     for k, t in zip(("dest_local", "dest_dev", "rank"), lc["tab_b"][0]):
         flat[f"leg2/{k}"] = t.cpu().numpy()
     flat["leg2/xbudget"] = np.array([lc["xbudget"]], np.int32)
+    for name, config in BENCH_CASES:
+        c = bench_route_case(dev, config)
+        put(f"{name}/st", c["merged"])
+        put(f"{name}/out", c["out"])
+        for k in ("dest", "rank"):
+            flat[f"{name}/{k}"] = c[k].cpu().numpy()
+        flat[f"{name}/geom"] = np.array(
+            [c[k] for k in ("M", "E", "B", "base", "P")], np.int32)
     return flat
 
 
@@ -124,6 +188,17 @@ def _inputs(C, dev, cache: Path) -> dict:
     cases["leg2"].update(tabs=[t(f"leg2/{k}") for k in (
         "dest_local", "dest_dev", "rank")],
         xbudget=int(flat["leg2/xbudget"][0]))
+    from dragonboat_tpu_torch.ops import kernel as K
+
+    for name, _config in BENCH_CASES:
+        M, E, B, base, P = (int(v) for v in flat[f"{name}/geom"])
+        cases[name] = dict(
+            st=tree(f"{name}/st", convert.state_from_numpy),
+            out=tree(f"{name}/out", lambda f, d: K.RoutedOut(*(
+                convert.torch.from_numpy(f[k]).to(d)
+                for k in K.RoutedOut._fields))),
+            dest=t(f"{name}/dest"), rank=t(f"{name}/rank"),
+            M=M, E=E, B=B, base=base, P=P)
     return cases
 
 
@@ -184,6 +259,26 @@ def _calls(C, cases) -> dict:
     calls["route/X37500"] = (x_route, list(ib) + [torch.cat([
         stats, (out.escalate != 0).sum(dtype=torch.int32).view(1)])],
         C.route_bound_ms(out, deliv, C.X_P, C.X_M, C.X_E, bits=False))
+    for name, _config in BENCH_CASES:
+        c = cases[name]
+        bkw = dict(M=c["M"], E=c["E"], budget=c["B"], base=c["base"])
+
+        def b_route(c=c, bkw=bkw):
+            res = R.route_cuda(c["st"], c["out"], c["dest"], c["rank"],
+                               **bkw, suppress=c["out"].escalate,
+                               prefill=(True, True, 1))
+            return list(res[0]) + [res[1]]
+
+        ib, stats, deliv = route_ref.route(
+            c["st"], c["out"], c["dest"], c["rank"], **bkw,
+            suppress=c["out"].escalate != 0,
+            base_inbox=route_ref.make_prefill(c["st"], c["M"], c["E"],
+                                              propose_leaders=True))
+        calls[f"route/{name}"] = (b_route, list(ib) + [torch.cat([
+            stats, (c["out"].escalate != 0).sum(dtype=torch.int32).view(1)])],
+            C.route_bound_ms(c["out"], deliv, c["P"], c["M"], c["E"],
+                             bits=False))
+        del ib, deliv
     lkw = dict(me=0, n_dev=C.X_DEVICES, E=C.X_E, budget=C.X_BUD,
                suppress=out.escalate)
     sized = route_ref.lane_pack(st, out, dl, dd, rk, xbudget=x["xbudget"],

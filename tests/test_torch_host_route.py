@@ -1,16 +1,21 @@
-"""The router kernel's walk and receiver, built as host C++, against the plain version.
+"""The router kernel's walk and receive, built as host C++, against the plain version.
 
 ``csrc/route.cu`` compiles as plain C++ when there is no CUDA compiler:
 then its per-slot, per-row and per-message steps (``dbt::route_slot``,
 ``route_row_scalars``, ``route_lane_facts``, ``lane_rank``,
-``route_lane_emit``, ``route_recv_slot``) are host functions.  This file
-builds an ``extern "C"`` shim around them with g++ into a temporary
-directory and runs them in the kernels' order: the walk row by row, each
-row's sub-warp lane by lane in chunks of 8 messages (one a lane): every
-lane's facts, then each peer slot's mask made from the lanes'
-predicates (``dbt::host_lane_ranks``, where the card takes a ballot),
-then every lane's emit; then the receiver slot by slot.  Every output starts poisoned, so a
-word the kernels leave unwritten shows.  It is held against
+``route_lane_emit``) and the receive tile's steps (``recv_tile_clear``,
+``recv_decide``, ``recv_listed``, ``recv_copy``) are host functions.
+This file builds an ``extern "C"`` shim around them with g++ into a
+temporary directory and runs them in the kernels' order: the walk row by
+row, each row's sub-warp lane by lane in chunks of 8 messages (one a
+lane): every lane's facts, then each peer slot's mask made from the
+lanes' predicates (``dbt::host_lane_ranks``, where the card takes a
+ballot), then every lane's emit; then the receive tile by tile as one
+block walks them, each step for every thread before the next: the
+(row, region) decisions, then the tile's list (its prefix slots and
+occupied ones) written into the tile, then the tile copied out chunk by
+chunk.  Every output, and the block's shared arrays, start poisoned, so
+a word the kernels leave unwritten shows.  It is held against
 ``route_ref.route`` in the three modes the port launches it in:
 
 * the colocated call (``colocated._route_step``): base 0, the alive
@@ -19,12 +24,15 @@ word the kernels leave unwritten shows.  It is held against
 * ``route()``: ``dest_alive``, the delivered mask and a ``base_inbox``
   prefix;
 * ``merge_and_route``: the tick and propose_leaders prefill generated in
-  the receiver;
+  the receive;
 
 at O = 8, 16, 32 and 40 (an outbox wider than the sub-warp is walked in
 chunks, the packed words put together across them), budgets 1 to 4 and
-P up to 16, on tables as
-``build_route_tables`` gives them and on fuzzed ones (cut routes,
+8, P up to 16 and E = 1 to 4, among them the benchmark's geometries (P 7,
+budget 8, E 2: M = 58 with the prefill; P 3, budget 4, E 4: M = 14) and
+odd M, in tiles from the fewest rows to about 32 KB of inbox words (a
+last tile shorter than the rest, and one tile for all rows), on tables
+as ``build_route_tables`` gives them and on fuzzed ones (cut routes,
 ``dest_row == g``, asymmetric ``rank_in_dest`` that reach other rows
 through the reference's clamped gather, repeated peer ids).
 
@@ -52,13 +60,21 @@ SEED = 20261019
 POISON = -0x5EED
 
 SHIM = r"""
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
+#include <vector>
 
 #include "route.cu"
 
 extern "C" {
 
-// route_launch's memset, walk and receiver, in order, on the host
+int host_recv_rows(int G, int M, int E, int tiles) {
+  return dbt::recv_tile_rows(G, M, E, tiles);
+}
+
+// route_launch's memset, walk and receive, in order, on the host; the
+// receive in tiles of recv_tile_rows(G, M, tiles) rows
 void host_route(const int* const* st, const int* buf, const int* count,
                 const int* dest_row, const int* rank, const int* suppress,
                 const int* alive, int alive_stride,
@@ -66,7 +82,7 @@ void host_route(const int* const* st, const int* buf, const int* count,
                 int* stats, int* packed, int* undeliv,
                 unsigned char* delivered, int* scratch, int* cnt, int G,
                 int P, int W, int O, int M, int E, int B, int base, int tick,
-                int propose_leaders, int propose_n) {
+                int propose_leaders, int propose_n, int tiles) {
   constexpr int L = dbt::WALK_LANES;
   dbt::RouteArgs a;
   a.peer_id = st[0]; a.replica_id = st[1]; a.first_index = st[2];
@@ -127,8 +143,28 @@ void host_route(const int* const* st, const int* buf, const int* count,
     if (r.sup) s[6] += 1;
     for (int i = 1; i < 7; ++i) stats[i] += s[i];
   }
-  for (int t = 0; t < G * M; ++t)
-    stats[0] += dbt::route_recv_slot(a, t / M, t % M);
+  // the receive: one block's tile loop, each step for every thread
+  // before the next, on shared arrays that start poisoned
+  const int R = dbt::recv_tile_rows(G, M, E, tiles);
+  constexpr int T = dbt::ROUTE_THREADS;
+  std::vector<int> smem((dbt::recv_smem_bytes(R, M, E, P, B) + 3) / 4,
+                        -0x5EED);
+  dbt::RecvTile t = dbt::recv_tile_layout(smem.data(), R, M, E, P, B);
+  for (int lane = 0; lane < T; ++lane) dbt::recv_tile_clear(a, t, lane, T);
+  t.count[0] = t.count[1] = 0;
+  int par = 0;
+  for (int tile = 0; tile * R < G; ++tile) {
+    t.d0 = tile * R;
+    t.rows = std::min(R, G - t.d0);
+    for (int i = 0; i < t.rows * P; ++i)
+      stats[0] += dbt::recv_decide(a, t, t.count + par, i);
+    t.count[par ^ 1] = 0;
+    const int n = t.rows * base + t.count[par];
+    for (int j = 0; j < n; ++j) dbt::recv_listed(a, t, j);
+    for (int lane = 0; lane < T; ++lane)
+      dbt::recv_planes(a, t, lane, T, false);
+    par ^= 1;
+  }
 }
 
 }
@@ -151,6 +187,8 @@ def shim(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     so.host_route.restype = None
+    so.host_recv_rows.restype = ctypes.c_int
+    so.host_recv_rows.argtypes = [ctypes.c_int] * 4
     return so
 
 
@@ -167,9 +205,10 @@ def _ptrs(arrays):
 
 def host_route(so, st, out, dest, rank, *, M, E, B, base, suppress=None,
                alive=None, alive_stride=1, base_inbox=None,
-               prefill=(0, 0, 1)):
-    """The shim's route: (inbox fields, stats [7], packed, undeliv,
-    delivered), every output poisoned first."""
+               prefill=(0, 0, 1), tiles=1):
+    """The shim's route, its receive in tiles of
+    ``recv_tile_rows(G, M, E, tiles)`` rows: (inbox fields, stats [7],
+    packed, undeliv, delivered), every output poisoned first."""
     G, O, _ = out["buf"].shape
     P, W = st["peer_id"].shape[1], st["ring_term"].shape[1]
     srcs = [np.ascontiguousarray(st[f]) for f in (
@@ -198,7 +237,7 @@ def host_route(so, st, out, dest, rank, *, M, E, B, base, suppress=None,
         ctypes.c_int(m_base), _ptrs(inbox), _ptr(stats), _ptr(packed),
         _ptr(undeliv), _ptr(delivered), _ptr(scratch), _ptr(cnt),
         *[ctypes.c_int(int(v)) for v in (
-            G, P, W, O, M, E, B, base, *prefill)])
+            G, P, W, O, M, E, B, base, *prefill, tiles)])
     return dict(zip(PT.Inbox._fields, inbox)), stats, packed, undeliv, \
         delivered
 
@@ -255,29 +294,54 @@ def _check(got, want, what):
     return g_stats
 
 
-# (P, O, W, E, shards): O = 8 is one chunk of the 8-lane sub-warp, 16 and
-# 32 two and four, 40 five across two packed words; P = 16 at O = 8 puts
-# 16 slots beside 8 lanes
-CASES = [(5, 32, 16, 4, 6), (3, 16, 16, 2, 8), (16, 8, 8, 1, 4),
-         (4, 40, 8, 3, 10)]
+# (P, O, W, E, shards, budgets): O = 8 is one chunk of the 8-lane
+# sub-warp, 16 and 32 two and four, 40 five across two packed words; P = 16
+# at O = 8 puts 16 slots beside 8 lanes; the last two are the benchmark's
+# geometries (c4: P 7, W 16, E 2, O 32, budget 8, M = 58 with the prefill,
+# 59 with the base_inbox prefix; ns: P 3, W 32, E 4, O 16, budget 4,
+# M = 14)
+CASES = [(5, 32, 16, 4, 6, (1, 2, 3, 4)), (3, 16, 16, 2, 8, (1, 2, 3, 4)),
+         (16, 8, 8, 1, 4, (1, 2, 3, 4)), (4, 40, 8, 3, 10, (1, 2, 3, 4)),
+         (7, 32, 16, 2, 9, (2, 8)), (3, 16, 32, 4, 12, (1, 4))]
+
+
+def _tilings(G):
+    """The receive's tile requests (``recv_tile_rows``' tiles_wanted): one
+    tile for all rows where they fit (1), a few tiles, the last one
+    shorter (3, 7), and the smallest tiles (G)."""
+    return (1, 3, 7, G)
 
 
 @pytest.mark.parametrize("tables", ["built", "fuzzed"])
-@pytest.mark.parametrize("case", CASES,
-                         ids=[f"P{c[0]}-O{c[1]}" for c in CASES])
+@pytest.mark.parametrize("case", CASES, ids=[
+    "P5-O32", "P3-O16", "P16-O8", "P4-O40", "c4-P7-O32", "ns-P3-O16"])
 def test_route_walk_matches_plain_version(shim, case, tables):
-    P, O, W, E, shards = case
+    P, O, W, E, shards, budgets = case
     rng = np.random.default_rng(SEED + P * 100 + O + (tables == "fuzzed"))
     st, out, dest, rank, G = _inputs(rng, shards, P, W, E, O, tables)
     hit = np.zeros((7,), np.int64)
-    for B in (1, 2, 3, 4):
+    tilings = _tilings(G)
+    shapes = set()  # (M, whether a tile was short)
+    run = 0
+
+    def routed(M, **kw):
+        nonlocal run
+        tiles = tilings[run % len(tilings)]
+        run += 1
+        R = shim.host_recv_rows(G, M, E, tiles)
+        assert R >= 1 and R * M % 4 == 0, (R, M)
+        shapes.add((M, G % R != 0))
+        return host_route(shim, st, out, dest, rank, M=M, E=E, tiles=tiles,
+                          **kw)
+
+    for B in budgets:
         sup = (rng.random(G) < 0.2).astype(np.int32)
         # the colocated call: base 0, the alive lane of a [G, 4] combo
         combo = rng.integers(0, 3, (G, 4)).astype(np.int32)
         combo[:, 0] = rng.random(G) < 0.8
         M = P * B
-        got = host_route(shim, st, out, dest, rank, M=M, E=E, B=B, base=0,
-                         suppress=sup, alive=combo, alive_stride=4)
+        got = routed(M, B=B, base=0, suppress=sup, alive=combo,
+                     alive_stride=4)
         hit += _check(got, _want(st, out, dest, rank, M=M, E=E, budget=B,
                                  base=0, suppress=torch.from_numpy(sup) != 0,
                                  dest_alive=torch.from_numpy(combo[:, 0]) != 0),
@@ -289,9 +353,8 @@ def test_route_walk_matches_plain_version(shim, case, tables):
         binb = {f: rng.integers(-5, 50, (G, M + 1) + (
             (E,) if f.startswith("ent_") else ())).astype(np.int32)
             for f in PT.Inbox._fields}
-        got = host_route(shim, st, out, dest, rank, M=M, E=E, B=B,
-                         base=base, suppress=sup, alive=alive,
-                         base_inbox=binb)
+        got = routed(M, B=B, base=base, suppress=sup, alive=alive,
+                     base_inbox=binb)
         hit += _check(got, _want(
             st, out, dest, rank, M=M, E=E, budget=B, base=base,
             suppress=torch.from_numpy(sup) != 0,
@@ -304,11 +367,12 @@ def test_route_walk_matches_plain_version(shim, case, tables):
         pre = route_ref.make_prefill(convert.state_from_numpy(st, "cpu"), M,
                                      E, tick=True, propose_leaders=True,
                                      propose_n=n)
-        got = host_route(shim, st, out, dest, rank, M=M, E=E, B=B,
-                         base=base, suppress=sup, prefill=(1, 1, n))
+        got = routed(M, B=B, base=base, suppress=sup, prefill=(1, 1, n))
         hit += _check(got, _want(st, out, dest, rank, M=M, E=E, budget=B,
                                  base=base, base_inbox=pre,
                                  suppress=torch.from_numpy(sup) != 0),
                       f"prefill B={B}")
     # every counted outcome was reached
     assert (hit > 0).all(), hit
+    # a tile shorter than the rest was written
+    assert any(short for _m, short in shapes), shapes

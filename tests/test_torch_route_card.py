@@ -1,4 +1,4 @@
-"""The routed round's step on the card: ``kernel.step_routed``.
+"""The routed round's step and the route's receive on the card.
 
 ``routed_round`` (and so ``fused_rounds``) steps with the routed
 instantiation of ``raft_step_kernel``, which writes of the step's outputs
@@ -10,6 +10,14 @@ equals, state and inbox, three serial ``routed_round`` calls on the card
 and the plain ``route_ref.fused_rounds`` on the CPU; it launches the
 routed entry once a round and never the full one, and a colocated-engine
 step on the same card launches the full entry and never the routed one.
+
+The receive (``route_recv_kernel``) at both benchmark geometries (c4:
+ragged 3/5/7 rows at P = 7, M 58, E 2, budget 8; ns: rows of 3 at P = 3,
+W 32, M 14, E 4, budget 4; a few thousand rows, leaders proposing):
+``route_cuda`` writes every word of an inbox that the caching allocator
+hands back from a block filled with a poison word, equal with the stats
+to the plain ``route_ref.route``, and ``fused_rounds`` equals three
+``routed_round`` calls.
 
 Needs a CUDA card (the ``card`` marker; skipped without one) and imports
 no JAX, so it runs on the card's machine:
@@ -26,6 +34,8 @@ import torch
 
 from dragonboat_tpu_torch.ops import _native
 from dragonboat_tpu_torch.ops import convert
+from dragonboat_tpu_torch.ops import kernel as K
+from dragonboat_tpu_torch.ops import plumbing
 from dragonboat_tpu_torch.ops import registry
 from dragonboat_tpu_torch.ops import route as PRoute
 from dragonboat_tpu_torch.ops import route_ref
@@ -39,11 +49,11 @@ GROUPS = 240
 ROUNDS = 3
 
 
-def c4_rows(groups: int):
-    """Groups of 3, 5 and 7 replicas in turn, each group's rows side by
-    side, pre-vote and check-quorum on: (state, inbox, dest_row,
-    rank_in_dest) as numpy."""
-    sizes = np.resize(np.asarray(SIZES, np.int32), groups)
+def c4_rows(groups: int, sizes=SIZES, P=P, W=W, M=M, E=E):
+    """Groups of ``sizes`` replicas in turn (c4's 3, 5 and 7 by default),
+    each group's rows side by side, pre-vote and check-quorum on: (state,
+    inbox, dest_row, rank_in_dest) as numpy."""
+    sizes = np.resize(np.asarray(sizes, np.int32), groups)
     shard = np.repeat(np.arange(1, groups + 1, dtype=np.int32), sizes)
     rid = np.concatenate([np.arange(1, n + 1, dtype=np.int32) for n in sizes])
     peers = np.zeros((shard.size, P), np.int32)
@@ -130,3 +140,64 @@ def test_colocated_step_launches_the_full_entry(card):
     want = registry.run(ep, "cpu", plain=True, seed=1)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
+
+
+# (sizes, P, W, E, O, budget, groups): the benchmark's two geometries
+# (portbench/configs c4-100k-ragged and ns-100k-x3), base 2
+GEOMETRIES = {"c4": ((3, 5, 7), 7, 16, 2, 32, 8, 1200),
+              "ns": ((3,), 3, 32, 4, 16, 4, 2000)}
+POISON = -0x5EED
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_receive_writes_every_inbox_word_at_the_bench_geometries(card,
+                                                                 geometry):
+    sizes, P_, W_, E_, O_, B_, groups = GEOMETRIES[geometry]
+    M_ = BASE + P_ * B_
+    st_np, ib_np, dest_np, rank_np = c4_rows(groups, sizes, P_, W_, M_, E_)
+    kw = dict(out_capacity=O_, budget=B_, base=BASE, propose_leaders=True)
+    dest = torch.from_numpy(dest_np).to(card)
+    rank = torch.from_numpy(rank_np).to(card)
+    st = convert.state_from_numpy(st_np, card)
+    ib = convert.inbox_from_numpy(ib_np, card)
+    for _ in range(60):
+        st, ib, _stats, _n_esc = PRoute.fused_rounds(
+            st, ib, dest, rank, rounds=ROUNDS, **kw)
+        if int((st.role == PT.ROLE_LEADER).sum()) == groups:
+            break
+    assert int((st.role == PT.ROLE_LEADER).sum()) >= 0.95 * groups
+
+    # one routed round's route, into a block the allocator last held poison
+    new, out = K.step_routed(st, ib, out_capacity=O_)
+    merged = PT.DeviceState(*plumbing.merge_escalated(
+        out.escalate, list(st), list(new)))
+    G = merged.term.shape[0]
+    words = K._view_plan(((G, M_),) * 10 + ((G, M_, E_),) * 2)[1]
+    poison = torch.full((words,), POISON, dtype=torch.int32, device=card)
+    at = poison.data_ptr()
+    del poison
+    got, got_stats, _ = PRoute.route_cuda(
+        merged, out, dest, rank, M=M_, E=E_, budget=B_, base=BASE,
+        suppress=out.escalate, prefill=(True, True, 1))
+    torch.cuda.synchronize()
+    assert got.mtype.data_ptr() == at, "the poisoned block was not reused"
+    want, want_stats, _ = route_ref.route(
+        merged, out, dest, rank, M=M_, E=E_, budget=B_, base=BASE,
+        suppress=out.escalate != 0,
+        base_inbox=route_ref.make_prefill(merged, M_, E_,
+                                          propose_leaders=True))
+    _assert_equal(want, got, f"{geometry} inbox")
+    n_sup = (out.escalate != 0).sum(dtype=torch.int32).view(1)
+    assert torch.equal(torch.cat([want_stats, n_sup]).cpu(), got_stats.cpu())
+    assert int(got_stats[0]) > 0
+
+    # the fused wave against three routed rounds
+    f_st, f_ib, _s, _e = PRoute.fused_rounds(st, ib, dest, rank,
+                                             rounds=ROUNDS, **kw)
+    s_st, s_ib = st, ib
+    for _ in range(ROUNDS):
+        s_st, s_ib, _s, _e = PRoute.routed_round(s_st, s_ib, dest, rank,
+                                                 **kw)
+    _assert_equal(s_st, f_st, f"{geometry} serial rounds' state")
+    _assert_equal(s_ib, f_ib, f"{geometry} serial rounds' inbox")
