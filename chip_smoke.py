@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without
     python3 chip_smoke.py --only colo_kernels,colocated   # some phases, no result
-    python3 chip_smoke.py --only mesh_kernels,phase_a,multichip
+    python3 chip_smoke.py --only mesh_kernels,multichip
     python3 chip_smoke.py --only mesh_engines
     python3 chip_smoke.py --only audit
     python3 chip_smoke.py --only registry,day
@@ -65,13 +65,7 @@ Phases, each printing one JSON line:
                each timed, the pack and route with their kernels'
                device split, with the external raft_step at the same
                300,000 rows beside raft_step_internal.
-5. phase_a   — the reference bench's phase A loop on step_internal: the
-               300,000 rows stay on the card in the G-last layout, 12
-               slots of 32 fused ticks per launch; group ticks per second
-               with escalated rows subtracted, every window closed by
-               torch.cuda.synchronize(), one launch per window re-checked
-               against the plain version.
-6. multichip — the reference's phase_multichip legs 1 and 2 on
+5. multichip — the reference's phase_multichip legs 1 and 2 on
                GroupsMesh([cuda:0] * 4) (and on 4 distinct cards when 4
                are visible): leg 1 make_step_sharded(internal=True) against
                step_internal at 300,000 rows; leg 2 make_sharded_round at
@@ -82,13 +76,13 @@ Phases, each printing one JSON line:
                balance <= 1.1).  On one card the lane's copies never
                leave the card: it measures the mechanism, not a
                multi-chip number.
-7. nodehost  — the base engine's path: three NodeHosts in one process on
+6. nodehost  — the base engine's path: three NodeHosts in one process on
                the in-proc transport, each stepping its shards through
                ``torch_step_engine_factory(device="cuda")``; 300 shards x
                3 replicas elect leaders, take 4 writes each through
                ``sync_propose``, and every acknowledged write is read back
                linearizably and from each replica's state machine.
-8. colocated — the product path, the reference bench's phase C shape:
+7. colocated — the product path, the reference bench's phase C shape:
                1,000 shards x 3 replicas on three NodeHosts sharing ONE
                ``ColocatedEngineGroup(device="cuda")`` with the tan WAL;
                8 workers keep 8 proposals in flight per shard through the
@@ -98,7 +92,7 @@ Phases, each printing one JSON line:
                sentry (``analysis/jitcheck.py``) is marked after the
                warm-up: the window must build nothing and make no
                allocator retry, device allocation or pinned allocation.
-8b. pipeline — the launch pipeline's contracts (tests/test_pipeline.py:
+7b. pipeline — the launch pipeline's contracts (tests/test_pipeline.py:
                F1 fence, F2 parity, F3 exactly-once, W1 one readback window
                a generation) on the colocated path at the engine's default
                depth 2 and fused waves of 3, the sync floor off: (a) the
@@ -113,7 +107,7 @@ Phases, each printing one JSON line:
                stop_shard/detach fence, the depth-2 escalation), the probe
                on every core; ``tests/port_loader.py`` executes
                ``tests/test_pipeline.py`` with the port's modules.
-8c. scale    — the reference's scale path (tests/test_scale.py's
+7c. scale    — the reference's scale path (tests/test_scale.py's
                ``run_scale``, executed on the port by
                ``tests/port_loader.py``) on ONE
                ``ColocatedEngineGroup(device="cuda")``, on-disk state
@@ -134,7 +128,7 @@ Phases, each printing one JSON line:
                no build or allocator retry after the mark, no device or
                pinned allocation in the propose window; the storm's and
                the churn's counts are reported.
-9. mesh_engines — both engines' ``mesh=`` modes on ``GroupsMesh([cuda:0]
+8. mesh_engines — both engines' ``mesh=`` modes on ``GroupsMesh([cuda:0]
                * 4)``: (a) the colocated phase's drive for 10 s; (b) the
                same engine at 1,365 shards x 3 = 4,095 rows for 5 s, shards
                straddling the blocks, with the lane's gates (sent and
@@ -145,7 +139,7 @@ Phases, each printing one JSON line:
                plain version at leg 2's geometry, timed beside the pack
                without them (``--only mesh_pack`` runs (d) alone).  On four
                visible cards (a) runs again, a block a card.
-10. audit    — the reference's audited churn round (tests/test_audit.py:560,
+9. audit     — the reference's audited churn round (tests/test_audit.py:560,
                docs/AUDIT.md) on the colocated path: 256 shards x 3
                replicas on three NodeHosts sharing ONE
                ``ColocatedEngineGroup(device="cuda")`` (capacity 1,024,
@@ -160,14 +154,14 @@ Phases, each printing one JSON line:
                drives one sampled shard (lease reads recorded as stale
                ops), its leader's host is killed, and no stale read, a new
                leader and a write after the kill are required.
-11. registry — every entry of the port's program registry
+10. registry — every entry of the port's program registry
                (dragonboat_tpu_torch/ops/registry.py, the reference's 21
                program names) at its canonical geometry, held bit-exact on
                the card against its plain version; the mesh pair on
                ``GroupsMesh([cuda:0] * 4)``; each entry launches exactly the
                bindings it names, and no binding or ``__global__`` under
                csrc/ is left unreached.
-12. day      — the reference's tier-1 production day
+11. day      — the reference's tier-1 production day
                (tests/test_scenario.py:455-517) on the port:
                ``ScenarioRunner(DayPlan.mini(11), colocated=True)``, six
                hosts, an on-disk and an in-memory shard, a witness, a
@@ -180,7 +174,7 @@ Phases, each printing one JSON line:
                onto the live group (seed 5) and ``run_rpc_smoke(n=2)``
                through the port's worker processes; a line with the day's
                ledger and the card's name and power limit.
-13. graft    — the port's graft entry (dragonboat_tpu_torch/graft_entry.py,
+12. graft    — the port's graft entry (dragonboat_tpu_torch/graft_entry.py,
                the reference's __graft_entry__.py): ``entry()``'s step on
                the card bit-exact against the plain path on the CPU, then
                ``dryrun_multichip(4)`` on ``GroupsMesh([cuda:0] * 4)``: the
@@ -190,7 +184,7 @@ Phases, each printing one JSON line:
                reaching the last block), every postcondition of the
                reference's; a line with each kernel's launches and the
                card's name and power limit.
-14. analysis — ``analysis/devicecheck.py`` on the card: every registry
+13. analysis — ``analysis/devicecheck.py`` on the card: every registry
                entry's dtype, donation and G-last on CUDA tensors, each
                all-device entry under ``set_sync_debug_mode("error")``,
                and the spill rule over the loaded module's ptxas report
@@ -1743,72 +1737,6 @@ def mesh_pack_case(dev, warm_rounds: int = 20,
             ms=time_ms(parent, 50), device_ms=device_ms(parent),
             bound_ms=lane_pack_bound_ms(out_b[d0], parent()[0], X_P)),
         library_ms=None)
-
-
-def phase_a_phase(dev, iters: int = 100, windows: int = 3) -> dict:
-    """Bench phase A on ``step_internal``: 100k groups x 3 replicas stay
-    on the card in the G-last layout; every launch advances 12 slots of
-    32 fused ticks.  Best of ``windows`` timed windows of ``iters``
-    launches, each closed by ``torch.cuda.synchronize()``; escalated rows
-    are subtracted from the group ticks (the reference's honesty guard);
-    after each window one launch is re-checked against the plain
-    version."""
-    import torch
-
-    from dragonboat_tpu_torch.ops import _native, kernel_ref
-    from dragonboat_tpu_torch.ops import kernel as K
-    from dragonboat_tpu_torch.ops import types as T
-
-    st, ib = phase_a_inputs(dev)
-    G = st.term.shape[0]
-    for _ in range(10):  # warm-up: settle into election churn
-        st, _out = K.step_internal(st, ib, A_O)
-    torch.cuda.synchronize()
-    ticks = A_TPL * A_M
-    best_dt, best_esc, err, checks = float("inf"), 0, 0, 0
-    _native.reset_launch_counts()
-    for _ in range(windows):
-        # escalated rows accumulate on the card, as the reference's
-        # jitted loop does (keeping every launch's escalate word alive
-        # instead would pin a fresh allocation per launch)
-        acc = torch.zeros((), dtype=torch.int64, device=dev)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            st, out = K.step_internal(st, ib, A_O)
-            acc += torch.count_nonzero(out.escalate)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n_esc = int(acc)
-        if dt < best_dt:
-            best_dt, best_esc = dt, n_esc
-        new, out = K.step_internal(st, ib, A_O)
-        want = kernel_ref.step_internal(st, ib, A_O)
-        err = max(err, _max_err(list(new) + list(out),
-                                list(want[0]) + list(want[1])))
-        checks += 1
-        st = new
-    torch.cuda.synchronize()
-    launches = dict(_native.LAUNCHES)
-    # the device's share of a launch: the profiler's kernel time
-    dev_launch = device_ms(lambda: K.step_internal(st, ib, A_O))
-    groups = G // 3
-    group_ticks = max(0.0, (groups * iters - best_esc / 3) * ticks)
-    res = dict(groups=groups, rows=G, launches_per_window=iters,
-               windows=windows, ticks_per_launch=ticks, window_s=best_dt,
-               ms_per_launch=best_dt / iters * 1e3,
-               device_ms_per_launch=dev_launch,
-               escalated_rows=best_esc,
-               group_ticks_per_s=group_ticks / best_dt,
-               checked_launches=checks, max_abs_err=err,
-               kernel_launches=launches,
-               leaders=int((st.role == T.ROLE_LEADER).sum()),
-               terms_max=int(st.term.max()))
-    if err:
-        raise AssertionError(f"raft_step_internal disagrees with its plain "
-                             f"version in phase A: {err}")
-    if launches["raft_step_internal"] < 1:
-        raise AssertionError("phase A never launched raft_step_internal")
-    return res
 
 
 def _equal(a, b) -> bool:
@@ -4473,7 +4401,7 @@ def main(argv) -> int:
     ap.add_argument(
         "--only", default="",
         help="comma-separated phases to run (kernels, colo_kernels, "
-             "mesh_kernels, mesh_pack, phase_a, multichip, nodehost, "
+             "mesh_kernels, mesh_pack, multichip, nodehost, "
              "colocated, pipeline, scale, mesh_engines, audit, registry, "
              "day, graft, analysis) without the "
              "result lines; "
@@ -4526,8 +4454,6 @@ def main(argv) -> int:
         mkern = run("mesh_kernels", mesh_kernels_phase, dev)
     if want("mesh_pack") and only:
         run("mesh_pack", mesh_pack_case, dev)
-    if want("phase_a"):
-        pa = run("phase_a", phase_a_phase, dev)
     if want("multichip"):
         mc = run("multichip", multichip_phase, dev, [dev] * X_DEVICES)
         if torch.cuda.device_count() >= X_DEVICES:
@@ -4675,8 +4601,8 @@ def main(argv) -> int:
         rows.append(dict(
             name=k, route="cuda", source=info["source"],
             replaces=info["replaces"], also_replaces=info["also_replaces"],
-            launches=(pa if step else mc["leg2"])["kernel_launches"][k],
-            launches_multichip=(mc["leg1"] if step else mc["leg2"])[
+            launches=mc["leg1" if step else "leg2"]["kernel_launches"][k],
+            launches_multichip=mc["leg1" if step else "leg2"][
                 "kernel_launches"][k],
             max_abs_err=mkern["max_abs_err"][k],
             ms=mkern["ms"][k], device_ms=mkern["device_ms"][k],

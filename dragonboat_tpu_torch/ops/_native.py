@@ -19,15 +19,21 @@ kernels its path went through.  While a profiler runs, each launch is
 also the span ``launch.<entry>`` of the port's recorder
 (``profiling.py``), whose count is the same launch count.  ``BUILDS``
 counts the times this process built or loaded the module (the
-post-warm-up sentry, ``analysis/jitcheck.py``, watches it).
+post-warm-up sentry, ``analysis/jitcheck.py``, watches it).  Every
+wrapper asks ``on_cpu`` which version runs and lays its outputs out with
+``alloc_views``.
 """
 from __future__ import annotations
 
+import functools
+import math
 import os
 import re
 import sys
 import threading
 from pathlib import Path
+
+import torch
 
 from .. import profiling
 
@@ -87,6 +93,37 @@ BUILDS = 0
 
 _module = None
 _lock = threading.Lock()
+
+
+def on_cpu(t: torch.Tensor, name: str) -> bool:
+    """True on the CPU (the plain version runs), False on CUDA (the
+    kernel runs); the entry point ``name`` raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+@functools.lru_cache(maxsize=256)
+def view_plan(shapes: tuple):
+    """``alloc_views``'s layout: (its words, each view's (shape, strides,
+    first word), the first words); each view starts on a 16-byte boundary
+    (``csrc/inbox.cu`` and ``csrc/place_rows.cu`` rely on it)."""
+    total, planes = 0, []
+    for s in shapes:
+        strides = tuple(math.prod(s[i + 1:]) for i in range(len(s)))
+        planes.append((tuple(s), strides, total))
+        n = math.prod(s)
+        total += n + -n % 4
+    return total, tuple(planes), tuple(p[2] for p in planes)
+
+
+def alloc_views(shapes: tuple, dev):
+    """One int32 allocation cut into contiguous views of ``shapes``:
+    (flat, views, each view's first word)."""
+    total, planes, offs = view_plan(shapes)
+    flat = torch.empty(total, dtype=torch.int32, device=dev)
+    cut = flat.as_strided
+    return flat, [cut(s, st, o) for s, st, o in planes], offs
 
 
 def reset_launch_counts() -> None:

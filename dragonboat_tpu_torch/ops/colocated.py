@@ -73,7 +73,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -127,6 +126,7 @@ from .types import (
 )
 from .route import (
     build_route_tables,
+    new_inbox,
     ring_shift,
     route_cuda,
     split_route_tables,
@@ -191,44 +191,17 @@ from .colocated_ref import (  # noqa: E402 — alias block
 )
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"colocated: unsupported device {t.device}")
-    return t.device.type == "cpu"
-
-
-@functools.lru_cache(maxsize=64)
-def _inbox_plan(G: int, M: int, E: int):
-    """(the words of one inbox allocation, each plane's (shape, strides,
-    first word)): field-major, each plane on a 16-byte boundary — the
-    layout ``inbox_layout`` (csrc/launch.h) gives the kernels."""
-    shapes = ((G, M),) * 10 + ((G, M, E),) * 2
-    _sizes, total, _cut, offs = K._view_plan(shapes)
-    return total, tuple(
-        (s, (M, 1) if len(s) == 2 else (M * E, E, 1), o)
-        for s, o in zip(shapes, offs))
-
-
-def _inbox_alloc(G: int, M: int, E: int, dev):
-    """One int32 allocation and the inbox's 12 planes as contiguous views
-    of it: (flat, inbox)."""
-    total, planes = _inbox_plan(G, M, E)
-    flat = torch.empty(total, dtype=I32, device=dev)
-    cut = flat.as_strided
-    return flat, Inbox(*(cut(s, st, o) for s, st, o in planes))
-
-
 def _assemble_inbox(host: Inbox, pending: Inbox, combo) -> Inbox:
     """Concatenate the ROUTED regions first, then the host-encoded
     slots, zeroing rows that are not device-authoritative (alive lane 0:
     dirty / detached — a stale device row receiving traffic could
     double-vote).  Routed-first is the scalar replay order (received
     messages before proposals/reads/ticks).  CUDA ``inbox`` (assemble)."""
-    if _on_cpu(combo):
+    if _native.on_cpu(combo, "assemble_inbox"):
         return colocated_ref.assemble_inbox(host, pending, combo)
     G, PB = pending.mtype.shape
     Mh, E = host.mtype.shape[1], host.ent_term.shape[2]
-    flat, full = _inbox_alloc(G, PB + Mh, E, combo.device)
+    flat, full = new_inbox(G, PB + Mh, E, combo.device)
     _native.launch("assemble_inbox", host, pending, combo, flat)
     return full
 
@@ -260,7 +233,7 @@ def _route_step(old_state, new_state, out, dest, rank, combo,
     the block's ``xlane_pack`` then runs between ``route`` and
     ``summarize_flags`` and the lane buffer and its [8] stats row are
     returned after the five."""
-    if _on_cpu(combo):
+    if _native.on_cpu(combo, "route_step"):
         return colocated_ref.route_step(
             old_state, new_state, out, dest, rank, combo,
             PB=PB, E=E, budget=budget, lane=lane,
@@ -295,7 +268,7 @@ def _lane_scatter(regions: Inbox, recv, lane_stats, *, budget: int):
     the ring shifts brought (``route.ring_shift``) added into the block's
     pending regions in place, the count in ``lane_stats[1]``.  CUDA
     ``xlane_scatter``; CPU: ``colocated_ref.lane_scatter``."""
-    if _on_cpu(recv):
+    if _native.on_cpu(recv, "lane_scatter"):
         return colocated_ref.lane_scatter(regions, recv, lane_stats,
                                           budget=budget)
     xlane_scatter(regions, recv, budget=budget, base=0, stats=lane_stats)
@@ -378,7 +351,7 @@ def _select_and_blob(merged, out, stats, packed, flags, combo,
     are views of one allocation) then ``gather_pack`` (the values block,
     into the head)."""
     caps = (CAP_B, CAP_SL, CAP_N, CAP_A, CAP_S)
-    if _on_cpu(combo):
+    if _native.on_cpu(combo, "select_and_blob"):
         return colocated_ref.select_and_blob(
             merged, out, stats, packed, flags, combo, CAP_B=CAP_B,
             CAP_SL=CAP_SL, CAP_N=CAP_N, CAP_A=CAP_A, CAP_S=CAP_S,
@@ -391,8 +364,8 @@ def _select_and_blob(merged, out, stats, packed, flags, combo,
     if any(not 0 <= c <= G for c in caps):
         raise ValueError("select_and_blob: capacities must lie in [0, G]")
     n_head, n_detail = _blob_sizes(G, O, Mo, E, P, W, caps, HOST_OFF)
-    head, detail, scratch = K._views(
-        ((n_head,), (n_detail,), (_sel_scratch_words(G),)), flags.device)
+    head, detail, scratch = _native.alloc_views(
+        ((n_head,), (n_detail,), (_sel_scratch_words(G),)), flags.device)[1]
     _native.launch(
         "select_and_blob", flags, combo, packed, stats,
         [out.buf, out.slot_base, out.slot_term, out.ent_drop,
@@ -411,10 +384,10 @@ def _select_and_blob(merged, out, stats, packed, flags, combo,
 def _zero_inbox_rows(inbox: Inbox, mask) -> Inbox:
     """Zero the inbox rows where ``mask`` ([G], nonzero) — CUDA
     ``inbox`` (zero_rows)."""
-    if _on_cpu(mask):
+    if _native.on_cpu(mask, "zero_inbox_rows"):
         return colocated_ref.zero_inbox_rows(inbox, mask)
     G, M = inbox.mtype.shape
-    flat, res = _inbox_alloc(G, M, inbox.ent_term.shape[2], mask.device)
+    flat, res = new_inbox(G, M, inbox.ent_term.shape[2], mask.device)
     _native.launch("zero_inbox_rows", inbox, mask.to(I32), flat)
     return res
 
@@ -426,9 +399,9 @@ def _host_inbox_from_ticks(combo, *, M: int, E: int) -> Inbox:
     avoided.  Rows with real host slots (wire messages, proposals,
     reads, tick-with-read-hint) are placed over this base by
     _scatter_inbox_rows.  CUDA ``inbox`` (from_ticks)."""
-    if _on_cpu(combo):
+    if _native.on_cpu(combo, "host_inbox_from_ticks"):
         return colocated_ref.host_inbox_from_ticks(combo, M=M, E=E)
-    flat, res = _inbox_alloc(combo.shape[0], M, E, combo.device)
+    flat, res = new_inbox(combo.shape[0], M, E, combo.device)
     _native.launch("host_inbox_from_ticks", combo, flat, M, E)
     return res
 

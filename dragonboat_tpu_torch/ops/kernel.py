@@ -26,8 +26,7 @@ for the row.
 """
 from __future__ import annotations
 
-import functools
-import math
+import collections
 from typing import NamedTuple, Tuple
 
 import torch
@@ -73,14 +72,22 @@ def smem_bytes(R: int, P: int, W: int, M: int, E: int, O: int,
     return 4 * (S * (8 * P + 2 * W + K * N_FIELDS) + R)
 
 
+def rows_for_every_sm(G: int, choices: tuple) -> int:
+    """The largest of ``choices`` (ascending rows a block) whose blocks
+    still give every SM one, else the smallest (a small G)."""
+    for R in reversed(choices):
+        if -(-G // R) >= N_SM:
+            return R
+    return choices[0]
+
+
 def rows_per_block(G: int, P: int, W: int, M: int, E: int, O: int,
                    internal: bool = False) -> int:
-    """Rows a block of the CUDA kernel steps: the largest of
-    ``ROWS_PER_BLOCK`` whose tile fits and which still gives every SM a
-    block; where none does (a small G), the smallest that fits.  Raises
-    ``ValueError`` when even 32 rows' tile does not fit."""
-    fit = [R for R in ROWS_PER_BLOCK
-           if smem_bytes(R, P, W, M, E, O, internal) <= SMEM_MAX]
+    """Rows a block of the CUDA kernel steps: ``rows_for_every_sm`` of
+    the ``ROWS_PER_BLOCK`` whose tile fits.  Raises ``ValueError`` when
+    even 32 rows' tile does not fit."""
+    fit = tuple(R for R in ROWS_PER_BLOCK
+                if smem_bytes(R, P, W, M, E, O, internal) <= SMEM_MAX)
     if not fit:
         R = ROWS_PER_BLOCK[0]
         raise ValueError(
@@ -88,21 +95,24 @@ def rows_per_block(G: int, P: int, W: int, M: int, E: int, O: int,
             f"{staged_messages(O)} staged outbox messages need "
             f"{smem_bytes(R, P, W, M, E, O, internal)} bytes of shared "
             f"memory, over the {SMEM_MAX} a block can use")
-    for R in reversed(fit):
-        if -(-G // R) >= N_SM:
-            return R
-    return fit[0]
+    return rows_for_every_sm(G, fit)
+
+
+def check_peers_and_window(name: str, P: int, W: int) -> None:
+    """The kernels' widths: P peer slots in [1, PMAX] (the voter bit
+    mask), a ring of W a power of two (its index is a mask)."""
+    if not 1 <= P <= PMAX:
+        raise ValueError(f"{name}: P={P} outside [1, {PMAX}]")
+    if W < 1 or W & (W - 1):
+        raise ValueError(f"{name}: W={W} must be a power of two")
 
 
 def step(
     state: DeviceState, inbox: Inbox, out_capacity: int = 32
 ) -> Tuple[DeviceState, DeviceOut]:
     """Advance every row through its inbox; returns (state', out)."""
-    dev = state.term.device
-    if dev.type == "cpu":
+    if _native.on_cpu(state.term, "step"):
         return kernel_ref.step(state, inbox, out_capacity)
-    if dev.type != "cuda":
-        raise ValueError(f"step: unsupported device {dev}")
     return _step_cuda(state, inbox, out_capacity)
 
 
@@ -122,12 +132,9 @@ def step_routed(
     ``count``, ``escalate`` and each row's messages below its count (the
     other words of ``buf`` are left as allocated).  On CPU tensors the
     plain step's outputs."""
-    dev = state.term.device
-    if dev.type == "cpu":
+    if _native.on_cpu(state.term, "step_routed"):
         new, out = kernel_ref.step(state, inbox, out_capacity)
         return new, RoutedOut(out.buf, out.count, out.escalate)
-    if dev.type != "cuda":
-        raise ValueError(f"step_routed: unsupported device {dev}")
     return _step_cuda(state, inbox, out_capacity, routed=True)
 
 
@@ -137,73 +144,28 @@ def step_internal(
     """``step`` with every operand and result in the internal (G-last)
     layout; a device-resident loop keeps its state in that layout across
     launches (``state_to_internal`` / ``inbox_to_internal``)."""
-    dev = state.term.device
-    if dev.type == "cpu":
+    if _native.on_cpu(state.term, "step_internal"):
         new, out = kernel_ref.step_internal(state, inbox, out_capacity)
         return (DeviceState(*(t.contiguous() for t in new)),
                 DeviceOut(*(t.contiguous() for t in out)))
-    if dev.type != "cuda":
-        raise ValueError(f"step_internal: unsupported device {dev}")
     return _step_cuda(state, inbox, out_capacity, internal=True)
 
 
-def _views(shapes: tuple, dev) -> list:
-    """One int32 allocation cut into contiguous views of ``shapes``, each
-    starting on a 16-byte boundary."""
-    return _alloc_views(shapes, dev)[1]
+# a checked step's launch geometry in the binding's order: rows, peers, ring,
+# inbox slots, entries, outbox, rows a block, staged outbox messages
+StepGeometry = collections.namedtuple("StepGeometry", "G P W M E O R K")
 
 
-def _alloc_views(shapes: tuple, dev):
-    """``_views`` with the allocation itself and each view's word offset
-    in it: (flat, views, offsets)."""
-    sizes, total, cut, offs = _view_plan(shapes)
-    flat = torch.empty(total, dtype=torch.int32, device=dev)
-    views = []
-    for p, s, n in zip(flat.split(sizes), shapes, cut):
-        if n:
-            p = p[:n]
-        views.append(p if len(s) == 1 else p.view(s))
-    return flat, views, offs
-
-
-@functools.lru_cache(maxsize=256)
-def _view_plan(shapes: tuple):
-    """(each view's words rounded up to 4, their sum, each view's words
-    where it was rounded up, else 0, each view's first word)"""
-    sizes, cut, offs = [], [], []
-    total = 0
-    for s in shapes:
-        n = math.prod(s)
-        offs.append(total)
-        sizes.append(n + -n % 4)
-        cut.append(n if n % 4 else 0)
-        total += sizes[-1]
-    return tuple(sizes), total, tuple(cut), tuple(offs)
-
-
-# _step_cuda's recorder spans, by entry point: (check, alloc)
-_SPANS = {e: (e + ".check", e + ".alloc")
-          for e in ("raft_step", "raft_step_routed", "raft_step_internal")}
-
-
-def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
-               internal: bool = False, routed: bool = False):
-    """Check the operands, allocate the outputs and launch the kernel of
-    either layout (``routed``: the external one, the outputs of
-    ``RoutedOut`` only): the recorder spans ``<entry>.check`` and
-    ``<entry>.alloc``, then ``launch.<entry>``."""
-    t0 = profiling.begin()
+def check_step(name: str, state: DeviceState, inbox: Inbox, O: int,
+               internal: bool = False) -> StepGeometry:
+    """The entry point ``name``'s checks of the operands of either layout;
+    returns their launch geometry.  Raises ``ValueError``."""
     G = state.term.shape[0]
     P = state.peer_id.shape[0 if internal else 1]
     W = state.ring_term.shape[0 if internal else 1]
     M = inbox.mtype.shape[0 if internal else 1]
     E = inbox.ent_term.shape[1 if internal else 2]
-    name = ("raft_step_internal" if internal
-            else "raft_step_routed" if routed else "raft_step")
-    if not 1 <= P <= PMAX:
-        raise ValueError(f"{name}: P={P} outside [1, {PMAX}]")
-    if W < 1 or W & (W - 1):
-        raise ValueError(f"{name}: W={W} must be a power of two")
+    check_peers_and_window(name, P, W)
     if O < 1:
         raise ValueError(f"{name}: out_capacity={O} must be >= 1")
     K = staged_messages(O)
@@ -229,22 +191,45 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
         if tuple(getattr(inbox, f).shape) != want[kind]:
             raise ValueError(f"{name}: inbox.{f} has shape "
                              f"{tuple(getattr(inbox, f).shape)}")
-    profiling.end(_SPANS[name][0], t0)
+    return StepGeometry(G, P, W, M, E, O, R, K)
+
+
+def launch_step(name: str, state: DeviceState, inbox: Inbox,
+                g: StepGeometry, internal: bool = False, routed: bool = False):
+    """Allocate the outputs of checked operands (geometry ``g``; the span
+    ``<name>.alloc``) and launch the kernel of either layout (``routed``:
+    the external one, ``RoutedOut`` only; ``launch.<name>``)."""
     t0 = profiling.begin()
     dev = state.term.device
-    new = DeviceState(*_views(tuple(tuple(x.shape) for x in state), dev))
-    if routed:
-        out = RoutedOut(*_views(((G, O, N_FIELDS), (G,), (G,)), dev))
-    else:
-        out = DeviceOut(*_views((
-            shape(O, N_FIELDS), (G,), (G,), shape(P), shape(M), shape(M),
-            shape(M, E), (G,), (G,), (G,)), dev))
+    new = DeviceState(*_native.alloc_views(
+        tuple(tuple(x.shape) for x in state), dev)[1])
+    per_row = ((g.O, N_FIELDS), (), (), (g.P,), (g.M,), (g.M,), (g.M, g.E),
+               (), (), ())
+    kind = RoutedOut if routed else DeviceOut  # RoutedOut: the first three
+    out = kind(*_native.alloc_views(tuple(
+        (*d, g.G) if internal else (g.G, *d)
+        for d in per_row[:len(kind._fields)]), dev)[1])
     profiling.end(_SPANS[name][1], t0)
-    if G == 0:
-        return new, out
-    _native.launch(name, list(state), list(new), list(inbox), list(out), G,
-                   P, W, M, E, O, R, K)
+    if g.G:
+        _native.launch(name, list(state), list(new), list(inbox), list(out),
+                       *g)
     return new, out
+
+
+# the step's recorder spans, by entry point: (check, alloc)
+_SPANS = {e: (e + ".check", e + ".alloc")
+          for e in ("raft_step", "raft_step_routed", "raft_step_internal")}
+
+
+def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
+               internal: bool = False, routed: bool = False):
+    """``check_step`` (the span ``<entry>.check``), then ``launch_step``."""
+    name = ("raft_step_internal" if internal
+            else "raft_step_routed" if routed else "raft_step")
+    t0 = profiling.begin()
+    g = check_step(name, state, inbox, O, internal)
+    profiling.end(_SPANS[name][0], t0)
+    return launch_step(name, state, inbox, g, internal, routed)
 
 
 def make_step_sharded(  # mesh-hot

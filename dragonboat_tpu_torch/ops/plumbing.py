@@ -11,7 +11,7 @@ stream and checks the launch.
 * ``gather_pack``     — csrc/gather_pack.cu
 * ``place_rows`` / ``merge_escalated`` / ``set_remote_snapshot`` —
   csrc/place_rows.cu (every call's outputs are views of one allocation:
-  ``kernel._alloc_views``)
+  ``_native.alloc_views``)
 """
 from __future__ import annotations
 
@@ -23,15 +23,8 @@ import torch
 from .. import profiling
 from . import _native
 from . import engine_ref
-from . import kernel as K
 from .engine_ref import VALS_OUT, VALS_STATE, detail_width
 from .types import DeviceOut, DeviceState
-
-
-def _device(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
 
 
 def summarize_flags(
@@ -41,7 +34,7 @@ def summarize_flags(
     """[G] int32 flag word per row.  With ``undeliv`` ([G] int32) the
     F_COUNT bit is set where ``undeliv`` is nonzero instead of where the
     row emitted messages (the colocated override)."""
-    if _device(new.term) == "cpu":
+    if _native.on_cpu(new.term, "summarize_flags"):
         return engine_ref.summarize_flags(old, new, out, undeliv)
     G, P = new.peer_id.shape
     srcs = (
@@ -77,7 +70,7 @@ def gather_pack(
     contiguous int32 vector of the packed size to write into instead of
     a fresh one (the colocated readback writes its values block into the
     head blob)."""
-    if _device(state.term) == "cpu":
+    if _native.on_cpu(state.term, "gather_pack"):
         flat = engine_ref.gather_pack(state, out, idx4, idx_sum)
         if dst is None:
             return flat
@@ -147,13 +140,13 @@ def place_rows(
     (``dst=None``: a fresh gather, every pos a source row).  A source
     with no rows raises when there are rows to place, as the
     reference's gather does."""
-    if _device(pos) == "cpu":
+    if _native.on_cpu(pos, "place_rows"):
         return engine_ref.place_rows(dst, src, pos)
     if pos.dim() != 1:
         raise ValueError("place_rows: pos must be [G]")
     shapes = _row_shapes("place_rows", pos.shape[0], _shapes(src),
                          None if dst is None else _shapes(dst), False)
-    flat, outs, offs = K._alloc_views(shapes, pos.device)
+    flat, outs, offs = _native.alloc_views(shapes, pos.device)
     if pos.shape[0]:
         _native.launch("place_rows", pos, list(dst or ()), list(src), flat,
                        offs)
@@ -169,8 +162,9 @@ def merge_escalated(
     ``escalate`` ([G] int32) is nonzero; returns ``new``.  For callers
     whose ``new`` is the step's fresh output that nothing reads after the
     merge (the routed rounds' tail); the result equals
-    ``engine_ref.select_escalated``'s."""
-    if _device(escalate) == "cpu":
+    ``engine_ref.select_escalated``'s.  On CUDA: the checks (the span
+    ``merge_escalated.check``), then ``launch_merge_escalated``."""
+    if _native.on_cpu(escalate, "merge_escalated"):
         return engine_ref.merge_escalated(escalate, old, new)
     if escalate.dim() != 1:
         raise ValueError("merge_escalated: escalate must be [G]")
@@ -178,7 +172,14 @@ def merge_escalated(
     t0 = profiling.begin()
     _row_shapes("merge_escalated", G, _shapes(new), _shapes(old), True)
     profiling.end("merge_escalated.check", t0)
-    if G:
+    return launch_merge_escalated(escalate, old, new)
+
+
+def launch_merge_escalated(escalate: torch.Tensor, old: Sequence,
+                           new: Sequence) -> List[torch.Tensor]:
+    """``merge_escalated``'s launch, for operands whose shapes are known
+    to agree (a routed round's step input and output)."""
+    if escalate.shape[0]:
         _native.launch("merge_escalated", escalate, list(old), list(new))
     return list(new)
 
@@ -192,7 +193,7 @@ def set_remote_snapshot(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Copies of rstate / snap_index with RS_SNAPSHOT / snap at each
     (g_idx[k], p_idx[k])."""
-    if _device(rstate) == "cpu":
+    if _native.on_cpu(rstate, "set_remote_snapshot"):
         return engine_ref.set_remote_snapshot(
             rstate, snap_index, g_idx, p_idx, snap
         )
@@ -202,7 +203,7 @@ def set_remote_snapshot(
         t.dim() != 1 or t.shape[0] != n for t in (g_idx, p_idx, snap)
     ):
         raise ValueError("set_remote_snapshot: bad shapes")
-    rs, sn = K._views(((G, P), (G, P)), rstate.device)
+    rs, sn = _native.alloc_views(((G, P), (G, P)), rstate.device)[1]
     if G * P:
         _native.launch("set_remote_snapshot", rstate, snap_index, g_idx,
                        p_idx, snap, rs, sn)

@@ -21,10 +21,11 @@ and the ``[0, base)`` prefix, copied from ``base_inbox`` or generated as
 ``merge_and_route``, ``routed_round`` and ``fused_rounds`` are then
 compositions of kernels only — ``raft_step``, the in-place escalation
 merge (``merge_escalated``, csrc/place_rows.cu) and ``route`` — with no
-plain-torch compute between them.  ``routed_round`` (and so
-``fused_rounds``) steps with ``kernel.step_routed``: its outbox goes
-nowhere but into the route, which reads only the messages, their count
-and the escalation word, so the step writes nothing else.  The router
+plain-torch compute between them.  ``routed_round`` and
+``fused_rounds`` step with ``kernel.step_routed``'s kernel: its outbox
+goes nowhere but into the route, which reads only the messages, their
+count and the escalation word, so the step writes nothing else; a wave
+checks its operands once, not each round.  The router
 and the lane pack (``csrc/xlane.cu``) walk a row's outbox with a
 sub-warp of 8 lanes, one a message (``csrc/walk.cuh``); the pack counts
 in blocks of ``lane_rows_per_block`` rows.  On CPU tensors every
@@ -88,10 +89,7 @@ def lane_rows_per_block(G: int, D: int) -> int:
     if not 1 <= D <= _XLANE_DMAX:
         raise ValueError(f"xlane_pack: n_dev={D}: at most {_XLANE_DMAX} "
                          "devices")
-    for R in reversed(LANE_ROWS):
-        if -(-G // R) >= K.N_SM:
-            return R
-    return LANE_ROWS[0]
+    return K.rows_for_every_sm(G, LANE_ROWS)
 
 
 class RouteStats(NamedTuple):
@@ -154,12 +152,6 @@ def build_route_tables(  # raftlint: ignore[host-sync] host-side numpy precomput
     return dest_row, rank_in_dest
 
 
-def _device(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"route: unsupported device {t.device}")
-    return t.device.type
-
-
 def _int32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """A [G] mask as the kernel's int32 word (bool masks of callers)."""
     if t is None or t.dtype == I32:
@@ -167,53 +159,25 @@ def _int32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t.to(I32)
 
 
-def route_cuda(
-    state: DeviceState,
-    out: DeviceOut,
-    dest_row: torch.Tensor,
-    rank_in_dest: torch.Tensor,
-    *,
-    M: int,
-    E: int,
-    budget: int,
-    base: int,
-    base_inbox: Optional[Inbox] = None,
-    suppress: Optional[torch.Tensor] = None,
-    alive: Optional[torch.Tensor] = None,
-    alive_stride: int = 1,
-    prefill: Tuple[bool, bool, int] = (False, False, 1),
-    stats: Optional[torch.Tensor] = None,
-    packed: Optional[torch.Tensor] = None,
-    undeliv: Optional[torch.Tensor] = None,
-    delivered: bool = False,
-    census: Optional[torch.Tensor] = None,
-) -> Tuple[Inbox, torch.Tensor, Optional[torch.Tensor]]:
-    """Launch ``csrc/route.cu``.  Returns ``(inbox, stats, delivered)``
-    with ``stats`` the kernel's [7] vector (RouteStats, then the
-    suppressed row count), written into ``stats`` when given.
-    ``suppress`` is a [G] int32 word (nonzero = suppressed row);
-    ``alive`` is read at ``alive[g * alive_stride]`` (the colocated
-    combo's alive lane); ``prefill`` = (tick, propose_leaders,
-    propose_n) generates the ``[0, base)`` prefix when there is no
-    ``base_inbox``.  ``packed`` and ``undeliv`` are optional outputs the
-    kernel fills: the [G, ceil(O/32)] delivered bits and the [G]
-    undelivered-row word; with ``delivered`` it also fills the [G, O]
-    bool delivered mask it returns (else None).  With ``census`` (a [4]
-    int64 vector, ``profiling.CENSUS``) the walk adds its election census
-    to it (``route_walk_kernel<true>``).  Recorder spans:
-    ``route.check``, ``route.alloc``, then ``launch.route``."""
-    t0 = profiling.begin()
-    G, O, nf = out.buf.shape
+def new_inbox(G: int, M: int, E: int, dev) -> Tuple[torch.Tensor, Inbox]:
+    """A fresh inbox of G rows, M slots and E entries a slot: (flat, its
+    12 planes as views of ``flat``), field-major, each on a 16-byte
+    boundary (the kernels' ``inbox_layout``, csrc/launch.h)."""
+    flat, planes, _offs = _native.alloc_views(
+        ((G, M),) * 10 + ((G, M, E),) * 2, dev)
+    return flat, Inbox(*planes)
+
+
+def _route_check(state: DeviceState, buf_shape, dest_row, rank_in_dest, *,
+                 M: int, E: int, budget: int, base: int,
+                 base_inbox: Optional[Inbox] = None, **_launch) -> None:
+    """``route_cuda``'s checks (``_launch``: the launch's other operands)."""
+    G, _O, nf = buf_shape
     P = state.peer_id.shape[1]
-    W = state.ring_term.shape[1]
-    B = budget
-    route_ref.check_layout(M, P, B, base)
+    route_ref.check_layout(M, P, budget, base)
     if nf != N_FIELDS:
         raise ValueError("route: out.buf must be [G, O, N_FIELDS]")
-    if not 1 <= P <= K.PMAX:
-        raise ValueError(f"route: P={P} outside [1, {K.PMAX}]")
-    if W < 1 or W & (W - 1):
-        raise ValueError(f"route: W={W} must be a power of two")
+    K.check_peers_and_window("route", P, state.ring_term.shape[1])
     for t in (dest_row, rank_in_dest):
         if tuple(t.shape) != (G, P):
             raise ValueError("route: the tables must be [G, P]")
@@ -222,10 +186,51 @@ def route_cuda(
         or base_inbox.ent_term.shape[2] != E
     ):
         raise ValueError("route: base_inbox does not cover the prefix")
-    profiling.end("route.check", t0)
+
+
+def route_cuda(state: DeviceState, out: DeviceOut, dest_row: torch.Tensor,
+               rank_in_dest: torch.Tensor, **operands):
+    """``_route_launch`` of ``operands`` (its keywords) after the route's
+    checks (the span ``route.check``)."""
     t0 = profiling.begin()
-    inbox, scratch, cnt, own_stats, deliv = _route_buffers(
-        G, P, O, M, E, B, out.buf.device, stats is None, delivered)
+    _route_check(state, out.buf.shape, dest_row, rank_in_dest, **operands)
+    profiling.end("route.check", t0)
+    return _route_launch(state, out, dest_row, rank_in_dest, **operands)
+
+
+def _route_launch(
+    state: DeviceState, out, dest_row: torch.Tensor,
+    rank_in_dest: torch.Tensor, *, M: int, E: int, budget: int, base: int,
+    base_inbox: Optional[Inbox] = None,
+    suppress: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None, alive_stride: int = 1,
+    prefill: Tuple[bool, bool, int] = (False, False, 1),
+    stats: Optional[torch.Tensor] = None,
+    packed: Optional[torch.Tensor] = None,
+    undeliv: Optional[torch.Tensor] = None, delivered: bool = False,
+    census: Optional[torch.Tensor] = None,
+) -> Tuple[Inbox, torch.Tensor, Optional[torch.Tensor]]:
+    """Launch ``csrc/route.cu`` on checked operands.  Returns ``(inbox,
+    stats, delivered)`` with ``stats`` the kernel's [7] vector
+    (RouteStats, then the suppressed row count), written into ``stats``
+    when given.  ``suppress`` is a [G] int32 word (nonzero = suppressed
+    row); ``alive`` is read at ``alive[g * alive_stride]`` (the colocated
+    combo's alive lane); ``prefill`` = (tick, propose_leaders, propose_n)
+    generates the ``[0, base)`` prefix when there is no ``base_inbox``.
+    ``packed`` and ``undeliv`` are optional outputs the kernel fills: the
+    [G, ceil(O/32)] delivered bits and the [G] undelivered-row word; with
+    ``delivered`` it also fills the [G, O] bool delivered mask it returns
+    (else None).  With ``census`` (a [4] int64 vector,
+    ``profiling.CENSUS``) the walk adds its election census to it
+    (``route_walk_kernel<true>``).  Recorder spans: ``route.alloc``, then
+    ``launch.route``."""
+    t0 = profiling.begin()
+    G, O = out.buf.shape[:2]
+    P = state.peer_id.shape[1]
+    dev = out.buf.device
+    _flat, inbox = new_inbox(G, M, E, dev)
+    scratch, cnt, own_stats, deliv = _route_buffers(
+        G, P, O, budget, dev, stats is None, delivered)
     profiling.end("route.alloc", t0)
     if stats is None:
         stats = own_stats
@@ -234,34 +239,31 @@ def route_cuda(
         "route", [getattr(state, f) for f in _ROUTE_STATE], out.buf,
         out.count, dest_row, rank_in_dest, _int32(suppress), _int32(alive),
         alive_stride, list(base_inbox) if base_inbox is not None else [],
-        list(inbox), stats, packed, undeliv, deliv, scratch, cnt, B,
+        list(inbox), stats, packed, undeliv, deliv, scratch, cnt, budget,
         # raftlint: ignore[host-sync] the prefill's host scalars, not device values
         base, int(tick), int(propose_leaders), int(propose_n), census,
     )
     return inbox, stats, deliv
 
 
-def _route_buffers(G: int, P: int, O: int, M: int, E: int, B: int, dev,
-                   with_stats: bool, with_delivered: bool):
-    """``route_cuda``'s allocations: the 12 inbox fields as views of one
-    buffer, and the walk's workspace (the scratch words [G, P, B], cnt
-    [G, P], the [7] stats when the caller gives none and the [G, O] bool
-    delivered mask when asked) as views of another, each view 16-byte
-    aligned.  Returns (inbox, scratch, cnt, stats or None, delivered or
-    None)."""
-    inbox = Inbox(*K._views(((G, M),) * 10 + ((G, M, E),) * 2, dev))
+def _route_buffers(G: int, P: int, O: int, B: int, dev, with_stats: bool,
+                   with_delivered: bool):
+    """The route's walk workspace as views of one allocation, each 16-byte
+    aligned: the scratch words [G, P, B], cnt [G, P], the [7] stats when
+    the caller gives none and the [G, O] bool delivered mask when asked.
+    Returns (scratch, cnt, stats or None, delivered or None)."""
     shapes = [(G * P * B,), (G * P,)]
     if with_stats:
         shapes.append((_N_KSTATS,))
     if with_delivered:
         shapes.append((-(-G * O // 4),))  # G * O bytes in int32 words
-    work = K._views(tuple(shapes), dev)
+    _flat, work, _offs = _native.alloc_views(tuple(shapes), dev)
     stats = work[2] if with_stats else None
     delivered = None
     if with_delivered:
         delivered = work[-1].view(torch.uint8)[:G * O].view(
             torch.bool).view(G, O)
-    return inbox, work[0], work[1], stats, delivered
+    return work[0], work[1], stats, delivered
 
 
 def route(
@@ -286,7 +288,7 @@ def route(
     ``dest_alive`` ([G]) masks destination rows that must not be fed.
     Returns ``(inbox, stats, delivered)`` with ``delivered`` the [G, O]
     bool mask of messages scattered into a peer row."""
-    if _device(out.buf) == "cpu":
+    if _native.on_cpu(out.buf, "route"):
         inbox, stats, delivered = route_ref.route(
             state, out, dest_row, rank_in_dest, M=M, E=E, budget=budget,
             base=base, base_inbox=base_inbox, suppress=suppress,
@@ -329,7 +331,7 @@ def merge_and_route(
     ``merge_escalated`` (the in-place escalation merge) then ``route``;
     ``stats_out`` is the [7] vector the kernel fills.  ``census`` (a [4]
     int64 vector) is added the route's election census."""
-    if _device(out.buf) == "cpu":
+    if _native.on_cpu(out.buf, "merge_and_route"):
         state, inbox, stats, n_esc = route_ref.merge_and_route(
             old_state, new_state, out, dest_row, rank_in_dest, M=M, E=E,
             budget=budget, base=base, propose_leaders=propose_leaders,
@@ -364,15 +366,44 @@ def routed_round(
 ) -> Tuple[DeviceState, Inbox, RouteStats, torch.Tensor]:
     """One full consensus round: step every row through ``inbox``
     (``kernel.step_routed``), then ``merge_and_route`` the outboxes into
-    the next round's inbox."""
-    M, E = inbox.mtype.shape[1], inbox.ent_term.shape[2]
-    new_state, out = K.step_routed(state, inbox, out_capacity=out_capacity)
-    return merge_and_route(
-        state, new_state, out, dest_row, rank_in_dest,
-        M=M, E=E, budget=budget, base=base,
-        propose_leaders=propose_leaders, propose_n=propose_n,
-        stats_out=stats_out, census=census,
-    )
+    the next round's inbox.  On CUDA a wave of one round (``_wave``, its
+    check the span ``routed_round.check``)."""
+    if _native.on_cpu(state.term, "routed_round"):
+        state, inbox, stats, n_esc = route_ref.routed_round(
+            state, inbox, dest_row, rank_in_dest, out_capacity=out_capacity,
+            budget=budget, base=base, propose_leaders=propose_leaders,
+            propose_n=propose_n, census=census)
+        return state, inbox, RouteStats(*stats), n_esc
+    state, inbox, stats = _wave(
+        "routed_round.check", state, inbox, dest_row, rank_in_dest,
+        (stats_out,), out_capacity, budget, base,
+        (True, propose_leaders, propose_n), census)
+    return state, inbox, RouteStats(*stats[:6]), stats[6]
+
+
+def _wave(span: str, state, inbox, dest_row, rank_in_dest, stats_rows,
+          out_capacity: int, budget: int, base: int, prefill, census):
+    """Routed rounds on CUDA, one a stats row (None: the route's own):
+    the operands checked once (the span ``span``) as the first round's
+    wrappers check them (the merge's operands are the step's own input
+    and output; every later round's are allocated in the checked
+    geometry), then each round's routed step, in-place escalation merge
+    and route.  Returns (state', inbox', the last round's [7] stats)."""
+    t0 = profiling.begin()
+    g = K.check_step("raft_step_routed", state, inbox, out_capacity)
+    _route_check(state, (g.G, g.O, N_FIELDS), dest_row, rank_in_dest,
+                 M=g.M, E=g.E, budget=budget, base=base)
+    profiling.end(span, t0)
+    for row in stats_rows:
+        new, out = K.launch_step("raft_step_routed", state, inbox, g,
+                                 routed=True)
+        state = DeviceState(*plumbing.launch_merge_escalated(
+            out.escalate, list(state), list(new)))
+        inbox, stats, _ = _route_launch(
+            state, out, dest_row, rank_in_dest, M=g.M, E=g.E,
+            budget=budget, base=base, suppress=out.escalate,
+            prefill=prefill, stats=row, census=census)
+    return state, inbox, stats
 
 
 def fused_rounds(
@@ -395,7 +426,8 @@ def fused_rounds(
     ``routed_round`` calls, state and inbox.
 
     Returns ``(state', inbox', stats [rounds, 6], n_esc [rounds])``.  On
-    CUDA each round's kernels write their stats row straight into one
+    CUDA: ``_wave``, its one check the span ``fused_rounds.check``, each
+    round's kernels writing their stats row straight into one
     [rounds, 7] buffer, so the wave runs kernels only; the whole call is
     the recorder span ``fused_rounds``.  Each round's route adds its
     election census to ``census`` (a [4] int64 vector on the wave's
@@ -407,7 +439,7 @@ def fused_rounds(
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if census is None:
         census = profiling.census_buffer(state.term.device)
-    if _device(state.term) == "cpu":
+    if _native.on_cpu(state.term, "fused_rounds"):
         return route_ref.fused_rounds(
             state, inbox, dest_row, rank_in_dest, rounds=rounds,
             out_capacity=out_capacity, budget=budget, base=base,
@@ -416,13 +448,10 @@ def fused_rounds(
         )
     stats_all = torch.empty((rounds, _N_KSTATS), dtype=I32,
                             device=state.term.device)
-    for k in range(rounds):
-        state, inbox, _stats, _n_esc = routed_round(
-            state, inbox, dest_row, rank_in_dest,
-            out_capacity=out_capacity, budget=budget, base=base,
-            propose_leaders=propose_leaders, propose_n=propose_n,
-            stats_out=stats_all[k], census=census,
-        )
+    state, inbox, _stats = _wave(
+        "fused_rounds.check", state, inbox, dest_row, rank_in_dest,
+        stats_all, out_capacity, budget, base,
+        (True, propose_leaders, propose_n), census)
     res = state, inbox, stats_all[:, :6], stats_all[:, 6]
     profiling.end("fused_rounds", t0)
     return res
@@ -538,7 +567,7 @@ def xlane_pack(
     CUDA: ``csrc/xlane.cu``'s pack; CPU: the plain version."""
     if (packed is None) != (undeliv is None):
         raise ValueError("xlane_pack: packed and undeliv come together")
-    if _device(out.buf) == "cpu":
+    if _native.on_cpu(out.buf, "xlane_pack"):
         xbuf, st = route_ref.lane_pack(
             state, out, dest_local, dest_dev, rank_in_dest, me=me,
             n_dev=n_dev, E=E, budget=budget, xbudget=xbudget,
@@ -551,8 +580,9 @@ def xlane_pack(
         return xbuf, st
     G, O, nf = out.buf.shape
     P = state.peer_id.shape[1]
-    if nf != N_FIELDS or not 1 <= P <= K.PMAX:
+    if nf != N_FIELDS:
         raise ValueError("xlane_pack: bad outbox or peer width")
+    K.check_peers_and_window("xlane_pack", P, state.ring_term.shape[1])
     R = lane_rows_per_block(G, n_dev)
     if not 0 <= me < n_dev:
         raise ValueError(f"xlane_pack: me={me} of n_dev={n_dev}")
@@ -580,7 +610,8 @@ def _lane_work(G: int, D: int, R: int, dev) -> list:
     offsets [nblk, D], their partial stats [nblk, 5] and the device
     totals [D], for blocks of R rows."""
     nblk = -(-G // R)
-    return K._views(((G, D), (nblk, D), (nblk, D), (nblk, 5), (D,)), dev)
+    return _native.alloc_views(
+        ((G, D), (nblk, D), (nblk, D), (nblk, 5), (D,)), dev)[1]
 
 
 
@@ -596,7 +627,7 @@ def xlane_scatter(
     place (``route_ref.lane_scatter``); returns ``(inbox, delivered)``,
     with ``delivered`` written into ``stats[1]`` when given.  CUDA:
     ``csrc/xlane.cu``'s scatter; CPU: the plain version."""
-    if _device(recv) == "cpu":
+    if _native.on_cpu(recv, "xlane_scatter"):
         inbox, n = route_ref.lane_scatter(inbox, recv, budget=budget,
                                           base=base)
         if stats is not None:

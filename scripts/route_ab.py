@@ -1,7 +1,7 @@
 """Time the router and lane-pack kernels of this tree against another tree's, on one card.
 
     python3 scripts/route_ab.py OTHER_ROOT [--order otto] [--out FILE] [--e2e]
-        [--phases kernels,multichip,colocated,nodehost,phase_a] [--sweep]
+        [--phases kernels,multichip,colocated,nodehost] [--sweep]
     python3 scripts/route_ab.py --worker ROOT [--phases ...] [--sweep]
 
 OTHER_ROOT is the root of another checkout of this repository, for
@@ -38,8 +38,8 @@ against the plain version:
   lane then drops some);
 
 then runs chip_smoke's ``multichip`` phase (leg 2's rounds/s and device
-ms a round) and, with ``--e2e``, its ``colocated``, ``nodehost`` and
-``phase_a`` phases (the end-to-end paths); ``--phases`` names the parts
+ms a round) and, with ``--e2e``, its ``colocated`` and ``nodehost``
+phases (the end-to-end paths); ``--phases`` names the parts
 to run (``kernels`` being the timings above).  The inputs
 are made once from chip_smoke's seeded generators by the first process
 and shared through ``--inputs``.  ``--sweep`` (this tree only) also
@@ -312,8 +312,8 @@ def _times(C, fn) -> dict:
                 split=C.kernel_split(fn))
 
 
-PHASES = ("kernels", "multichip", "colocated", "nodehost", "phase_a")
-E2E = ("colocated", "nodehost", "phase_a")
+PHASES = ("kernels", "multichip", "colocated", "nodehost")
+E2E = ("colocated", "nodehost")
 
 
 def worker(root: Path, cache: Path, phases, sweep: bool) -> dict:
@@ -356,10 +356,6 @@ def worker(root: Path, cache: Path, phases, sweep: bool) -> dict:
         res["nodehost"] = {k: nh[k] for k in (
             "committed_proposals_per_s", "propose_latency_ms",
             "readback_missing")}
-    if "phase_a" in phases:
-        pa = C.phase_a_phase(dev)
-        res["phase_a"] = {k: pa[k] for k in (
-            "ms_per_launch", "device_ms_per_launch", "group_ticks_per_s")}
     if sweep:
         res["sweep"] = _sweep(C, R, calls)
     return res
@@ -408,9 +404,6 @@ def _median_by_tree(runs: list) -> dict:
             if ph in rs[0]:
                 m[f"{ph}_per_s"] = med(
                     rs, lambda r: r[ph]["committed_proposals_per_s"])
-        if "phase_a" in rs[0]:
-            m["phase_a_group_ticks_per_s"] = med(
-                rs, lambda r: r["phase_a"]["group_ticks_per_s"])
     return out
 
 

@@ -12,7 +12,7 @@ one (default ``otto``: other, this, this, other).
 Every process times, through the public ``step`` / ``step_internal``,
 both kernels at each geometry below with CUDA events around one call
 (median of 20) and the profiler's device time (chip_smoke.py's
-``time_ms`` / ``device_ms``), and runs chip_smoke's bench phase A loop:
+``time_ms`` / ``device_ms``):
 
 * ``G30000``: 10k groups x 3 (P=5, W=32, M=8, E=4, O=32), the last of
   40 routed steps and a fuzz inbox (chip_smoke's kernels phase);
@@ -175,7 +175,7 @@ def worker(root: Path, cache: Path, sweep: bool) -> dict:
     for _ in range(reps):
         _alloc41(st, ib, O, dev)
     res["alloc41_us"] = (time.perf_counter() - t0) / reps * 1e6
-    if hasattr(K, "_views"):
+    if hasattr(_native, "alloc_views"):
         G, P, M = st.term.shape[0], st.peer_id.shape[1], ib.mtype.shape[1]
         E = ib.ent_term.shape[2]
         shapes = ((G, O, 11), (G,), (G,), (G, P), (G, M), (G, M),
@@ -183,48 +183,13 @@ def worker(root: Path, cache: Path, sweep: bool) -> dict:
         st_shapes = tuple(tuple(t.shape) for t in st)
         t0 = time.perf_counter()
         for _ in range(reps):
-            K._views(st_shapes, dev)
-            K._views(shapes, dev)
+            _native.alloc_views(st_shapes, dev)
+            _native.alloc_views(shapes, dev)
         res["alloc2_us"] = (time.perf_counter() - t0) / reps * 1e6
     res["phase_a_parts"] = _phase_a_parts(C, K, convert, cases)
-    if hasattr(K, "_views"):
-        res["phase_a_allocs"] = _phase_a_allocs(C, K, dev)
-    pa = C.phase_a_phase(dev)
-    res["phase_a"] = {k: pa[k] for k in (
-        "ms_per_launch", "device_ms_per_launch", "group_ticks_per_s",
-        "escalated_rows", "max_abs_err", "checked_launches")}
-    res["phase_a"]["host_ms_per_launch"] = (
-        pa["ms_per_launch"] - pa["device_ms_per_launch"])
     if sweep:
         res["sweep"] = _sweep(C, K, kernel_ref, convert, cases)
     return res
-
-
-def _phase_a_allocs(C, K, dev) -> dict:
-    """Bench phase A with the wrapper's outputs as views of two
-    allocations (``K._views``) and as one ``torch.empty`` a field, in
-    turns (two, 41, 41, two): ms a launch, device ms a launch and their
-    difference, the host's share."""
-    import torch
-
-    def one_each(shapes, dev_):
-        return [torch.empty(s, dtype=torch.int32, device=dev_)
-                for s in shapes]
-
-    views = K._views
-    out = {"two": [], "41": []}
-    try:
-        for tag in ("two", "41", "41", "two"):
-            K._views = views if tag == "two" else one_each
-            pa = C.phase_a_phase(dev)
-            out[tag].append(dict(
-                ms_per_launch=pa["ms_per_launch"],
-                device_ms_per_launch=pa["device_ms_per_launch"],
-                host_ms_per_launch=(pa["ms_per_launch"]
-                                    - pa["device_ms_per_launch"])))
-    finally:
-        K._views = views
-    return out
 
 
 def _phase_a_parts(C, K, convert, cases) -> dict:
@@ -302,9 +267,6 @@ def _median_by_tree(runs: list) -> dict:
         keys = rs[0]["times"].keys()
         med[tree] = {k: {m: float(np.median([r["times"][k][m] for r in rs]))
                          for m in ("ms", "device_ms")} for k in keys}
-        med[tree]["phase_a"] = {
-            m: float(np.median([r["phase_a"][m] for r in rs]))
-            for m in rs[0]["phase_a"]}
     return med
 
 

@@ -20,7 +20,8 @@ starting poisoned:
 * no 16-byte load or store at a misaligned address (the host build
   counts those: the card would fault), and the words between the plane
   views stay poisoned;
-* the wrapper's allocation: the 12 output planes are views of one
+* the inbox allocator (``route.new_inbox``, which the route and the
+  inbox kernels' wrappers share): the 12 output planes are views of one
   16-byte aligned buffer, disjoint, at the offsets ``inbox_layout`` gives
   the kernels.
 
@@ -37,9 +38,9 @@ import numpy as np
 import pytest
 
 from dragonboat_tpu_torch.ops import _native
-from dragonboat_tpu_torch.ops import colocated as PC
 from dragonboat_tpu_torch.ops import colocated_ref as CR
 from dragonboat_tpu_torch.ops import convert
+from dragonboat_tpu_torch.ops import route as PRt
 from dragonboat_tpu_torch.ops import types as PT
 
 torch = convert.torch
@@ -173,9 +174,10 @@ def _rand_inbox(rng, G, S, E, unaligned=False):
 
 
 def _out(G, M, E):
-    """The wrapper's allocation (poisoned), its views and a mask of the
-    words the views cover."""
-    flat, views = PC._inbox_alloc(G, M, E, "cpu")
+    """The inbox allocator's allocation (``route.new_inbox``: the route's
+    and the inbox kernels' outputs), poisoned, its views and a mask of
+    the words the views cover."""
+    flat, views = PRt.new_inbox(G, M, E, "cpu")
     flat.fill_(POISON)
     used = torch.zeros(flat.numel(), dtype=torch.bool)
     for v in views:
@@ -316,7 +318,7 @@ def test_small_grids_are_split_for_the_card(shim):
 @pytest.mark.parametrize("G", [0, 1, 7, 30_000])
 @pytest.mark.parametrize("M,E", [(1, 1), (3, 3), (8, 4), (28, 4)])
 def test_wrapper_allocation_is_one_aligned_buffer(shim, G, M, E):
-    flat, views = PC._inbox_alloc(G, M, E, "cpu")
+    flat, views = PRt.new_inbox(G, M, E, "cpu")
     base = flat.untyped_storage().data_ptr()
     assert base % 16 == 0
     off = (ctypes.c_longlong * N_INBOX)()

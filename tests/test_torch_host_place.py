@@ -55,7 +55,6 @@ from dragonboat_tpu_torch.ops import colocated as PC
 from dragonboat_tpu_torch.ops import colocated_ref as CR
 from dragonboat_tpu_torch.ops import convert
 from dragonboat_tpu_torch.ops import engine_ref
-from dragonboat_tpu_torch.ops import kernel as PK
 from dragonboat_tpu_torch.ops import types as PT
 
 torch = convert.torch
@@ -331,7 +330,7 @@ def host_place(so, dst, src, pos):
     wrapper cuts it; returns (views, the allocation, the views' words)."""
     G_out = pos.shape[0]
     shapes = tuple((G_out,) + tuple(s.shape[1:]) for s in src)
-    flat, views, offs = PK._alloc_views(shapes, "cpu")
+    flat, views, offs = _native.alloc_views(shapes, "cpu")
     flat.fill_(POISON)
     width = [int(np.prod(s.shape[1:])) for s in src]
     n = len(src)
@@ -544,7 +543,7 @@ def _host_select(so, st, out, stats, packed, flags, combo, caps):
     G = flags.shape[0]
     nw = packed.shape[1]
     n_head, n_detail = PC._blob_sizes(G, SO, SMO, SE, SP, SW, caps, HOST_OFF)
-    head, detail, scratch = PK._views(
+    _flat, (head, detail, scratch), _offs = _native.alloc_views(
         ((n_head,), (n_detail,), (PC._sel_scratch_words(G),)), "cpu")
     for t in (head, detail, scratch):
         t.fill_(POISON)
@@ -615,7 +614,7 @@ def test_wrapper_allocations_are_one_aligned_buffer(G):
     # a row move's outputs: the state's fields
     shapes = tuple(tuple(t.shape) for t in PT.make_state(G, 5, 32,
                                                          device="cpu"))
-    flat, views, offs = PK._alloc_views(shapes, "cpu")
+    flat, views, offs = _native.alloc_views(shapes, "cpu")
     assert [tuple(v.shape) for v in views] == list(shapes)
     _assert_one_aligned_allocation(views)
     assert [v.storage_offset() for v in views] == list(offs)
@@ -624,8 +623,8 @@ def test_wrapper_allocations_are_one_aligned_buffer(G):
     # select_and_blob's head, detail and scratch
     caps = tuple(min(G, c) for c in (16, 64, 8, 64, 1024))
     n_head, n_detail = PC._blob_sizes(G, SO, SMO, SE, SP, SW, caps, HOST_OFF)
-    parts = PK._views(((n_head,), (n_detail,), (PC._sel_scratch_words(G),)),
-                      "cpu")
+    parts = _native.alloc_views(
+        ((n_head,), (n_detail,), (PC._sel_scratch_words(G),)), "cpu")[1]
     assert [p.numel() for p in parts] == [n_head, n_detail,
                                           PC._sel_scratch_words(G)]
     _assert_one_aligned_allocation(parts)

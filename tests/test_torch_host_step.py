@@ -620,7 +620,7 @@ def test_output_views_are_aligned_and_disjoint(G):
     # that each start on a 16-byte boundary and overlap no other
     shapes = ((G, 32, PT.N_FIELDS), (G,), (G,), (G, 5), (G, 8), (G, 8),
               (G, 8, 4), (G,), (G,), (G,))
-    views = PK._views(shapes, "cpu")
+    views = _native.alloc_views(shapes, "cpu")[1]
     assert [tuple(v.shape) for v in views] == [tuple(s) for s in shapes]
     base = views[0].untyped_storage().data_ptr()
     spans = []
@@ -778,8 +778,9 @@ def _assert_one_aligned_allocation(views):
 @pytest.mark.parametrize("G", [0, 1, 7, 48])
 def test_route_and_lane_views_are_aligned_and_disjoint(G):
     P, O, M, E, B = 5, 33, 22, 3, 4
-    inbox, scratch, cnt, stats, deliv = PRt._route_buffers(
-        G, P, O, M, E, B, "cpu", True, True)
+    _flat, inbox = PRt.new_inbox(G, M, E, "cpu")
+    scratch, cnt, stats, deliv = PRt._route_buffers(G, P, O, B, "cpu", True,
+                                                    True)
     assert [tuple(t.shape) for t in inbox] == [(G, M)] * 10 + [(G, M, E)] * 2
     assert all(t.dtype == torch.int32 for t in inbox)
     _assert_one_aligned_allocation(list(inbox))
@@ -788,9 +789,9 @@ def test_route_and_lane_views_are_aligned_and_disjoint(G):
     assert tuple(deliv.shape) == (G, O) and deliv.dtype == torch.bool
     _assert_one_aligned_allocation([scratch, cnt, stats, deliv])
     # without the optional outputs: scratch and cnt alone
-    rest = PRt._route_buffers(G, P, O, M, E, B, "cpu", False, False)
-    assert rest[3] is None and rest[4] is None
-    _assert_one_aligned_allocation([rest[1], rest[2]])
+    rest = PRt._route_buffers(G, P, O, B, "cpu", False, False)
+    assert rest[2] is None and rest[3] is None
+    _assert_one_aligned_allocation([rest[0], rest[1]])
     for D, R in ((4, 32), (16, 128)):
         work = PRt._lane_work(G, D, R, "cpu")
         nblk = -(-G // R)

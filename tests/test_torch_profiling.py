@@ -16,8 +16,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from dragonboat_tpu_torch import profiling
 from dragonboat_tpu_torch.ops import _native
-from dragonboat_tpu_torch.ops import kernel as K
-from dragonboat_tpu_torch.ops import plumbing
 from dragonboat_tpu_torch.ops import route
 from dragonboat_tpu_torch.ops import types as T
 from portbench.harness import manifest
@@ -198,11 +196,7 @@ class _FakeBinding:
 
 def _stub_cuda_path(monkeypatch):
     monkeypatch.setattr(_native, "_module", _FakeBinding())
-    monkeypatch.setattr(route, "_device", lambda t: "cuda")
-    monkeypatch.setattr(plumbing, "_device", lambda t: "cuda")
-    monkeypatch.setattr(K, "step_routed",
-                        lambda st, ib, out_capacity: K._step_cuda(
-                            st, ib, out_capacity, routed=True))
+    monkeypatch.setattr(_native, "on_cpu", lambda t, name: False)
 
 
 def _wave_inputs(G=6, P=3, W=8, E=2, budget=2, base=2):
@@ -222,14 +216,15 @@ def test_fused_rounds_records_the_dispatch_split(recorder, monkeypatch,
     route.fused_rounds(st, ib, tab, tab, rounds=rounds, **kw)
     cpu_profiler()
     tot = profiling.totals()
+    # the wave checks the caller's operands once; every round allocates
+    # and launches
     assert {k: n for k, (n, _) in tot.items()} == {
-        "fused_rounds": 1,
-        "raft_step_routed.check": rounds, "raft_step_routed.alloc": rounds,
-        "merge_escalated.check": rounds,
-        "route.check": rounds, "route.alloc": rounds,
+        "fused_rounds": 1, "fused_rounds.check": 1,
+        "raft_step_routed.alloc": rounds, "route.alloc": rounds,
         "launch.raft_step_routed": rounds, "launch.merge_escalated": rounds,
         "launch.route": rounds,
     }
+    assert sum(n for k, (n, _) in tot.items() if k.endswith(".check")) == 1
     recs = profiling.spans()
     wave = [r for r in recs if r[0] == "fused_rounds"][0]
     assert all(wave[1] <= r[1] <= r[2] <= wave[2] for r in recs)
@@ -250,6 +245,47 @@ def test_fused_rounds_launch_the_routed_step_only(monkeypatch):
     assert _native.ENTRY_LAUNCHES == {
         "raft_step_routed": 4, "merge_escalated": 4, "route": 4}
     assert _native.LAUNCHES["raft_step"] == 4
+
+
+def _misshapen(case, st, ib, tab, kw):
+    """The wave's operands with one malformed, and the text of the
+    ``ValueError`` the first round's checks raised for it."""
+    G = st.term.shape[0]
+    z = torch.zeros
+    if case == "P=17":
+        st = st._replace(peer_id=z((G, 17), dtype=torch.int32))
+        return st, ib, tab, kw, "raft_step_routed: P=17 outside [1, 16]"
+    if case == "W=12":
+        st = st._replace(ring_term=z((G, 12), dtype=torch.int32),
+                         ring_cc=z((G, 12), dtype=torch.int32))
+        return st, ib, tab, kw, "raft_step_routed: W=12 must be a power of two"
+    if case == "table":
+        return (st, ib, z((G, 4), dtype=torch.int32), kw,
+                "route: the tables must be [G, P]")
+    if case == "layout":
+        return (st, ib, tab, dict(kw, base=kw["base"] + 1),
+                "inbox layout mismatch: base=3 + P=3 * budget=2 must equal "
+                "M=8 (the inbox IS the region layout)")
+    st = st._replace(committed=z((G + 1,), dtype=torch.int32))
+    return st, ib, tab, kw, "raft_step_routed: state.committed has shape (7,)"
+
+
+@pytest.mark.parametrize("case", ["P=17", "W=12", "table", "layout", "state"])
+def test_wave_and_round_refuse_malformed_operands_alike(monkeypatch,
+                                                       recorder, case):
+    # the wave's one check raises what the first round's checks raised,
+    # and launches nothing
+    _stub_cuda_path(monkeypatch)
+    st, ib, tab, kw, text = _misshapen(case, *_wave_inputs())
+    _native.reset_launch_counts()
+    msgs = []
+    for call in (lambda: route.fused_rounds(st, ib, tab, tab, rounds=3, **kw),
+                 lambda: route.routed_round(st, ib, tab, tab, **kw)):
+        with pytest.raises(ValueError) as err:
+            call()
+        msgs.append(str(err.value))
+    assert msgs == [text, text]
+    assert _native.ENTRY_LAUNCHES == {}
 
 
 # -- the benchmark's readers -------------------------------------------------

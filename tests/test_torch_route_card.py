@@ -173,7 +173,7 @@ def test_receive_writes_every_inbox_word_at_the_bench_geometries(card,
     merged = PT.DeviceState(*plumbing.merge_escalated(
         out.escalate, list(st), list(new)))
     G = merged.term.shape[0]
-    words = K._view_plan(((G, M_),) * 10 + ((G, M_, E_),) * 2)[1]
+    words = _native.view_plan(((G, M_),) * 10 + ((G, M_, E_),) * 2)[0]
     poison = torch.full((words,), POISON, dtype=torch.int32, device=card)
     at = poison.data_ptr()
     del poison

@@ -41,7 +41,6 @@ from dragonboat_tpu_torch import profiling
 from dragonboat_tpu_torch.ops import _native
 from dragonboat_tpu_torch.ops import convert
 from dragonboat_tpu_torch.ops import kernel as K
-from dragonboat_tpu_torch.ops import plumbing
 from dragonboat_tpu_torch.ops import route as PRoute
 from dragonboat_tpu_torch.ops import route_ref
 from dragonboat_tpu_torch.ops import types as PT
@@ -299,11 +298,7 @@ class _Recording:
 def test_wave_hands_the_census_to_the_route_binding(monkeypatch, recorder, on):
     fake = _Recording()
     monkeypatch.setattr(_native, "_module", fake)
-    monkeypatch.setattr(PRoute, "_device", lambda t: "cuda")
-    monkeypatch.setattr(plumbing, "_device", lambda t: "cuda")
-    monkeypatch.setattr(K, "step_routed",
-                        lambda st, ib, out_capacity: K._step_cuda(
-                            st, ib, out_capacity, routed=True))
+    monkeypatch.setattr(_native, "on_cpu", lambda t, name: False)
     st, ib, dest, rank = _fresh_rows(groups=3)
     if on:
         with profile(activities=[ProfilerActivity.CPU]):
