@@ -69,12 +69,13 @@ void* stream_of(const at::Device& dev) {
 }  // namespace
 
 // raft_step.cu's kernel `kind`, R rows a block; the routed step's outputs
-// are buf, count and escalate
-static void step_launch(const char* name, dbt::StepKind kind,
-                        const Tensors& state, const Tensors& new_state,
-                        const Tensors& inbox, const Tensors& outs_,
-                        int64_t G, int64_t P, int64_t W, int64_t M,
-                        int64_t E, int64_t O, int64_t R, int64_t K) {
+// are buf, count and escalate.  Returns the routed step's resident blocks
+// an SM (the occupancy API's), 0 for the other kinds
+static int64_t step_launch(const char* name, dbt::StepKind kind,
+                           const Tensors& state, const Tensors& new_state,
+                           const Tensors& inbox, const Tensors& outs_,
+                           int64_t G, int64_t P, int64_t W, int64_t M,
+                           int64_t E, int64_t O, int64_t R, int64_t K) {
   TORCH_CHECK(!state.empty(), name, ": no state tensors");
   TORCH_CHECK(R == 32 || R == 64 || R == 128, name,
               ": rows a block must be 32, 64 or 128, got ", R);
@@ -88,14 +89,14 @@ static void step_launch(const char* name, dbt::StepKind kind,
                                                  : dbt::N_OUT,
                 dev, name);
   o.resize(dbt::N_OUT, nullptr);
-  if (G == 0) return;
+  if (G == 0) return 0;
   const c10::cuda::CUDAGuard guard(dev);
-  dbt::raft_step_launch(si.data(), so.data(), ib.data(), o.data(),
-                        dim(G, name), dim(P, name), dim(W, name),
-                        dim(M, name), dim(E, name), dim(O, name),
-                        kind, dim(R, name), dim(K, name),
-                        stream_of(dev));
+  const int per_sm = dbt::raft_step_launch(
+      si.data(), so.data(), ib.data(), o.data(), dim(G, name), dim(P, name),
+      dim(W, name), dim(M, name), dim(E, name), dim(O, name), kind,
+      dim(R, name), dim(K, name), stream_of(dev));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return per_sm;
 }
 
 void raft_step(const Tensors& state, const Tensors& new_state,
@@ -106,12 +107,12 @@ void raft_step(const Tensors& state, const Tensors& new_state,
               outs_, G, P, W, M, E, O, R, K);
 }
 
-void raft_step_routed(const Tensors& state, const Tensors& new_state,
-                      const Tensors& inbox, const Tensors& outs_, int64_t G,
-                      int64_t P, int64_t W, int64_t M, int64_t E, int64_t O,
-                      int64_t R, int64_t K) {
-  step_launch("raft_step_routed", dbt::STEP_ROUTED, state, new_state, inbox,
-              outs_, G, P, W, M, E, O, R, K);
+int64_t raft_step_routed(const Tensors& state, const Tensors& new_state,
+                         const Tensors& inbox, const Tensors& outs_,
+                         int64_t G, int64_t P, int64_t W, int64_t M,
+                         int64_t E, int64_t O, int64_t R, int64_t K) {
+  return step_launch("raft_step_routed", dbt::STEP_ROUTED, state, new_state,
+                     inbox, outs_, G, P, W, M, E, O, R, K);
 }
 
 void raft_step_internal(const Tensors& state, const Tensors& new_state,

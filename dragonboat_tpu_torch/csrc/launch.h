@@ -47,11 +47,13 @@ enum StepKind { STEP_EXTERNAL = 0, STEP_INTERNAL = 1, STEP_ROUTED = 2 };
 
 // raft_step.cu — every array in the field order of ops/types.py; blocks
 // of rows_per_block rows (32, 64 or 128), the first `staged` (<= O) outbox
-// messages of a row staged in shared memory
-void raft_step_launch(const int* const* st_in, int* const* st_out,
-                      const int* const* inbox, int* const* out, int G,
-                      int P, int W, int M, int E, int O, StepKind kind,
-                      int rows_per_block, int staged, void* stream);
+// messages of a row staged in shared memory (the routed step stages none
+// and ignores `staged`).  Returns the routed step's resident blocks an SM
+// (the occupancy API's), 0 for the other kinds
+int raft_step_launch(const int* const* st_in, int* const* st_out,
+                     const int* const* inbox, int* const* out, int G,
+                     int P, int W, int M, int E, int O, StepKind kind,
+                     int rows_per_block, int staged, void* stream);
 
 // flags.cu — srcs: old term, vote, committed, leader_id, role,
 // last_index; the same six of new; new peer_id, peer_kind, match,

@@ -49,25 +49,38 @@
 // the full step above, whose outputs are DeviceOut's every field (the
 // engines read the side channels).  raft_step_kernel<true> is the routed
 // round's (ops/route.routed_round), whose outbox goes only to the route,
-// which reads a row's count, escalate and messages below the count: it
-// skips phase 2 and its barrier, phase 1's staged fill and first-slot
-// scan, and the row logic's writes of need_snapshot, slot_base,
-// slot_term, ent_drop, append_lo and the barrier pair; phase 3 leaves the
-// row's count in the tile's row word and phase 4 stores only the staged
-// messages below it.  No other output word is written.
+// which reads a row's count, escalate and messages below the count.  Its
+// tile is built for residency, not for coalesced message stores: it
+// skips phase 2 and its barrier, stages no message (a row's emitted
+// messages, a few a round at the benchmark's cells, are one contiguous
+// run written straight to device memory), and the row logic writes no
+// need_snapshot, slot_base, slot_term, ent_drop, append_lo or barrier
+// pair.  In their place an occupied-slot mask of ceil(M / 32) words a
+// row: phase 1 zeroes the row's words; after a barrier, phase 1b reads the
+// block's slab of slot types (R * M contiguous words) once, linearly, 16
+// bytes a load, and each occupied slot sets its row's bit (a shared-memory
+// atomic); phase 3 visits only the set bits, in slot order, where the
+// full step loads every slot's type, a scattered load a slot.  Phase 4
+// stores the arrays only.
 // The row logic is one piece of code for both layouts: the two layouts'
 // kernels differ only in phases 1, 2 and 4 and in the stride they hand it
 // (an inbox or output element k of row g sits at g * n + k in the external
 // layout, es = 1, and at g + k * G in the G-last one, es = G).  The Row
 // holds no pointer into device memory: its outputs are addressed from
 // the kernel's arguments when written.  Shared memory a block:
-// (S * (8P + 2W + 11K) + R) * 4 bytes.  ops/kernel.py picks R
-// (`rows_per_block`: the largest that still gives every SM a block) and
-// K (`staged_messages`: min(O, 8)); both were chosen by measurement on
-// the H100 (scripts/step_ab.py --sweep; PERF.md): staging the
-// first 8 messages takes bench phase A's election traffic off scattered
-// device-memory stores, while staging all 32 of a wide outbox costs
-// more occupancy than it saves.
+// (S * (8P + 2W + 11K) + R) * 4 bytes, and in the routed step
+// S * (8P + 2W + ceil(M / 32)) * 4.  ops/kernel.py picks R and K.  The full
+// step's R (`rows_per_block`: the largest that still gives every SM a
+// block) and K (`staged_messages`: min(O, 8)) were chosen by measurement
+// on the H100 (scripts/step_ab.py --sweep; PERF.md): staging the first 8
+// messages takes bench phase A's election traffic off scattered
+// device-memory stores, while staging all 32 of a wide outbox costs more
+// occupancy than it saves.  The routed step's R follows the same rule
+// over its own tile (`rows_per_block(..., routed=True)`): at the
+// benchmark's widths 4 blocks of 128 rows fit an SM, 16 warps, where the
+// staged tile left 2 blocks, 8 warps; blocks of 32 or 64 rows keep 18
+// warps resident and measured slower (PERF.md, section 6).  The launcher
+// returns the resident blocks an SM that the occupancy API gives it.
 //
 // Hazards handled as the reference defines them:
 //   * a peer slot outside [0, P) reads 0 and writes nothing (the
@@ -80,9 +93,9 @@
 //   * a full outbox sets ESC_OVERFLOW, as `_emit` does.
 //
 // The file compiles as CUDA (nvcc) and, without __CUDACC__, as plain
-// C++: then the phases (`step_load`, `step_prefill`, `step_rows`,
-// `step_store`) are host functions that one caller runs for every thread
-// of a block in turn, in the kernel's order.
+// C++: then the phases (`step_load`, `step_mask`, `step_prefill`,
+// `step_rows`, `step_store`) are host functions that one caller runs for
+// every thread of a block in turn, in the kernel's order.
 #include "common.cuh"
 #include "launch.h"
 
@@ -135,6 +148,8 @@ struct StepArgs {
   int S;          // the tile's stride: R (G-last) or R + 1 (external)
   int K;          // outbox messages a row staged in the tile (<= O)
   unsigned mP, mW, mK;  // div_magic of P, W and K * N_FIELDS
+  int MW;         // the routed step's occupied-slot mask words a row
+  unsigned mM;    // div_magic of M
 
   // first tile word of each array (state field 21 + f)
   DBT_RI int arr(int f) const { return f < 8 ? f * P : 8 * P + (f - 8) * W; }
@@ -142,6 +157,10 @@ struct StepArgs {
   DBT_RI int t_buf() const { return 8 * P + 2 * W; }
   // the tile's words a row; the block's first-slot words follow at T * S
   DBT_RI int T() const { return t_buf() + K * N_FIELDS; }
+  // the routed step (K = 0): first tile word of the occupied-slot mask,
+  // and the block's tile in words
+  DBT_RI int t_mask() const { return T(); }
+  DBT_RI int routed_tile() const { return S * (T() + MW); }
 };
 
 DBT_RI void step_args_init(StepArgs& a, int G, int P, int W, int M, int E,
@@ -160,6 +179,16 @@ DBT_RI void step_args_init(StepArgs& a, int G, int P, int W, int M, int E,
   a.mP = div_magic(P);
   a.mW = div_magic(W);
   a.mK = div_magic(K * N_FIELDS);
+  a.MW = 0;
+  a.mM = div_magic(M);
+}
+
+// The routed step's arguments: no staged outbox, the occupied-slot mask
+// of ceil(M / 32) words a row.
+DBT_RI void routed_args_init(StepArgs& a, int G, int P, int W, int M, int E,
+                             int O, int R) {
+  step_args_init(a, G, P, W, M, E, O, 0, R, 0);
+  a.MW = (M + 31) / 32;
 }
 
 // Where row g's inbox and output elements sit in device memory: element
@@ -993,6 +1022,40 @@ struct RowLogic {
 // the full step's row, whose outputs are DeviceOut's every field
 using Row = RowLogic<false>;
 
+// the lowest set bit of a nonzero word
+DBT_RI int low_bit(unsigned v) {
+#ifdef __CUDA_ARCH__
+  return __ffs((int)v) - 1;
+#else
+  return __builtin_ctz(v);
+#endif
+}
+
+// Row r's inbox slot s (mtype mt != 0, its words from off on, its entries
+// from e0 on) through the row logic.
+template <bool ROUTED>
+DBT_RI void run_slot(const StepArgs& a, RowLogic<ROUTED>& r, long long off,
+                     int mt, int s, long long e0, int es) {
+  const long long es_slot = (long long)a.E * es;
+  Msg m;
+  m.mtype = mt;
+  m.log_index = a.ib[4][off];
+  m.hint = a.ib[7][off];
+  m.hint_high = a.ib[8][off];
+  if (mt != MT_TICK) {  // a tick reads no other word
+    m.from_id = a.ib[1][off];
+    m.term = a.ib[2][off];
+    m.log_term = a.ib[3][off];
+    m.commit = a.ib[5][off];
+    m.reject = a.ib[6][off];
+    m.n_entries = a.ib[9][off];
+  }
+  m.ent_term = a.ib[10] + e0 + s * es_slot;
+  m.ent_cc = a.ib[11] + e0 + s * es_slot;
+  m.es = es;
+  r.process_slot(m, s);
+}
+
 // The row logic of row g, the block's row t: layout-blind, given the
 // element stride es of its inbox and outputs (element k of an array with
 // n elements a row at g * n + k in the external layout, es = 1, and at
@@ -1045,28 +1108,45 @@ DBT_RI void step_row(const StepArgs& a, int* tile, int g, int t, int es) {
   r.read_peers();
   // the row's inbox slots, in order; empty slots are no-ops and an
   // escalated row handles nothing more
-  const long long es_slot = (long long)a.E * es;
-  for (int s = 0; s < a.M && r.escalate == 0; ++s) {
-    const long long off = ib0 + (long long)s * es;
-    const int mt = a.ib[0][off];
-    if (mt == 0) continue;
-    Msg m;
-    m.mtype = mt;
-    m.log_index = a.ib[4][off];
-    m.hint = a.ib[7][off];
-    m.hint_high = a.ib[8][off];
-    if (mt != MT_TICK) {  // a tick reads no other word
-      m.from_id = a.ib[1][off];
-      m.term = a.ib[2][off];
-      m.log_term = a.ib[3][off];
-      m.commit = a.ib[5][off];
-      m.reject = a.ib[6][off];
-      m.n_entries = a.ib[9][off];
+  if constexpr (ROUTED) {
+    // the occupied slots only, in order: the set bits of the row's mask
+    const int* mk = tile + a.t_mask() * a.S + t;
+    for (int w = 0; w < a.MW && r.escalate == 0; ++w) {
+      unsigned bits = (unsigned)mk[w * a.S];
+      while (bits != 0 && r.escalate == 0) {
+        const int s = (w << 5) + low_bit(bits);
+        const long long off = ib0 + (long long)s * es;
+        bits &= bits - 1;
+        run_slot(a, r, off, a.ib[0][off], s, e0, es);
+      }
     }
-    m.ent_term = a.ib[10] + e0 + s * es_slot;
-    m.ent_cc = a.ib[11] + e0 + s * es_slot;
-    m.es = es;
-    r.process_slot(m, s);
+  } else {
+    // every slot, each type a scattered load (run_slot's reads written
+    // out here, so that the full step's machine code does not move with
+    // the routed walk's)
+    const long long es_slot = (long long)a.E * es;
+    for (int s = 0; s < a.M && r.escalate == 0; ++s) {
+      const long long off = ib0 + (long long)s * es;
+      const int mt = a.ib[0][off];
+      if (mt == 0) continue;
+      Msg m;
+      m.mtype = mt;
+      m.log_index = a.ib[4][off];
+      m.hint = a.ib[7][off];
+      m.hint_high = a.ib[8][off];
+      if (mt != MT_TICK) {  // a tick reads no other word
+        m.from_id = a.ib[1][off];
+        m.term = a.ib[2][off];
+        m.log_term = a.ib[3][off];
+        m.commit = a.ib[5][off];
+        m.reject = a.ib[6][off];
+        m.n_entries = a.ib[9][off];
+      }
+      m.ent_term = a.ib[10] + e0 + s * es_slot;
+      m.ent_cc = a.ib[11] + e0 + s * es_slot;
+      m.es = es;
+      r.process_slot(m, s);
+    }
   }
   int* const* so = a.st_out;
   so[0][g] = r.shard_id;
@@ -1092,9 +1172,7 @@ DBT_RI void step_row(const StepArgs& a, int* tile, int g, int t, int es) {
   so[20][g] = r.transfer_target;
   a.out[1][g] = r.count;
   a.out[2][g] = r.escalate;
-  if constexpr (ROUTED) {
-    tile[a.T() * a.S + t] = r.count;
-  } else {
+  if constexpr (!ROUTED) {
     a.out[7][g] = r.append_lo;
     a.out[8][g] = r.barrier_idx;
     a.out[9][g] = r.barrier_term;
@@ -1210,15 +1288,18 @@ DBT_RI int block_rows(const StepArgs& a, int blk) {
 
 // Phase 1: the peer and ring arrays into the tile (asynchronous copies on
 // the card: wait for them before the barrier); the row's first occupied
-// inbox slot and its staged messages' fill (not in the routed step, which
-// stores only the messages its rows emit).
+// inbox slot and its staged messages' fill, or in the routed step, which
+// stages no message, the row's mask words zeroed for phase 1b.
 template <bool GL, bool ROUTED = false>
 DBT_RI void step_load(const StepArgs& a, int* tile, int blk, int t) {
   const int g0 = blk * a.R, n_rows = block_rows(a, blk);
   for (int f = 0; f < 10; ++f)
     copy_in<GL>(a, tile, a.st_in[N_SCALARS + f], a.arr(f), f < 8 ? a.P : a.W,
                 f < 8 ? a.mP : a.mW, g0, n_rows, t);
-  if constexpr (ROUTED) return;
+  if constexpr (ROUTED) {
+    for (int w = 0; w < a.MW; ++w) tile[(a.t_mask() + w) * a.S + t] = 0;
+    return;
+  }
   if (t >= n_rows) return;
   const int es = row_stride<GL>(a);
   const long long ib0 = row_off(g0 + t, a.M, es);
@@ -1233,6 +1314,47 @@ DBT_RI void step_load(const StepArgs& a, int* tile, int blk, int t) {
   int* tt = tile + t;
   for (int k = 0; k < a.K * N_FIELDS; ++k)
     tt[(a.t_buf() + k) * a.S] = k % N_FIELDS == F_SRC_SLOT ? first : 0;
+}
+
+// Slot i of the block's slab of slot types (row i / M, slot i % M) into
+// its row's mask, when v (its type) is not 0.
+DBT_RI void mask_slot(const StepArgs& a, int* tile, int i, int v) {
+  if (v == 0) return;
+  const int r = div_by(i, a.mM), s = i - r * a.M;
+  int* w = tile + (a.t_mask() + (s >> 5)) * a.S + r;
+#ifdef __CUDA_ARCH__
+  atomicOr(reinterpret_cast<unsigned*>(w), 1u << (s & 31));
+#else
+  *w = (int)((unsigned)*w | 1u << (s & 31));
+#endif
+}
+
+// Phase 1b of the routed step (after a barrier that orders it after phase
+// 1's zeroing of the mask words): the block's rows' slot types, one
+// contiguous slab of n_rows * M words, read once, linearly, 16 bytes a
+// load where the slab is aligned; each occupied slot sets its row's bit.
+DBT_RI void step_mask(const StepArgs& a, int* tile, int blk, int t) {
+  const int g0 = blk * a.R, n_rows = block_rows(a, blk);
+  const int* s = a.ib[0] + (long long)g0 * a.M;
+  const int total = n_rows * a.M;
+  int i0 = 0;
+  if (aligned16(s)) {
+    const int nq = total >> 2;
+    for (int q = t; q < nq; q += a.R) {
+#ifdef __CUDA_ARCH__
+      const int4 v = *reinterpret_cast<const int4*>(s + 4 * q);
+#else
+      const struct { int x, y, z, w; } v = {s[4 * q], s[4 * q + 1],
+                                            s[4 * q + 2], s[4 * q + 3]};
+#endif
+      mask_slot(a, tile, 4 * q, v.x);
+      mask_slot(a, tile, 4 * q + 1, v.y);
+      mask_slot(a, tile, 4 * q + 2, v.z);
+      mask_slot(a, tile, 4 * q + 3, v.w);
+    }
+    i0 = nq << 2;
+  }
+  for (int i = i0 + t; i < total; i += a.R) mask_slot(a, tile, i, s[i]);
 }
 
 // The block's rows of an output of n elements a row, all set to v.
@@ -1292,24 +1414,8 @@ DBT_RI void step_rows(const StepArgs& a, int* tile, int blk, int t) {
   step_row<ROUTED>(a, tile, g, t, row_stride<GL>(a));
 }
 
-// The routed step's staged messages out (external layout): of row r's
-// staged words, those of its first min(count, K) messages, coalesced as
-// copy_out's; the counts are the tile's row words (phase 3).
-DBT_RI void store_sent(const StepArgs& a, const int* tile, int g0,
-                       int n_rows, int t) {
-  const int n = a.K * N_FIELDS, rs = a.O * N_FIELDS, b = a.t_buf();
-  const int* cnt = tile + a.T() * a.S;
-  int* d = a.out[0] + (long long)g0 * rs;
-  const int total = n_rows * n;
-  for (int i = t; i < total; i += a.R) {
-    const int r = div_by(i, a.mK), k = i - r * n;
-    if (k < cnt[r] * N_FIELDS)
-      d[(long long)r * rs + k] = tile[(b + k) * a.S + r];
-  }
-}
-
-// Phase 4: the tile's arrays out, and the staged messages: all K of every
-// row, or in the routed step those emitted.
+// Phase 4: the tile's arrays out, and the staged messages (the routed
+// step stages none).
 template <bool GL, bool ROUTED = false>
 DBT_RI void step_store(const StepArgs& a, const int* tile, int blk, int t) {
   const int g0 = blk * a.R, n_rows = block_rows(a, blk);
@@ -1318,7 +1424,6 @@ DBT_RI void step_store(const StepArgs& a, const int* tile, int blk, int t) {
                  f < 8 ? a.P : a.W, f < 8 ? a.mP : a.mW, g0, n_rows, t);
   if constexpr (ROUTED) {
     static_assert(!GL, "the routed step runs on the external layout");
-    store_sent(a, tile, g0, n_rows, t);
   } else if (a.K) {
     copy_out<GL>(a, tile, a.out[0], a.t_buf(), a.K * N_FIELDS, a.mK, g0,
                  n_rows, t, a.O * N_FIELDS);
@@ -1328,14 +1433,18 @@ DBT_RI void step_store(const StepArgs& a, const int* tile, int blk, int t) {
 }  // namespace dbt
 
 #ifdef __CUDACC__
-// ROUTED: no prefill (and no barrier after it), the routed row logic, and
-// only the emitted staged messages stored
+// ROUTED: the mask built after a barrier, no prefill (and no barrier
+// after it), the routed row logic, and only the arrays stored
 template <bool GL, bool ROUTED>
 __device__ __forceinline__ void step_block(const dbt::StepArgs& a) {
   extern __shared__ int4 dbt_step_tile[];
   int* tile = reinterpret_cast<int*>(dbt_step_tile);
   const int blk = blockIdx.x, t = threadIdx.x;
   dbt::step_load<GL, ROUTED>(a, tile, blk, t);
+  if constexpr (ROUTED) {
+    __syncthreads();
+    dbt::step_mask(a, tile, blk, t);
+  }
   dbt::async_wait_all();
   __syncthreads();
   if constexpr (!ROUTED) {
@@ -1357,33 +1466,42 @@ __global__ void raft_step_internal_kernel(
   step_block<true, false>(a);
 }
 
-void dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
-                           const int* const* inbox, int* const* out, int G,
-                           int P, int W, int M, int E, int O,
-                           dbt::StepKind kind, int rows_per_block,
-                           int staged, void* stream) {
+int dbt::raft_step_launch(const int* const* st_in, int* const* st_out,
+                          const int* const* inbox, int* const* out, int G,
+                          int P, int W, int M, int E, int O,
+                          dbt::StepKind kind, int rows_per_block,
+                          int staged, void* stream) {
   const bool internal = kind == dbt::STEP_INTERNAL;
+  const bool routed = kind == dbt::STEP_ROUTED;
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
   for (int f = 0; f < dbt::N_INBOX; ++f) a.ib[f] = inbox[f];
   for (int f = 0; f < dbt::N_OUT; ++f) a.out[f] = out[f];
-  dbt::step_args_init(a, G, P, W, M, E, O, internal, rows_per_block, staged);
-  const size_t smem = ((size_t)a.S * a.T() + a.R) * sizeof(int);
+  if (routed)
+    dbt::routed_args_init(a, G, P, W, M, E, O, rows_per_block);
+  else
+    dbt::step_args_init(a, G, P, W, M, E, O, internal, rows_per_block,
+                        staged);
+  const size_t smem = (routed ? (size_t)a.routed_tile()
+                              : (size_t)a.S * a.T() + a.R) * sizeof(int);
   const void* fn = internal ? (const void*)raft_step_internal_kernel
-                   : kind == dbt::STEP_ROUTED
-                       ? (const void*)raft_step_kernel<true>
-                       : (const void*)raft_step_kernel<false>;
+                   : routed ? (const void*)raft_step_kernel<true>
+                            : (const void*)raft_step_kernel<false>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   const int blocks = (G + a.R - 1) / a.R;
+  int per_sm = 0;
   if (internal)
     raft_step_internal_kernel<<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
-  else if (kind == dbt::STEP_ROUTED)
+  else if (routed) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, raft_step_kernel<true>, a.R, smem);
     raft_step_kernel<true><<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
-  else
+  } else
     raft_step_kernel<false><<<blocks, a.R, smem, (cudaStream_t)stream>>>(a);
+  return per_sm;
 }
 #endif
 

@@ -89,6 +89,10 @@ SPANS = {e: "launch." + e for e in ENTRIES}
 
 LAUNCHES = {k: 0 for k in KERNELS}
 ENTRY_LAUNCHES: dict = {}
+# entry point -> the resident blocks an SM of its last launch, for the
+# entry points whose launcher reports them (the routed step's, from the
+# occupancy API)
+RESIDENT_BLOCKS: dict = {}
 BUILDS = 0
 
 _module = None
@@ -219,7 +223,9 @@ def launch(entry: str, *args) -> None:
     ``launch.<entry>`` covers the module lookup, the binding's argument
     conversion and checks, and the launch."""
     t0 = profiling.begin()
-    getattr(module(), entry)(*args)
+    res = getattr(module(), entry)(*args)
     profiling.end(SPANS[entry], t0)
     LAUNCHES[ENTRIES[entry]] += 1
     ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
+    if res is not None:
+        RESIDENT_BLOCKS[entry] = res

@@ -81,20 +81,38 @@ def rows_for_every_sm(G: int, choices: tuple) -> int:
     return choices[0]
 
 
+def mask_words(M: int) -> int:
+    """Words a row of the routed step's occupied-slot mask."""
+    return -(-M // 32)
+
+
+def routed_smem_bytes(R: int, P: int, W: int, M: int) -> int:
+    """Dynamic shared memory of a block of R rows of the routed step:
+    the 8 peer and 2 ring arrays and the occupied-slot mask (8P + 2W +
+    ``mask_words(M)`` words a row) at a stride of R + 1 words; no outbox
+    message is staged."""
+    return 4 * (R + 1) * (8 * P + 2 * W + mask_words(M))
+
+
 def rows_per_block(G: int, P: int, W: int, M: int, E: int, O: int,
-                   internal: bool = False) -> int:
+                   internal: bool = False, routed: bool = False) -> int:
     """Rows a block of the CUDA kernel steps: ``rows_for_every_sm`` of
-    the ``ROWS_PER_BLOCK`` whose tile fits.  Raises ``ValueError`` when
+    the ``ROWS_PER_BLOCK`` whose tile fits (``smem_bytes``, or the
+    routed step's ``routed_smem_bytes``).  Raises ``ValueError`` when
     even 32 rows' tile does not fit."""
-    fit = tuple(R for R in ROWS_PER_BLOCK
-                if smem_bytes(R, P, W, M, E, O, internal) <= SMEM_MAX)
+    def tile(R):
+        return (routed_smem_bytes(R, P, W, M) if routed
+                else smem_bytes(R, P, W, M, E, O, internal))
+
+    fit = tuple(R for R in ROWS_PER_BLOCK if tile(R) <= SMEM_MAX)
     if not fit:
         R = ROWS_PER_BLOCK[0]
+        what = (f"an occupied-slot mask of M={M}" if routed
+                else f"{staged_messages(O)} staged outbox messages")
         raise ValueError(
-            f"raft_step: {R} rows of P={P}, W={W} with "
-            f"{staged_messages(O)} staged outbox messages need "
-            f"{smem_bytes(R, P, W, M, E, O, internal)} bytes of shared "
-            f"memory, over the {SMEM_MAX} a block can use")
+            f"raft_step: {R} rows of P={P}, W={W} with {what} need "
+            f"{tile(R)} bytes of shared memory, over the {SMEM_MAX} a "
+            f"block can use")
     return rows_for_every_sm(G, fit)
 
 
@@ -131,7 +149,9 @@ def step_routed(
     """``step`` writing only what a routed round reads: the new state,
     ``count``, ``escalate`` and each row's messages below its count (the
     other words of ``buf`` are left as allocated).  On CPU tensors the
-    plain step's outputs."""
+    plain step's outputs.  On CUDA each launch leaves its resident blocks
+    an SM (the occupancy API's) in
+    ``_native.RESIDENT_BLOCKS["raft_step_routed"]``."""
     if _native.on_cpu(state.term, "step_routed"):
         new, out = kernel_ref.step(state, inbox, out_capacity)
         return new, RoutedOut(out.buf, out.count, out.escalate)
@@ -157,9 +177,10 @@ StepGeometry = collections.namedtuple("StepGeometry", "G P W M E O R K")
 
 
 def check_step(name: str, state: DeviceState, inbox: Inbox, O: int,
-               internal: bool = False) -> StepGeometry:
+               internal: bool = False, routed: bool = False) -> StepGeometry:
     """The entry point ``name``'s checks of the operands of either layout;
-    returns their launch geometry.  Raises ``ValueError``."""
+    returns their launch geometry (``routed``: the routed step's block).
+    Raises ``ValueError``."""
     G = state.term.shape[0]
     P = state.peer_id.shape[0 if internal else 1]
     W = state.ring_term.shape[0 if internal else 1]
@@ -168,8 +189,8 @@ def check_step(name: str, state: DeviceState, inbox: Inbox, O: int,
     check_peers_and_window(name, P, W)
     if O < 1:
         raise ValueError(f"{name}: out_capacity={O} must be >= 1")
-    K = staged_messages(O)
-    R = rows_per_block(G, P, W, M, E, O, internal)
+    K = 0 if routed else staged_messages(O)
+    R = rows_per_block(G, P, W, M, E, O, internal, routed)
 
     def shape(*dims):  # a per-row array of ``dims`` in this layout
         return (*dims, G) if internal else (G, *dims)
@@ -227,7 +248,7 @@ def _step_cuda(state: DeviceState, inbox: Inbox, O: int,
     name = ("raft_step_internal" if internal
             else "raft_step_routed" if routed else "raft_step")
     t0 = profiling.begin()
-    g = check_step(name, state, inbox, O, internal)
+    g = check_step(name, state, inbox, O, internal, routed)
     profiling.end(_SPANS[name][0], t0)
     return launch_step(name, state, inbox, g, internal, routed)
 

@@ -390,7 +390,8 @@ def _wave(span: str, state, inbox, dest_row, rank_in_dest, stats_rows,
     geometry), then each round's routed step, in-place escalation merge
     and route.  Returns (state', inbox', the last round's [7] stats)."""
     t0 = profiling.begin()
-    g = K.check_step("raft_step_routed", state, inbox, out_capacity)
+    g = K.check_step("raft_step_routed", state, inbox, out_capacity,
+                     routed=True)
     _route_check(state, (g.G, g.O, N_FIELDS), dest_row, rank_in_dest,
                  M=g.M, E=g.E, budget=budget, base=base)
     profiling.end(span, t0)

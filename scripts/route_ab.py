@@ -80,17 +80,15 @@ BENCH_CASES = (("C4", "c4-100k-ragged"), ("NS", "ns-100k-x3"))
 BENCH_SEED = 20261020
 
 
-def bench_route_case(dev, config: str) -> dict:
-    """A routed round's route inputs at the geometry of the benchmark's
-    configuration ``config``: portbench's layout of its rows for
-    ``BENCH_SEED``, elected by the tree's ``fused_rounds`` with every
-    leader proposing until every group leads, 24 launches more, then one
-    ``kernel.step_routed`` and its escalation merge.  Returns the merged
-    state, the step's ``RoutedOut``, the tables and the geometry."""
+def bench_rows(dev, config: str, propose: bool = True):
+    """The benchmark configuration ``config``'s rows on ``dev``:
+    portbench's layout of its rows for ``BENCH_SEED``, elected by the
+    tree's ``fused_rounds`` with every leader proposing until every group
+    leads, then 24 launches more, every leader proposing or (``propose``
+    false) none.  Returns (state, the next round's inbox, dest_row,
+    rank_in_dest, the configuration)."""
     import torch
 
-    from dragonboat_tpu_torch.ops import kernel as K
-    from dragonboat_tpu_torch.ops import plumbing
     from dragonboat_tpu_torch.ops import route as R
     from dragonboat_tpu_torch.ops import types as T
     from portbench.harness import layout
@@ -103,9 +101,9 @@ def bench_route_case(dev, config: str) -> dict:
     ib = T.Inbox(*(put(lay.inbox[f]) for f in T.Inbox._fields))
     dest, rank = put(lay.dest_row), put(lay.rank_in_dest)
     gid = put(lay.group.astype(np.int64))
-    O, B, base = int(cfg["O"]), int(cfg["budget"]), int(cfg["base"])
-    kw = dict(rounds=int(cfg["rounds_per_launch"]), out_capacity=O,
-              budget=B, base=base, propose_leaders=True)
+    kw = dict(rounds=int(cfg["rounds_per_launch"]), out_capacity=int(cfg["O"]),
+              budget=int(cfg["budget"]), base=int(cfg["base"]),
+              propose_leaders=True)
     for n in range(1, 601):
         st, ib, _s, _e = R.fused_rounds(st, ib, dest, rank, **kw)
         if n % 8 == 0:
@@ -113,14 +111,28 @@ def bench_route_case(dev, config: str) -> dict:
             led.index_add_(0, gid, (st.role == T.ROLE_LEADER).int())
             if bool((led > 0).all()):
                 break
+    kw["propose_leaders"] = propose
     for _ in range(24):
         st, ib, _s, _e = R.fused_rounds(st, ib, dest, rank, **kw)
-    new, out = K.step_routed(st, ib, out_capacity=O)
+    return st, ib, dest, rank, cfg
+
+
+def bench_route_case(dev, config: str) -> dict:
+    """A routed round's route inputs at the geometry of the benchmark's
+    configuration ``config``: ``bench_rows`` under writes, then one
+    ``kernel.step_routed`` and its escalation merge.  Returns the merged
+    state, the step's ``RoutedOut``, the tables and the geometry."""
+    from dragonboat_tpu_torch.ops import kernel as K
+    from dragonboat_tpu_torch.ops import plumbing
+    from dragonboat_tpu_torch.ops import types as T
+
+    st, ib, dest, rank, cfg = bench_rows(dev, config)
+    new, out = K.step_routed(st, ib, out_capacity=int(cfg["O"]))
     merged = T.DeviceState(*plumbing.merge_escalated(
         out.escalate, list(st), list(new)))
     return dict(merged=merged, out=out, dest=dest, rank=rank,
-                M=ib.mtype.shape[1], E=ib.ent_term.shape[2], B=B, base=base,
-                P=int(cfg["P"]))
+                M=ib.mtype.shape[1], E=ib.ent_term.shape[2],
+                B=int(cfg["budget"]), base=int(cfg["base"]), P=int(cfg["P"]))
 
 
 def _make_inputs(C, dev) -> dict:

@@ -23,15 +23,28 @@ both kernels at each geometry below with CUDA events around one call
 * ``G4096``: the colocated engine's capacity (P=3, W=16, assembled
   M=20, E=4, O=32), likewise.
 
+The external cases also time the routed round's step (``step_routed``).
 The inputs are made once from chip_smoke's seeded generators (the
 routed steps advanced by the first process's kernels, which are
 bit-exact with the plain versions) and shared through ``--inputs``.
+
+Every process also times ``step_routed`` alone on the benchmark's two
+geometries, ``routed/<C4|NS>_<write|idle>``: ``c4-100k-ragged`` (499,998
+ragged 3/5/7 rows at P=7, W=16, M=58, E=2, O=32) and ``ns-100k-x3``
+(300,000 rows at P=3, W=32, M=14, E=4, O=16), their rows elected by the
+tree's ``fused_rounds`` and then 24 launches of write traffic (every
+leader proposing) or idle (ticks and heartbeats): the step's inputs of
+the next round (``scripts/route_ab.py`` ``bench_rows``; made in every
+process, too large to share).
+
 ``--sweep`` (this tree's wrapper only) also times every block shape the
-kernel takes at each geometry (rows a block; none, the default number
-or all of the outbox messages staged in shared memory) and checks each
-against the default shape's outputs.  Run without ``--worker``, the
-script prints one JSON object: every process's numbers, in order, and
-the medians per tree.
+full step takes at each geometry (rows a block; none, the default number
+or all of the outbox messages staged in shared memory), and every shape
+of the routed step at the routed cases (rows a block), and checks each
+against the default shape's outputs (the routed step's: the state,
+``count``, ``escalate`` and the messages below the count).  Run without
+``--worker``, the script prints one JSON object: every process's
+numbers, in order, and the medians per tree.
 """
 from __future__ import annotations
 
@@ -63,6 +76,31 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _route_ab():
+    """This tree's scripts/route_ab.py (``bench_rows``)."""
+    spec = importlib.util.spec_from_file_location(
+        "ab_route_ab", HERE / "scripts" / "route_ab.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the benchmark's configurations whose routed step is timed
+ROUTED_CONFIGS = (("C4", "c4-100k-ragged"), ("NS", "ns-100k-x3"))
+
+
+def routed_cases(dev):
+    """Yields (case, state, inbox, O) of the routed step at each
+    benchmark geometry under write and idle traffic (one case alive at a
+    time: a C4 case holds about 2 GB)."""
+    ra = _route_ab()
+    for name, config in ROUTED_CONFIGS:
+        for traffic in ("write", "idle"):
+            st, ib, _d, _r, cfg = ra.bench_rows(dev, config,
+                                                propose=traffic == "write")
+            yield f"routed/{name}_{traffic}", st, ib, int(cfg["O"])
 
 
 def _inputs(C, dev, cache: Path) -> dict:
@@ -162,11 +200,26 @@ def worker(root: Path, cache: Path, sweep: bool) -> dict:
         iib = convert.inbox_to_internal(ib)
         for kern, fn in (("raft_step", lambda: K.step(st, ib, O)),
                          ("raft_step_internal",
-                          lambda: K.step_internal(ist, iib, O))):
+                          lambda: K.step_internal(ist, iib, O)),
+                         ("raft_step_routed",
+                          lambda: K.step_routed(st, ib, O))):
             new, out = fn()
             times[f"{c}/{kern}"] = dict(
                 ms=C.time_ms(fn, 20), device_ms=C.device_ms(fn),
-                bound_ms=C.step_bound_ms(st, ib, out, E))
+                bound_ms=(C.step_bound_ms(st, ib, out, E)
+                          if isinstance(out, K.DeviceOut) else None))
+    res["resident_blocks"] = {}
+    routed_sweep = {}
+    for c, st, ib, O in routed_cases(dev):
+        fn = lambda: K.step_routed(st, ib, O)
+        fn()
+        times[c] = dict(ms=C.time_ms(fn, 20), device_ms=C.device_ms(fn))
+        res["resident_blocks"][c] = getattr(
+            _native, "RESIDENT_BLOCKS", {}).get("raft_step_routed")
+        if sweep:
+            routed_sweep.update(_routed_sweep(C, K, _native, c, st, ib, O))
+        del st, ib
+        torch.cuda.empty_cache()
     res["times"] = times
     # the host's side of a launch: the output allocations alone
     st, ib, O, _E = cases["G300000_tick"]
@@ -189,7 +242,44 @@ def worker(root: Path, cache: Path, sweep: bool) -> dict:
     res["phase_a_parts"] = _phase_a_parts(C, K, convert, cases)
     if sweep:
         res["sweep"] = _sweep(C, K, kernel_ref, convert, cases)
+        res["routed_sweep"] = routed_sweep
     return res
+
+
+def _routed_out(st, out):
+    """What the routed round reads of a routed step: the state, count,
+    escalate and each row's messages below its count."""
+    import torch
+
+    O = out.buf.shape[1]
+    live = torch.arange(O, device=out.buf.device)[None, :] < \
+        out.count[:, None]
+    return list(st) + [out.count, out.escalate, out.buf[live]]
+
+
+def _routed_sweep(C, K, _native, case, st, ib, O) -> dict:
+    """device ms of the routed step at every rows-a-block of one routed
+    case, each held against the default shape's outputs, with the resident
+    blocks an SM its launch reported; the shape is set by replacing the
+    wrapper's block rule."""
+    policy = K.rows_per_block
+    out = {}
+    try:
+        ref = _routed_out(*K.step_routed(st, ib, O))
+        for R in K.ROWS_PER_BLOCK:
+            K.rows_per_block = lambda *_a, R=R: R
+
+            def fn():
+                return K.step_routed(st, ib, O)
+
+            err = C._max_err(_routed_out(*fn()), ref)
+            out[f"{case}/R{R}"] = dict(
+                device_ms=C.device_ms(fn), err=err,
+                resident_blocks=_native.RESIDENT_BLOCKS.get(
+                    "raft_step_routed"))
+    finally:
+        K.rows_per_block = policy
+    return out
 
 
 def _phase_a_parts(C, K, convert, cases) -> dict:
@@ -266,7 +356,8 @@ def _median_by_tree(runs: list) -> dict:
     for tree, rs in by.items():
         keys = rs[0]["times"].keys()
         med[tree] = {k: {m: float(np.median([r["times"][k][m] for r in rs]))
-                         for m in ("ms", "device_ms")} for k in keys}
+                         for m in ("ms", "device_ms")}
+                     for k in keys if all(k in r["times"] for r in rs)}
     return med
 
 

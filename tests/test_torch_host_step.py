@@ -20,13 +20,17 @@ plain PyTorch versions on seeded inputs:
   state under seeded fuzz inboxes over every hot message type, at 32 and
   128 rows a block, with ragged last blocks, a G that is not a multiple
   of 4 and P up to 16;
-* the routed step (``raft_step_kernel<true>``: no prefill, the routed row
-  logic, only the emitted staged messages stored) against the full one
-  on the same rows and inboxes: the same state, ``count``, ``escalate``
-  and messages below the count, and every other outbox word still the
-  poison, at 32 and 128 rows a block with ragged last blocks, P up to
-  16, the benchmark cells' geometries, and rows that emit past the
-  staged messages;
+* the routed step (``raft_step_kernel<true>``: the occupied-slot mask
+  built from the block's slot types (``dbt::step_mask``), no prefill, the
+  routed row logic over the mask's set bits, every message written
+  straight to the outbox) against the full one on the same rows and
+  inboxes: the same state, ``count``, ``escalate`` and messages below
+  the count, and every other outbox word still the poison, at 32, 64 and
+  128 rows a block with ragged last blocks, P up to 16, the benchmark
+  cells' geometries, rows that emit past the full step's staged
+  messages, occupied slots on both sides of the mask's word boundaries
+  and in the last slot (M of 33, 58 and 70: two and three mask words),
+  and rows that escalate in the middle of their walk;
 * the quorum index counted without an array against the insertion sort
   it replaces, exhaustively over small P;
 * the lane's pack in its three passes, in the kernels' order (the count
@@ -97,12 +101,13 @@ static void run_blocks(dbt::StepArgs& a) {
 // the tile's poison is not the outputs', so a store of a tile word no
 // phase wrote shows
 static void run_routed_blocks(dbt::StepArgs& a) {
-  std::vector<int> tile((size_t)a.S * a.T() + a.R);
+  std::vector<int> tile((size_t)a.routed_tile());
   const int blocks = (a.G + a.R - 1) / a.R;
   for (int b = 0; b < blocks; ++b) {
     std::fill(tile.begin(), tile.end(), -0x7EED);
     for (int t = 0; t < a.R; ++t)
       dbt::step_load<false, true>(a, tile.data(), b, t);
+    for (int t = 0; t < a.R; ++t) dbt::step_mask(a, tile.data(), b, t);
     for (int t = 0; t < a.R; ++t)
       dbt::step_rows<false, true>(a, tile.data(), b, t);
     for (int t = 0; t < a.R; ++t)
@@ -151,14 +156,14 @@ void host_step(const int* const* st_in, int* const* st_out,
 // outputs are null, so a write to one faults)
 void host_step_routed(const int* const* st_in, int* const* st_out,
                       const int* const* ib, int* const* out, int G, int P,
-                      int W, int M, int E, int O, int R, int K) {
+                      int W, int M, int E, int O, int R) {
   dbt::StepArgs a;
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_in[f] = st_in[f];
   for (int f = 0; f < dbt::N_STATE; ++f) a.st_out[f] = st_out[f];
   for (int f = 0; f < dbt::N_INBOX; ++f) a.ib[f] = ib[f];
   for (int f = 0; f < dbt::N_OUT; ++f)
     a.out[f] = f < dbt::N_ROUTED_OUT ? out[f] : nullptr;
-  dbt::step_args_init(a, G, P, W, M, E, O, 0, R, K);
+  dbt::routed_args_init(a, G, P, W, M, E, O, R);
   run_routed_blocks(a);
 }
 
@@ -405,8 +410,7 @@ def host_step(so, st: dict, ib: dict, O: int, internal: bool, R: int = 32,
             dict(zip(PT.DeviceOut._fields, outs)))
 
 
-def host_step_routed(so, st: dict, ib: dict, O: int, R: int = 32,
-                     K: int = 8):
+def host_step_routed(so, st: dict, ib: dict, O: int, R: int = 32):
     """The shim's routed step on numpy fields of the external layout,
     blocks of R rows: the new state and ``kernel.RoutedOut``'s fields,
     every output word poisoned first."""
@@ -419,7 +423,7 @@ def host_step_routed(so, st: dict, ib: dict, O: int, R: int = 32,
     outs = [np.full(s, POISON, np.int32)
             for s in ((G, O, PT.N_FIELDS), (G,), (G,))]
     so.host_step_routed(_ptrs(st_in), _ptrs(st_out), _ptrs(ib_in),
-                        _ptrs(outs), *_ints(G, P, W, M, E, O, R, K))
+                        _ptrs(outs), *_ints(G, P, W, M, E, O, R))
     return (dict(zip(PT.DeviceState._fields, st_out)),
             dict(zip(PK.RoutedOut._fields, outs)))
 
@@ -492,16 +496,18 @@ def test_step_blocks_match_plain_versions(shim, case):
     _run_steps(shim, 7, G, P, W, M, E, O, R=R, K=K, n_steps=10, n_routed=7)
 
 
-# (G, P, W, M, E, O, R, K): one ragged block of 128; ragged blocks of 32
-# with 3 staged, so most rows emit past the tile; P = 16 with outboxes
-# that overflow; the c4 cell's geometry (ragged second block of 128); the
-# ns cell's with nothing staged
+# (G, P, W, M, E, O, R, K staged messages of the full step the routed one
+# is held against): one ragged block of 128; ragged blocks of 32 with 3
+# staged, so most rows emit past the full step's tile; P = 16 with
+# outboxes that overflow; the c4 cell's geometry (ragged second block of
+# 128, and ragged blocks of 32); the ns cell's with nothing staged
 ROUTED_CASES = [
     (48, 5, 32, 8, 4, 32, 128, 8),
     (51, 5, 32, 8, 4, 32, 32, 3),
     (45, 16, 16, 6, 2, 8, 32, 8),
     (150, 7, 16, 58, 2, 32, 128, 8),
     (40, 3, 32, 14, 4, 16, 32, 0),
+    (150, 7, 16, 58, 2, 32, 32, 8),
 ]
 
 
@@ -520,7 +526,7 @@ def test_routed_step_writes_only_what_the_round_reads(shim, case):
         ib = (chip_smoke.route_np(ext, out_np, rng, M, E) if k < 8
               else chip_smoke.fuzz_inbox_np(ext, rng, M, E))
         want_st, want_out = host_step(shim, ext, ib, O, False, R, K)
-        got_st, got_out = host_step_routed(shim, ext, ib, O, R, K)
+        got_st, got_out = host_step_routed(shim, ext, ib, O, R)
         TM.assert_fields_equal(want_st, got_st, f"state step {k}")
         for f in ("count", "escalate"):
             assert np.array_equal(got_out[f], want_out[f]), (f, k)
@@ -533,8 +539,79 @@ def test_routed_step_writes_only_what_the_round_reads(shim, case):
         escalated += int((got_out["escalate"] != 0).sum())
         ext, out_np = want_st, want_out
     assert sent > G and escalated > 0
-    if K <= 3:  # these cases emit past the staged messages
+    if K <= 3:  # these cases emit past the full step's staged messages
         assert past_k > 0
+
+
+def _routed_against_full(shim, ext, ib, O, R, K, what):
+    """The routed step on (ext, ib) held against the full step word for
+    word: the state, ``count``, ``escalate`` and the messages below the
+    count, every other outbox word still the poison; returns the full
+    step's (state, out)."""
+    M = ib["mtype"].shape[1]
+    want_st, want_out = host_step(shim, ext, ib, O, False, R, K)
+    got_st, got_out = host_step_routed(shim, ext, ib, O, R)
+    TM.assert_fields_equal(want_st, got_st, f"state {what}")
+    for f in ("count", "escalate"):
+        assert np.array_equal(got_out[f], want_out[f]), (f, what)
+    live = np.arange(O)[None, :] < got_out["count"][:, None]
+    assert np.array_equal(got_out["buf"][live], want_out["buf"][live]), what
+    assert (got_out["buf"][~live] == POISON).all(), what
+    return want_st, want_out
+
+
+# (G, P, W, M, E, O, R): the occupied-slot mask's word boundaries: M
+# above 32 (two words), the c4 cell's M = 58 with a ragged last block, M
+# above 64 (three words) in blocks of 64
+MASK_CASES = [
+    (70, 5, 16, 33, 2, 32, 32),
+    (100, 7, 16, 58, 2, 32, 32),
+    (70, 3, 32, 70, 2, 16, 64),
+]
+
+
+@pytest.mark.parametrize("case", MASK_CASES,
+                         ids=[f"G{c[0]}-P{c[1]}-M{c[3]}-R{c[6]}"
+                              for c in MASK_CASES])
+def test_routed_mask_walk_at_word_boundaries(shim, case):
+    G, P, W, M, E, O, R = case
+    rng = np.random.default_rng(SEED + M)
+    ext = _padded_cluster(G, P, W, SEED + M)
+    out_np = {"buf": np.zeros((G, O, PT.N_FIELDS), np.int32),
+              "count": np.zeros((G,), np.int32)}
+    for k in range(6):  # routed steps elect leaders
+        ib = chip_smoke.route_np(ext, out_np, rng, M, E)
+        ext, out_np = _routed_against_full(shim, ext, ib, O, R, 8,
+                                           f"routed {k}")
+    hot = np.asarray([t for t in PT.HOT_TYPES if t != PT.MT_TICK], np.int32)
+    edges = [31, 32, M - 1] + ([63, 64] if M > 64 else [])
+    for k in range(4):
+        ib = chip_smoke.fuzz_inbox_np(ext, rng, M, E)
+        sparse = rng.random((G, M)) < 0.15
+        ib["mtype"] = np.where(sparse, ib["mtype"], 0).astype(np.int32)
+        # rows 0, 4, 8, ...: only the slots beside the mask's word
+        # boundaries and the last slot, each a hot type
+        edge_rows = np.arange(0, G, 4)
+        ib["mtype"][edge_rows] = 0
+        for s_ in edges:
+            ib["mtype"][edge_rows, s_] = hot[rng.integers(0, hot.size,
+                                                          edge_rows.size)]
+        # rows 1, 5, 9, ...: a cold type in the middle of the walk, hot
+        # types after it that the row must not handle
+        mid_rows = np.arange(1, G, 4)
+        ib["mtype"][mid_rows] = 0
+        ib["mtype"][mid_rows, 0] = PT.MT_TICK
+        ib["mtype"][mid_rows, M // 2] = PT.MT_INSTALL_SNAPSHOT
+        for s_ in edges:
+            if s_ > M // 2:
+                ib["mtype"][mid_rows, s_] = PT.MT_HEARTBEAT
+        want_st, want_out = _routed_against_full(shim, ext, ib, O, R, 8,
+                                                 f"fuzz {k}")
+        # the edge rows' slots were handled (they emitted), and the
+        # middle rows stopped at their cold slot
+        assert (want_out["count"][edge_rows] > 0).any(), k
+        assert (want_out["escalate"][mid_rows] & PT.ESC_COLD).all(), k
+        ext = want_st
 
 
 def _quorum_cases(P: int):
@@ -603,6 +680,39 @@ def test_rows_per_block_at_the_main_paths(geom, R):
     assert PK.smem_bytes(R, *geom[1:]) <= PK.SMEM_MAX
     G = geom[0]
     assert -(-G // R) >= PK.N_SM or R == PK.ROWS_PER_BLOCK[0]
+
+
+# the routed step's geometries on the main paths: (G, P, W, M, E, O) ->
+# rows a block and the blocks an SM's shared memory holds (233,472
+# bytes, 1,024 of them reserved a block; the full step's tile held 2 at
+# the c4 and ns widths)
+ROUTED_GEOMETRIES = [
+    ((499_998, 7, 16, 58, 2, 32), 128, 4),  # the c4 cells
+    ((300_000, 3, 32, 14, 4, 16), 128, 4),  # the ns cell
+    ((30_000, 5, 32, 28, 4, 32), 128, 4),   # chip_smoke's fused rounds
+    ((4096, 3, 16, 20, 4, 32), 32, 27),     # the colocated engine
+]
+
+
+@pytest.mark.parametrize("geom,R,blocks", ROUTED_GEOMETRIES,
+                         ids=[f"G{g[0][0]}" for g in ROUTED_GEOMETRIES])
+def test_routed_rows_per_block_at_the_main_paths(geom, R, blocks):
+    G, P, W, M, _E, _O = geom
+    assert PK.rows_per_block(*geom, routed=True) == R
+    smem = PK.routed_smem_bytes(R, P, W, M)
+    assert smem <= PK.SMEM_MAX
+    assert 233_472 // (smem + 1_024) == blocks
+    # every SM gets a block, but where even blocks of 32 rows are fewer
+    assert -(-G // R) >= PK.N_SM or R == PK.ROWS_PER_BLOCK[0]
+
+
+def test_routed_rows_per_block_raises_above_the_limit():
+    # P = 16, W = 1024: 32 rows' tile is over what a block can use
+    with pytest.raises(ValueError, match=str(PK.SMEM_MAX)):
+        PK.rows_per_block(10_000, 16, 1024, 8, 4, 32, routed=True)
+    # W = 512 fits blocks of 32 rows only, and they are taken
+    assert PK.rows_per_block(10_000, 16, 512, 8, 4, 32, routed=True) == 32
+    assert PK.routed_smem_bytes(64, 16, 512, 8) > PK.SMEM_MAX
 
 
 def test_rows_per_block_raises_above_the_limit():

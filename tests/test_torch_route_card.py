@@ -19,6 +19,10 @@ hands back from a block filled with a poison word, equal with the stats
 to the plain ``route_ref.route``, and ``fused_rounds`` equals three
 ``routed_round`` calls.
 
+The routed step's resident blocks an SM, as the occupancy API reports
+them on the card (``_native.RESIDENT_BLOCKS``), are what its tile leaves
+room for at the main paths' widths.
+
 Needs a CUDA card (the ``card`` marker; skipped without one) and imports
 no JAX, so it runs on the card's machine:
 
@@ -201,3 +205,30 @@ def test_receive_writes_every_inbox_word_at_the_bench_geometries(card,
                                                  **kw)
     _assert_equal(s_st, f_st, f"{geometry} serial rounds' state")
     _assert_equal(s_ib, f_ib, f"{geometry} serial rounds' inbox")
+
+
+# (G, P, W, M) -> the routed step's resident blocks an SM: the c4 and
+# ns cells' widths on fewer rows (every block size still gives every SM
+# a block) and chip_smoke's fused rounds, 4 blocks of 128 rows (shared
+# memory: 233,472 bytes an SM, each block's tile and 1,024 reserved);
+# the colocated engine's capacity, 32 rows a block, as many as its
+# registers allow
+RESIDENCY = [((20_000, 7, 16, 58), 4), ((20_000, 3, 32, 14), 4),
+             ((30_000, 5, 32, 28), 4), ((4096, 3, 16, 20), None)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("geom,blocks", RESIDENCY,
+                         ids=[f"G{g[0]}-P{g[1]}-M{g[3]}" for g, _ in RESIDENCY])
+def test_routed_step_reports_its_resident_blocks(card, geom, blocks):
+    G, P_, W_, M_ = geom
+    st = PT.make_state(G, P_, W_, device=card)
+    ib = PT.make_inbox(G, M_, 2, device=card)
+    _native.RESIDENT_BLOCKS.pop("raft_step_routed", None)
+    K.step_routed(st, ib, out_capacity=16)
+    torch.cuda.synchronize()
+    got = _native.RESIDENT_BLOCKS["raft_step_routed"]
+    if blocks is not None:
+        assert got == blocks
+    else:  # registers, not the 7,552-byte tile, bound it
+        assert 16 <= got <= 27, got
